@@ -1,0 +1,115 @@
+"""The port never runs on the CPU unless asked, its kernels' entry points
+take the plain versions only for CPU tensors, and it imports nothing of JAX
+or of the JAX package."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch import interop, quickstart
+from repro_torch.core import admm_baselines as ab
+from repro_torch.core import cq_ggadmm
+from repro_torch.core import engine as E
+from repro_torch.core import topology
+from repro_torch.core.graph import chain_graph
+from repro_torch.kernels import build, ops, ref
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_lib.resolve_device()
+    with pytest.raises(RuntimeError):
+        device_lib.resolve_device("cuda")
+    assert device_lib.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        device_lib.resolve_device("mps")
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
+    g = chain_graph(4)
+    x = np.zeros((4, 3, 2), np.float32)
+    y = np.zeros((4, 3), np.float32)
+    cfg = ab.cq_ggadmm()
+    prob = interop.problem_from_numpy(x, y, "linear", device="cpu")
+    calls = [
+        lambda: quickstart.part1(iters=1),
+        lambda: quickstart.main(["--iters", "1"]),
+        lambda: topology.build(g),
+        lambda: E.make_step(g, cfg, E.ExactSolver(prob)),
+        lambda: E.flat_metrics(g),
+        lambda: cq_ggadmm.init_state(4, 2, cfg),
+        lambda: cq_ggadmm.make_step(g, prob, cfg),
+        lambda: cq_ggadmm.run(g, prob, cfg, 2, 1),
+        lambda: interop.problem_from_numpy(x, y, "linear"),
+        lambda: interop.engine_state_from_numpy({}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def _quant_args(device):
+    rng = np.random.default_rng(0)
+    theta, qprev, unif = (torch.tensor(rng.uniform(size=(3, 5)),
+                                       dtype=torch.float32, device=device)
+                          for _ in range(3))
+    r = torch.amax(torch.abs(theta - qprev), dim=1)
+    return theta, qprev, unif, r / 3.0, r
+
+
+def test_ops_on_cpu_tensors_bump_no_launch_count():
+    args = _quant_args("cpu")
+    adj = torch.ones((3, 3))
+    before = dict(ops.launches)
+    torch.testing.assert_close(ops.stoch_quantize(*args),
+                               ref.stoch_quantize_ref(*args), rtol=0, atol=0)
+    torch.testing.assert_close(ops.bipartite_mix(adj, args[0]),
+                               ref.bipartite_mix_ref(adj, args[0]),
+                               rtol=0, atol=0)
+    assert ops.launches == before
+    ops.reset_launches()
+    assert ops.launches == {k: 0 for k in ops.KERNELS}
+
+
+def test_ops_on_other_devices_raise_instead_of_falling_back():
+    args = _quant_args("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stoch_quantize(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.bipartite_mix(torch.ones((3, 3), device="meta"), args[0])
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.build_all()
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
