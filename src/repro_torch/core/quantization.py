@@ -39,7 +39,10 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _log2(x: torch.Tensor) -> torch.Tensor:
-    return torch.log(x) / _LN2
+    # divide by a tensor on x's device: PyTorch on CUDA turns a division by
+    # a Python scalar into a multiply by its reciprocal, which rounds
+    # differently from the true division the CPU and the kernels do
+    return torch.log(x) / torch.tensor(_LN2, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

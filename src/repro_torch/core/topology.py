@@ -9,55 +9,82 @@ residual (Eq. 28) — goes through one :class:`Topology` built from a
 The port has the dense backend only. Its mix is always the
 ``bipartite_mix`` kernel on a CUDA tensor (``kernels.ops``), as the JAX
 package's ``use_pallas_mix=True``; a CPU tensor takes the plain version.
-The sparse and sharded backends are still to be ported (ROADMAP.md, queue
-A items 9 and 14).
+A tree mixes through its packed ``(N, D)`` buffer when all leaves share a
+dtype (one kernel call for the whole tree), leaf-wise otherwise, as the
+JAX package's ``_apply_flat``. The sparse and sharded backends are still
+to be ported (ROADMAP.md, queue A items 9 and 14).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
+from repro_torch.core import packing
+from repro_torch.core import tree as T
 from repro_torch.core.graph import WorkerGraph
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 BACKENDS = ("dense", "sparse", "sharded")
 
+Tree = Any
+
+
+def _apply_flat(fn: Callable[[torch.Tensor], torch.Tensor], a: Tree) -> Tree:
+    """Apply an ``(N, d) -> (N, d)`` map to a tree: through the packed
+    buffer when all leaves share a dtype, leaf-wise otherwise."""
+    xs = T.leaves(a)
+    if len(xs) > 1 and len({x.dtype for x in xs}) == 1:
+        pk = packing.make_packing(a, (0,) * len(xs))
+        buf = packing.pack(pk, a, dtype=xs[0].dtype)
+        return packing.unpack(pk, fn(buf), like=a)
+    return T.tree_map(
+        lambda x: fn(x.reshape(x.shape[0], -1)).reshape(x.shape), a)
+
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """Graph-structure operations behind one interface: subclasses
-    implement ``mix`` on an ``(N, d)`` tensor; the Laplacian dual term and
-    the residuals are shared."""
+    implement ``_mix_flat`` on an ``(N, d)`` tensor; the tree dispatch, the
+    Laplacian dual term and the residuals are shared."""
 
     n: int
     degrees: torch.Tensor          # (N,) float32
 
     backend = "abstract"
 
-    def mix(self, a: torch.Tensor) -> torch.Tensor:
-        """Neighbor sum per worker: out_n = sum_{m in N_n} a_m."""
+    def _mix_flat(self, flat: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def laplacian(self, a: torch.Tensor) -> torch.Tensor:
-        """``(D - A) a`` in float32 — the dual ascent direction of
-        Eq. (23)."""
+    def mix(self, a: Tree) -> Tree:
+        """Neighbor sum per worker: out_n = sum_{m in N_n} a_m."""
+        return _apply_flat(self._mix_flat, a)
+
+    def laplacian(self, a: Tree) -> Tree:
+        """``(D - A) a`` in float32, leaf-wise — the dual ascent direction
+        of Eq. (23)."""
         neigh = self.mix(a)
-        return (self.degrees[:, None] * a.to(torch.float32)
-                - neigh.to(torch.float32))
+
+        def one(x, nm):
+            shape1 = (x.shape[0],) + (1,) * (x.dim() - 1)
+            return (self.degrees.reshape(shape1) * x.to(torch.float32)
+                    - nm.to(torch.float32))
+        return T.tree_map(one, a, neigh)
 
     def primal_residual(self, theta: torch.Tensor) -> torch.Tensor:
         """Pairwise primal residual sum_{(n,m) in E} ||theta_n - theta_m||²
         (Eq. 28)."""
         raise NotImplementedError
 
-    def dual_residual(self, lap: torch.Tensor) -> torch.Tensor:
-        """Squared norm of a Laplacian image: with ``lap =
-        laplacian(theta_hat)`` this is ``||(D - A) theta_hat||²``, zero
-        exactly at consensus."""
-        return torch.sum(torch.square(lap.to(torch.float32)))
+    def dual_residual(self, lap: Tree) -> torch.Tensor:
+        """Squared norm of a Laplacian image, summed over the tree: with
+        ``lap = laplacian(theta_hat)`` this is ``||(D - A) theta_hat||²``,
+        zero exactly at consensus."""
+        parts = [torch.sum(torch.square(x.to(torch.float32)))
+                 for x in T.leaves(lap)]
+        return sum(parts[1:], parts[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +95,10 @@ class DenseTopology(Topology):
 
     backend = "dense"
 
-    def mix(self, a: torch.Tensor) -> torch.Tensor:
+    def _mix_flat(self, flat: torch.Tensor) -> torch.Tensor:
         # the kernel takes row-major buffers; a batched solve on the card
         # can hand back column-major ones
-        return ops.bipartite_mix(self.adjacency, a.contiguous())
+        return ops.bipartite_mix(self.adjacency, flat.contiguous())
 
     def primal_residual(self, theta: torch.Tensor) -> torch.Tensor:
         diffs = theta[:, None, :] - theta[None, :, :]

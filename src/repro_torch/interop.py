@@ -1,19 +1,26 @@
-"""Carry state and problem data across from the JAX package as numpy.
+"""Carry parameters, engine state and problem data across from the JAX
+package as numpy.
 
-The JAX ``EngineState`` of a one-leaf run, flattened to numpy, uses the
-keys ``theta``, ``theta_hat``, ``alpha``, ``quant.q_hat``,
+Trees travel as keystr-path -> array mappings, the layout of the JAX
+package's checkpoints: ``['stack']['units']['p0']['cell']['q']['w']``.
+A JAX ``EngineState`` flattens to the keys ``theta<path>``,
+``theta_hat<path>``, ``alpha<path>``, ``quant.q_hat<path>``,
+``opt_mu<path>``, ``opt_nu<path>`` (one key per leaf; ``<path>`` is empty
+for a bare (N, d) array), the (N, G) side information
 ``quant.range_prev``, ``quant.bits_prev``, ``quant.delta_prev``,
-``quant.initialized`` and ``k``. This module turns such a mapping into the
-port's :class:`~repro_torch.core.engine.EngineState` on a device, and back.
-It imports neither JAX nor the JAX package: the caller hands it arrays.
+``quant.initialized`` and ``k``. This module turns such mappings into the
+port's trees and :class:`~repro_torch.core.engine.EngineState` on a
+device, and back. It imports neither JAX nor the JAX package: the caller
+hands it arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.core.engine import EngineState, GroupQuantState
 from repro_torch.core.solvers import (LinearRegressionProblem,
                                       LogisticRegressionProblem)
@@ -22,6 +29,9 @@ from repro_torch.device import resolve_device
 Device = Optional[Union[str, torch.device]]
 QUANT_FIELDS = ("q_hat", "range_prev", "bits_prev", "delta_prev",
                 "initialized")
+TREE_FIELDS = ("theta", "theta_hat", "alpha", "quant.q_hat", "opt_mu",
+               "opt_nu")
+SIDE_FIELDS = ("range_prev", "bits_prev", "delta_prev", "initialized")
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -31,30 +41,65 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr.copy(), device=dev)
 
 
+def tree_from_numpy(flat: Mapping[str, np.ndarray],
+                    device: Device = None) -> Any:
+    """A keystr-path -> float32 array mapping (e.g. a JAX params tree
+    flattened with ``jax.tree_util.keystr``) as the port's tree."""
+    dev = resolve_device(device)
+    return T.from_paths({k: _tensor(v, dev) for k, v in flat.items()})
+
+
+def tree_to_numpy(tree: Any) -> Dict[str, np.ndarray]:
+    """keystr path -> numpy array, the inverse of :func:`tree_from_numpy`."""
+    return {k: v.detach().cpu().numpy() for k, v in T.to_paths(tree).items()}
+
+
+def _field(d: Mapping[str, np.ndarray], name: str) -> Dict[str, Any]:
+    """The sub-mapping of ``name<path>`` keys, keyed by ``<path>``."""
+    return {k[len(name):]: v for k, v in d.items()
+            if k == name or k.startswith(name + "[")}
+
+
 def engine_state_from_numpy(d: Mapping[str, np.ndarray],
                             device: Device = None) -> EngineState:
-    """The port's engine state from a flattened JAX one-leaf state."""
+    """The port's engine state from a flattened JAX one- or multi-leaf
+    state."""
     dev = resolve_device(device)
-    theta = _tensor(d["theta"], dev)
-    if theta.dim() != 2:
-        raise ValueError(f"theta must be (N, d), got {tuple(theta.shape)}")
-    quant = GroupQuantState(**{f: _tensor(d[f"quant.{f}"], dev)
-                               for f in QUANT_FIELDS})
-    if quant.range_prev.shape != (theta.shape[0], 1):
-        raise ValueError("only one-group (G=1) quantizer state is ported, got "
-                         f"side information of shape "
-                         f"{tuple(quant.range_prev.shape)}")
-    return EngineState(theta=theta, theta_hat=_tensor(d["theta_hat"], dev),
-                       alpha=_tensor(d["alpha"], dev), quant=quant,
+    trees = {}
+    for name in TREE_FIELDS:
+        sub = _field(d, name)
+        trees[name] = (T.from_paths({k: _tensor(v, dev)
+                                     for k, v in sub.items()})
+                       if sub else ())
+    first = T.leaves(trees["theta"])[0]
+    if first.dim() < 2 and not isinstance(trees["theta"], dict):
+        raise ValueError(f"theta must be (N, d), got {tuple(first.shape)}")
+    side = {f: _tensor(d[f"quant.{f}"], dev) for f in SIDE_FIELDS}
+    n = first.shape[0]
+    for f, x in side.items():
+        if x.dim() != 2 or x.shape[0] != n:
+            raise ValueError(f"quant.{f} must be (N, G) with N={n}, got "
+                             f"{tuple(x.shape)}")
+    quant = GroupQuantState(q_hat=trees["quant.q_hat"], **side)
+    return EngineState(theta=trees["theta"], theta_hat=trees["theta_hat"],
+                       alpha=trees["alpha"], quant=quant,
+                       opt_mu=trees["opt_mu"], opt_nu=trees["opt_nu"],
                        k=int(np.asarray(d["k"])))
 
 
 def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`engine_state_from_numpy`."""
-    out = {name: getattr(state, name).cpu().numpy()
-           for name in ("theta", "theta_hat", "alpha")}
+    out: Dict[str, np.ndarray] = {}
+    trees = {"theta": state.theta, "theta_hat": state.theta_hat,
+             "alpha": state.alpha, "quant.q_hat": state.quant.q_hat,
+             "opt_mu": state.opt_mu, "opt_nu": state.opt_nu}
+    for name, tree in trees.items():
+        if isinstance(tree, tuple):         # a solver without moments
+            continue
+        for path, leaf in T.to_paths(tree).items():
+            out[name + path] = leaf.detach().cpu().numpy()
     out.update({f"quant.{f}": getattr(state.quant, f).cpu().numpy()
-                for f in QUANT_FIELDS})
+                for f in SIDE_FIELDS})
     out["k"] = np.asarray(state.k, np.int32)
     return out
 

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
 ``build/repro_torch_kernels/`` at the root of the checkout. A library is
-named by a hash of its source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``build_all()`` starts one
-nvcc per source, all together, and waits for them. A failed build raises
-with nvcc's stderr. Nothing is built when this module is imported.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. ``build_all()`` starts one nvcc per source, all together,
+and waits for them. A failed build raises with nvcc's stderr. Nothing is
+built when this module is imported.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
-SOURCES = ("stoch_quant", "bipartite_mix")
+SOURCES = ("stoch_quant", "bipartite_mix", "grouped_quant", "grouped_fused",
+           "grouped_fused_tiled")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -45,6 +47,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
 

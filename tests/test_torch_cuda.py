@@ -13,11 +13,83 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base
+from repro_torch.core import packing
+from repro_torch.core import tree as T
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.models import registry
 
 QUANT_SHAPES = [(24, 50), (7, 1), (64, 2000)]
 MIX_SHAPES = [(24, 24, 50), (12, 24, 513)]
+
+
+def _smoke_dims():
+    tree = registry.init_params(base.get_smoke_config("xlstm-125m"),
+                                device="meta")
+    return tuple(int(np.prod(x.shape)) for x in T.leaves(tree))
+
+
+# grouped layouts: (name, rows, per-leaf dims, leaf -> group ids,
+# (row, group) pairs made degenerate)
+GROUPED_LAYOUTS = {
+    "flat-64x2000-G1": (64, (2000,), (0,), ()),
+    "xlstm-smoke-G19": (4, _smoke_dims(), tuple(range(19)), ()),
+    "ragged-5x4099": (5, (1000, 3, 1, 2048, 1047), (0, 1, 0, 2, 1),
+                      ((0, 1), (3, 2))),
+}
+
+
+def grouped_inputs(n, dims, gids, seed, degenerate=()):
+    """Packed (N, D) theta, q_prev, uniforms and (N, G) quantizer state as
+    float32 numpy, plus the packing. Integer bit widths 2..8, some
+    first-round and some zero-range groups; each (row, group) in
+    ``degenerate`` has theta == q_prev on its columns (R = 0)."""
+    tree = {f"k{i:02d}": torch.empty((n, d), device="meta")
+            for i, d in enumerate(dims)}
+    pk = packing.make_packing(tree, gids)
+    rng = np.random.default_rng(seed)
+    d_all, g = pk.dim, pk.n_groups
+    theta = (3.0 * rng.standard_normal((n, d_all))).astype(np.float32)
+    qprev = (3.0 * rng.standard_normal((n, d_all))).astype(np.float32)
+    unif = rng.uniform(size=(n, d_all)).astype(np.float32)
+    for row, grp in degenerate:
+        cols = pk.col_group_ids == grp
+        theta[row, cols] = qprev[row, cols]
+    bits = rng.integers(2, 9, size=(n, g)).astype(np.float32)
+    rprev = (rng.uniform(size=(n, g)) * 8.0).astype(np.float32)
+    rprev[rng.uniform(size=(n, g)) < 0.2] = 0.0
+    init = (rng.uniform(size=(n, g)) < 0.8).astype(np.float32)
+    return (theta, qprev, unif, bits, rprev, init), pk
+
+
+def boundary_inputs(omega=0.9995, n=48, d=300, seed=2):
+    """Rows whose new range is exactly omega x the previous one, so the
+    Eq. (18) argument 1 + (2^b - 1) R / (omega R_prev) lands on 2^b and
+    ``ceil(log2(.))`` turns on the last bit of each rounding. Bit widths
+    1..16. Float32 numpy, G=1."""
+    rng = np.random.default_rng(seed)
+    rprev = (0.1 + 5.0 * rng.uniform(size=(n, 1))).astype(np.float32)
+    rnew = (np.float32(omega) * rprev).astype(np.float32)
+    theta = (rnew * rng.uniform(-0.5, 0.5, size=(n, d))).astype(np.float32)
+    theta[:, 0] = rnew[:, 0]
+    qprev = np.zeros((n, d), np.float32)
+    unif = rng.uniform(size=(n, d)).astype(np.float32)
+    bits = (1 + np.arange(n) % 16).astype(np.float32)[:, None]
+    return theta, qprev, unif, bits, rprev, np.ones((n, 1), np.float32)
+
+
+def assert_grouped_close(got, want, args, pk):
+    """(N, G) outputs bit for bit; ``out`` as ``assert_quant_close`` with
+    each column's (Δ, R)."""
+    out, rng_new, bits, delta = (np.asarray(x) for x in got)
+    w_out, w_rng, w_bits, w_delta = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(rng_new, w_rng)
+    np.testing.assert_array_equal(bits, w_bits)
+    np.testing.assert_array_equal(delta, w_delta)
+    cols = pk.col_group_ids
+    assert_quant_close(out, w_out, args[0], args[1], args[2],
+                       w_delta[:, cols], w_rng[:, cols])
 
 
 @pytest.fixture
@@ -49,16 +121,19 @@ def assert_quant_close(got, want, theta, qprev, unif, delta, qrange):
     interpret path contracts ``q_prev + Δq`` into an FMA, so its last
     rounding differs), except that a coordinate may differ by exactly one
     step Δ where the rounding decision ``u < frac(c)`` sits within one
-    float32 ulp of its boundary."""
+    float32 ulp of its boundary. ``delta``/``qrange`` are (N,) per row or
+    (N, D) per column."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
+    if delta.ndim == 1:
+        delta, qrange = delta[:, None], qrange[:, None]
     diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
-    terms = np.abs(qprev.astype(np.float64)) + 2.0 * qrange[:, None]
+    terms = np.abs(qprev.astype(np.float64)) + 2.0 * qrange
     close = diff <= 1e-6 * terms
     if close.all():
         return
-    sd = np.maximum(delta, np.float32(1e-12))[:, None]
-    c = (theta - qprev + qrange[:, None]) / sd
+    sd = np.broadcast_to(np.maximum(delta, np.float32(1e-12)), got.shape)
+    c = (theta - qprev + qrange) / sd
     frac = c - np.floor(c)
     step = np.broadcast_to(sd, got.shape)
     bad = ~close
@@ -142,3 +217,99 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
         thetas.append(out["theta"].cpu().numpy())
     err = np.abs(thetas[0] - thetas[1]).max()
     assert err <= 1e-4 * np.abs(thetas[0][-1]).max(), err
+
+
+FUSED = {"fused": ops.stoch_quantize_grouped_fused,
+         "tiled": lambda *a, **k: ops.stoch_quantize_grouped_fused_tiled(
+             *a, block_d=512, **k)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FUSED))
+@pytest.mark.parametrize("layout", sorted(GROUPED_LAYOUTS))
+def test_grouped_fused_kernels_match_plain_on_card(cuda, layout, variant):
+    n, dims, gids, degen = GROUPED_LAYOUTS[layout]
+    args, pk = grouped_inputs(n, dims, gids, seed=7, degenerate=degen)
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args]
+    kw = dict(group_runs=pk.group_runs, omega=0.9995, b0=6, b_max=16)
+    name = ("stoch_quantize_grouped_fused" if variant == "fused"
+            else "stoch_quantize_grouped_fused_tiled")
+    before = ops.launches[name]
+    got = FUSED[variant](*dev_args, None, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 1
+    gid = torch.from_numpy(pk.col_group_ids).to(cuda)
+    want = ref.stoch_quantize_grouped_fused_ref(*dev_args, gid, **kw)
+    assert_grouped_close([x.cpu() for x in got], [x.cpu() for x in want],
+                         args, pk)
+    for row, grp in degen:          # degenerate groups pass q_prev through
+        cols = torch.from_numpy(pk.col_group_ids == grp).to(cuda)
+        assert torch.equal(got[0][row][cols], dev_args[1][row][cols])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FUSED))
+def test_fused_schedule_matches_plain_at_log2_boundaries(cuda, variant):
+    args = boundary_inputs()
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args]
+    runs = (((0, args[0].shape[1]),),)
+    kw = dict(group_runs=runs, omega=0.9995, b0=2, b_max=16)
+    got = FUSED[variant](*dev_args, None, **kw)
+    want = ref.stoch_quantize_grouped_fused_ref(
+        *dev_args, torch.zeros(args[0].shape[1], dtype=torch.int64,
+                               device=cuda), **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(GROUPED_LAYOUTS))
+def test_tiled_kernel_equals_fused_kernel_on_card(cuda, layout):
+    n, dims, gids, degen = GROUPED_LAYOUTS[layout]
+    args, pk = grouped_inputs(n, dims, gids, seed=8, degenerate=degen)
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args]
+    kw = dict(group_runs=pk.group_runs, omega=0.99, b0=2, b_max=16)
+    fused = ops.stoch_quantize_grouped_fused(*dev_args, None, **kw)
+    for tile in (512, 1000, 1 << 20):
+        tiled = ops.stoch_quantize_grouped_fused_tiled(*dev_args, None,
+                                                       block_d=tile, **kw)
+        for a, b in zip(fused, tiled):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(GROUPED_LAYOUTS))
+def test_grouped_quant_kernel_matches_plain_on_card(cuda, layout):
+    n, dims, gids, degen = GROUPED_LAYOUTS[layout]
+    args, pk = grouped_inputs(n, dims, gids, seed=9, degenerate=degen)
+    theta, qprev, unif = (torch.from_numpy(a).to(cuda) for a in args[:3])
+    rng_new = ref.grouped_range_ref(theta - qprev, pk.group_runs)
+    bits = torch.from_numpy(args[3]).to(cuda)
+    delta = 2.0 * rng_new / (torch.exp2(bits) - 1.0)
+    before = ops.launches["stoch_quantize_grouped"]
+    got = ops.stoch_quantize_grouped(theta, qprev, unif, delta, rng_new, None,
+                                     group_runs=pk.group_runs)
+    torch.cuda.synchronize()
+    assert ops.launches["stoch_quantize_grouped"] == before + 1
+    gid = torch.from_numpy(pk.col_group_ids).to(cuda)
+    want = ref.stoch_quantize_grouped_ref(theta, qprev, unif, delta, rng_new,
+                                          gid)
+    cols = pk.col_group_ids
+    assert_quant_close(got.cpu().numpy(), want.cpu().numpy(), args[0],
+                       args[1], args[2], delta.cpu().numpy()[:, cols],
+                       rng_new.cpu().numpy()[:, cols])
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_reject_what_they_do_not_take(cuda):
+    args, pk = grouped_inputs(4, (10, 6), (0, 1), seed=1)
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args]
+    kw = dict(omega=0.99, b0=2, b_max=16)
+    with pytest.raises(ValueError, match="tile"):       # runs leave a gap
+        ops.stoch_quantize_grouped_fused(*dev_args, None,
+                                         group_runs=(((0, 10),), ((11, 5),)),
+                                         **kw)
+    with pytest.raises(ValueError):                     # float64 theta
+        ops.stoch_quantize_grouped_fused(dev_args[0].double(),
+                                         *dev_args[1:], None,
+                                         group_runs=pk.group_runs, **kw)

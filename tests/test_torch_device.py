@@ -16,6 +16,7 @@ from repro_torch.core import engine as E
 from repro_torch.core import topology
 from repro_torch.core.graph import chain_graph
 from repro_torch.kernels import build, ops, ref
+from repro_torch.launch import train
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -52,6 +53,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         lambda: cq_ggadmm.run(g, prob, cfg, 2, 1),
         lambda: interop.problem_from_numpy(x, y, "linear"),
         lambda: interop.engine_state_from_numpy({}),
+        lambda: interop.tree_from_numpy({}),
+        lambda: train.main(["--smoke", "--steps", "1", "--batch", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -87,6 +90,27 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
         ops.stoch_quantize(*args)
     with pytest.raises(ValueError, match="CUDA"):
         ops.bipartite_mix(torch.ones((3, 3), device="meta"), args[0])
+    side = torch.zeros((3, 1), device="meta")
+    runs = (((0, 5),),)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stoch_quantize_grouped_fused(*args[:3], side, side, side, None,
+                                         group_runs=runs, omega=0.99, b0=2,
+                                         b_max=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stoch_quantize_grouped_fused_tiled(
+            *args[:3], side, side, side, None, group_runs=runs, omega=0.99,
+            b0=2, b_max=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stoch_quantize_grouped(*args[:3], side, side, None,
+                                   group_runs=runs)
+
+
+@pytest.mark.parametrize("argv", [["--mode", "fsdp"], ["--fleet"],
+                                  ["--campaign", "lm-sweep"],
+                                  ["--trace", "t.json"]])
+def test_train_flags_not_ported_exit_naming_roadmap(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        train.main(["--smoke", "--device", "cpu"] + argv)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

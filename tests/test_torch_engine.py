@@ -245,11 +245,52 @@ def test_cq_ggadmm_adapter_run(setup):
 @pytest.mark.parametrize("kw", [dict(mix_backend="sparse"),
                                 dict(mix_backend="sharded"),
                                 dict(hat_dtype="bfloat16"),
-                                dict(groups="block:attn,mlp"),
-                                dict(groups=(0, 1))])
+                                dict(hat_dtype="float16"),
+                                dict(hat_dtype="float32", groups="leaf")])
 def test_engine_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         E.EngineConfig(**kw)
+
+
+def test_step_refuses_the_fleet_participation_hook(setup):
+    s = setup
+    step = E.make_step(s["graph"], ab.ggadmm(), E.ExactSolver(s["prob"]),
+                       device="cpu")
+    state = E.init_state(torch.zeros((N, D)), ab.ggadmm())
+    with pytest.raises(NotImplementedError, match="participation"):
+        step(state, None, participation=torch.ones(N))
+
+
+@pytest.mark.parametrize("groups", ["model", "leaf", "block:attn,mlp",
+                                    "block:embed,mlp,norm,rest", "auto:3",
+                                    (0, 1), ((0, 1), (2,))], ids=str)
+def test_engine_config_accepts_every_group_spec(groups):
+    """Group specs are ported: each form is accepted as the JAX package
+    accepts it (resolution against a tree is tested in
+    test_torch_packing.py)."""
+    cfg = E.EngineConfig(groups=groups)
+    assert cfg.groups == JE.EngineConfig(groups=groups).groups
+
+
+@pytest.mark.parametrize("groups", ["block:", "auto:0", "auto:x", "layer"])
+def test_engine_config_refuses_malformed_group_specs(groups):
+    with pytest.raises(E.GroupSpecError):
+        E.EngineConfig(groups=groups)
+    with pytest.raises(JE.GroupSpecError):
+        JE.EngineConfig(groups=groups)
+
+
+@pytest.mark.parametrize("scheme", ["ggadmm", "cq-ggadmm", "c-admm"])
+def test_step_metric_keys_match_jax(setup, scheme):
+    """Both packages' steps return the same metric keys; on the
+    synchronous path censor_mask == tx_mask and offered == payload."""
+    s = setup
+    want = run_jax(s, jab.ALL_SCHEMES[scheme](rho=1.0), 2)
+    _, got, _, _ = run_port(s, ab.ALL_SCHEMES[scheme](rho=1.0), 2)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["censor_mask"], got["tx_mask"])
+    np.testing.assert_array_equal(got["offered_payload_bits"],
+                                  got["payload_bits"])
 
 
 def test_engine_config_names_and_defaults():
