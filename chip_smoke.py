@@ -41,7 +41,23 @@ with its time printed:
    ``REPRO_QUANT_TILE_D=512``, ``--groups block:embed,mlp,norm`` and
    ``--censor-mode group``: 2 tiled quantize launches per step;
 9. one packed quantize step at the smoke width through the two-pass path
-   (``stoch_quantize_grouped``) and the fused one: value-identical.
+   (``stoch_quantize_grouped``) and the fused one: value-identical;
+10. the two paged-attention decode kernels (one-shot and online softmax)
+   against their plain versions, and the online one against the one-shot
+   one, to 1e-5 of max|V|, at the smoke model's heads and at tinyllama's
+   (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages, ctx 0 to
+   4096, poisoned table slots), with bf16, 8-bit and 4-bit pools; kernel,
+   plain and SDPA times at the shapes the serving path gives them;
+11. serving tinyllama-1.1b at full width (random float32 weights from
+   seed 0, bf16 activations) through the paged scheduler: 16 greedy
+   requests (prompt lengths 17..700, 128 new tokens, max_seqs 8, pages of
+   16, 64-page tables, 64-token prefill chunks), exactly 22 one-shot
+   launches per decode tick, held against the lockstep engine's
+   contiguous decode (each parting only at a near-tie), again with float32
+   activations and pools; kv_bits 8 and 4 streams; one request at ~4000
+   tokens, where the shared-memory threshold picks the online kernel; 0
+   pages in use after each; decode ms per tick, tokens/s, peak memory and
+   the top device activities of one profiled tick.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -117,17 +133,20 @@ def device_times(fn, calls: int = 1):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, t = acts.get(e.name, (0, 0.0))
-            acts[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    for _ in range(2):          # a profile that caught nothing is repeated
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, t = acts.get(e.name, (0, 0.0))
+                acts[e.name] = (n + 1, t + e.device_time_total / 1e3)
+        if acts:
+            break
     return wall_ms, acts
 
 
@@ -744,6 +763,426 @@ def twopass_vs_fused(ops, dev):
     return launches
 
 
+# serving: tinyllama-1.1b at full width (arXiv:2401.02385), the request
+# stream of the paged scheduler and the contiguous lockstep reference
+SERVE_LENS = (17, 96, 255, 512, 700, 33, 384, 128)
+SERVE_REQUESTS, SERVE_NEW = 16, 128
+SERVE_GEOM = dict(max_seqs=8, page_size=16, pages_per_seq=64,
+                  prefill_chunk=64)
+SHORT_REQUESTS, SHORT_NEW = 4, 32
+LONG_PROMPT, LONG_NEW, LONG_PAGES = 3968, 32, 256
+GAP_TOL = 1e-3
+TOP_K = 8        # logits kept per generated position for the comparison
+# (B, H, KV, hd, ps, P) and ctx lens of the paged-attention checks: the
+# smoke model's heads; tinyllama's with the main stream's table (64 pages)
+# and with the long request's (256 pages); poisoned slots past ctx
+PAGED_CHECKS = {
+    "smoke": ((3, 8, 2, 32, 4, 16), (0, 1, 37)),
+    "tinyllama P=64": ((8, 32, 4, 64, 16, 64),
+                       (0, 1, 81, 160, 319, 576, 764, 1024)),
+    "tinyllama P=256": ((8, 32, 4, 64, 16, 256),
+                        (0, 1, 700, 1500, 2500, 3300, 4000, 4096)),
+}
+
+
+def paged_inputs(dev, shape, ctx, kv_bits, seed):
+    """Decode inputs on the card from a seeded generator: q (B, H, hd)
+    float32; K/V pools of B*P+3 pages as bf16 values (kv_bits 32) or as
+    ``kv_page_quantize`` codes with their ranges; a table of distinct pages
+    whose slots past ctx are poisoned (-1, or ids past the pool). Returns
+    (q, keyword arguments, max |V| as the kernels read it)."""
+    from repro_torch.kernels import ref
+
+    bsz, heads, num_kv, hd, ps, pps = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = bsz * pps + 3
+    q = torch.randn((bsz, heads, hd), generator=gen, device=dev)
+    pool = (num_pages, ps, num_kv, hd)
+    k = torch.randn(pool, generator=gen, device=dev)
+    v = 2.0 * torch.randn(pool, generator=gen, device=dev)
+    ctx = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    bt = torch.randperm(num_pages, generator=gen, device=dev)[:bsz * pps]
+    bt = bt.reshape(bsz, pps)
+    used = ((ctx.long() + ps - 1) // ps)[:, None]
+    lidx = torch.arange(pps, device=dev)[None]
+    poison = torch.where((lidx - used) % 2 == 0, -1, num_pages + 7)
+    bt = torch.where(lidx >= used, poison, bt).to(torch.int32).contiguous()
+    kw = dict(block_tables=bt, ctx_lens=ctx, kv_bits=kv_bits)
+    if kv_bits == 32:
+        kw.update(k_pages=k.to(torch.bfloat16), v_pages=v.to(torch.bfloat16))
+        vmax = float(kw["v_pages"].float().abs().max())
+    else:
+        kc, kr = ref.kv_page_quantize(k, kv_bits=kv_bits)
+        vc, vr = ref.kv_page_quantize(v, kv_bits=kv_bits)
+        kw.update(k_pages=kc, v_pages=vc, k_scale=kr, v_scale=vr)
+        vmax = float(ref.kv_page_dequantize(vc, vr, kv_bits=kv_bits,
+                                            head_dim=hd).abs().max())
+    return q, kw, vmax
+
+
+def paged_kernel(q, kw, online):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    kw = dict(kw)
+    return paged_attention_cuda(q, kw.pop("k_pages"), kw.pop("v_pages"),
+                                kw.pop("block_tables"), kw.pop("ctx_lens"),
+                                online=online, **kw)
+
+
+def paged_plain(ref, q, kw, online):
+    kw = dict(kw)
+    fn = ref.paged_attention_online_ref if online else ref.paged_attention_ref
+    return fn(q, kw.pop("k_pages"), kw.pop("v_pages"),
+              kw.pop("block_tables"), kw.pop("ctx_lens"), **kw)
+
+
+def check_paged_parity(ref, dev):
+    """B7 (one-shot) and B8 (online) against their plain versions, and B8
+    against B7 where ctx > 0, to 1e-5 of max|V|, at every shape and
+    kv_bits 32 (bf16 pools), 8 and 4. The kernels get the poisoned table
+    as it is (they clamp it, as ``ops`` also does)."""
+    errs = {"paged_attention_decode": 0.0,
+            "paged_attention_decode_online": 0.0}
+    seed = 0
+    for label, (shape, ctx) in PAGED_CHECKS.items():
+        for bits in (32, 8, 4):
+            seed += 1
+            q, kw, vmax = paged_inputs(dev, shape, ctx, bits, seed)
+            got = {o: paged_kernel(q, kw, o) for o in (False, True)}
+            torch.cuda.synchronize()
+            line = []
+            for online, name in ((False, "paged_attention_decode"),
+                                 (True, "paged_attention_decode_online")):
+                err = float((got[online] - paged_plain(ref, q, kw, online)
+                             ).abs().max())
+                if not err <= 1e-5 * vmax:
+                    raise AssertionError(f"{name} {label} kv_bits {bits}: "
+                                         f"max |err| {err:.3e} > 1e-5 x "
+                                         f"{vmax:.3f}")
+                errs[name] = max(errs[name], err)
+                line.append(f"{name} {err:.3e}")
+            live = kw["ctx_lens"] > 0
+            cross = float((got[True][live] - got[False][live]).abs().max())
+            if not cross <= 1e-5 * vmax:
+                raise AssertionError(f"B8 vs B7 {label} kv_bits {bits}: "
+                                     f"{cross:.3e}")
+            assert bool((got[True][~live] == 0).all()), "B8 ctx 0 not zero"
+            log(f"parity paged {label} kv_bits {bits}: max |err| "
+                f"{', '.join(line)}, B8 vs B7 {cross:.3e} (max|V| "
+                f"{vmax:.3f})")
+            del q, kw, got
+    return errs
+
+
+def paged_bound(shape, ctx, kv_bits, online):
+    """Least time for one call: the K/V entries (and ranges) of the pages
+    up to ctx (where ctx = 0: all P pages for the one-shot kernel's uniform
+    average, none for the online kernel), q, out, table and ctx, each read
+    or written once, at the card's memory rate; against 4·H·hd float32
+    operations per slot."""
+    bsz, heads, num_kv, hd, ps, pps = shape
+    slots = sum((-(-c // ps) if c else (0 if online else pps)) * ps
+                for c in ctx)
+    entry = {32: 2 * hd, 8: hd + 4, 4: hd // 2 + 4}[kv_bits]
+    n_bytes = (2 * slots * num_kv * entry + 2 * 4 * bsz * heads * hd
+               + 4 * bsz * pps + 4 * bsz)
+    return bound(n_bytes, 4.0 * heads * hd * slots)
+
+
+def time_paged(ref, dev):
+    """Kernel, plain and library times of B7 and B8 at the shapes the
+    serving path gives them (bf16 pools): B7 at the main stream's table
+    with its mid-decode contexts, B8 at the long request's table with one
+    sequence at ~4000 tokens; also each at the other's shape, and at
+    kv_bits 8 and 4 (printed only)."""
+    import torch.nn.functional as F
+
+    b7_ctx = tuple(n + SERVE_NEW // 2 for n in SERVE_LENS)
+    b8_ctx = (LONG_PROMPT + LONG_NEW // 2,) + (0,) * 7
+    cases = {
+        "paged_attention_decode": ((8, 32, 4, 64, 16, 64), b7_ctx, False),
+        "paged_attention_decode_online": ((8, 32, 4, 64, 16, 256), b8_ctx,
+                                          True),
+    }
+    extra = {
+        "B8 at B7's shape": ((8, 32, 4, 64, 16, 64), b7_ctx, True),
+        "B7 at B8's shape": ((8, 32, 4, 64, 16, 256), b8_ctx, False),
+        "B7 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, False),
+        "B8 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, True),
+    }
+    kname = {False: "paged_oneshot_kernel", True: "paged_online_kernel"}
+    out = {}
+    for label, (shape, ctx, online) in {**cases, **extra}.items():
+        for bits in ((32, 8, 4) if label in cases else (32,)):
+            q, kw, _ = paged_inputs(dev, shape, ctx, bits, 50)
+            b = paged_bound(shape, ctx, bits, online)
+            t = {"ms": time_ms(lambda: paged_kernel(q, kw, online), 50, 5),
+                 "plain_ms": time_ms(lambda: paged_plain(ref, q, kw, online),
+                                     3, 3),
+                 "bound": b, "library_ms": None}
+            _, acts = device_times(lambda: paged_kernel(q, kw, online), 20)
+            hits = [(c, ms) for k, (c, ms) in acts.items()
+                    if kname[online] in k]
+            t["device_ms"] = (sum(ms for _, ms in hits) / sum(c for c, _ in hits)
+                              if hits else None)
+            if not hits:
+                log(f"profile found no {kname[online]} among "
+                    f"{sorted(acts)[:6]}")
+            if bits == 32:
+                # the same function after the gather: SDPA over contiguous
+                # bf16 K/V of the whole table, masked by ctx
+                bsz, heads, num_kv, hd, ps, pps = shape
+                bt = torch.clamp(kw["block_tables"].long(), 0,
+                                 kw["k_pages"].shape[0] - 1)
+
+                def gather(pool):
+                    g = pool[bt].reshape(bsz, pps * ps, num_kv, hd)
+                    return g.permute(0, 2, 1, 3).contiguous()
+
+                kg, vg = gather(kw["k_pages"]), gather(kw["v_pages"])
+                qb = q.to(torch.bfloat16)[:, :, None, :]
+                mask = (torch.arange(pps * ps, device=dev)[None]
+                        < kw["ctx_lens"][:, None])[:, None, None, :]
+                t["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qb, kg, vg, attn_mask=mask, enable_gqa=True), 50, 5)
+                del kg, vg
+            log(f"time {label} kv_bits {bits} ctx {ctx}: per call "
+                f"{t['ms']:.5f} ms (device only {t['device_ms']} ms), plain "
+                f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']} ms, bound "
+                f"{b[0]:.5f} ms ({b[1]})")
+            if label in cases and bits == 32:
+                out[label] = t
+            del q, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_spacing(x: float) -> float:
+    """Distance between neighbouring bfloat16 values at |x| (8 significant
+    bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def first_divergence(name, got, want, bf16: bool):
+    """Compare two greedy streams ((tokens, (top-k values, top-k ids)) per
+    request). Where they part, print the step and both runs' top-2 logit
+    gaps there. A divergence fails unless, in one of the runs, the other
+    run's token is within a near-tie tolerance of the top logit: GAP_TOL
+    for float32 logits, one bfloat16 step at the top logit for bf16 logits
+    (whose resolution, 2^-8 to 2^-6 at these magnitudes, is coarser than
+    GAP_TOL)."""
+    diverged = 0
+    for r in sorted(got):
+        a, (va, ia) = got[r]
+        b, (vb, ib) = want[r]
+        diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+        if not len(diff):
+            continue
+        k = int(diff[0])
+        diverged += 1
+        gap_a = float(va[k][0] - va[k][1])
+        gap_b = float(vb[k][0] - vb[k][1])
+        tol_a = bf16_spacing(va[k][0]) if bf16 else GAP_TOL
+        tol_b = bf16_spacing(vb[k][0]) if bf16 else GAP_TOL
+        log(f"{name} request {r} diverges at step {k}: paged token "
+            f"{a[k]} (top-2 gap {gap_a:.4e}), lockstep token {b[k]} "
+            f"(top-2 gap {gap_b:.4e}); near-tie tolerance {tol_a:.4e} / "
+            f"{tol_b:.4e}")
+        def tied(v, ids, other, tol):
+            hit = np.nonzero(ids == other)[0]
+            return bool(len(hit)) and v[0] - v[hit[0]] <= tol
+
+        if not (tied(va[k], ia[k], b[k], tol_a)
+                or tied(vb[k], ib[k], a[k], tol_b)):
+            raise AssertionError(f"{name} request {r}: a divergence at step "
+                                 f"{k} with top-2 gaps {gap_a:.4e} / "
+                                 f"{gap_b:.4e}")
+    return diverged
+
+
+def compare_with_lockstep(name, cfg, params, dev, prompts, new, sched, outs,
+                          batch, cache_dtype=torch.bfloat16):
+    """Run the lockstep engine on ``prompts`` in waves of ``batch``
+    equal-length prompts (so nothing is padded) and hold the scheduler's
+    greedy streams against it (:func:`first_divergence`)."""
+    from repro_torch.launch import serve
+
+    by_len = sorted(range(len(prompts)), key=lambda i: (len(prompts[i]), i))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lock = serve.LockstepEngine(cfg, params, batch=batch, device=dev,
+                                    cache_dtype=cache_dtype).run(
+            [prompts[i] for i in by_len], new, keep_top=TOP_K)
+    torch.cuda.synchronize()
+    want = {by_len[j]: (lock["outputs"][j], lock["top"][j])
+            for j in range(len(by_len))}
+    got = {i: (outs[i], (np.stack([v for v, _ in sched.top[i]]),
+                         np.stack([t for _, t in sched.top[i]])))
+           for i in range(len(outs))}
+    n_div = first_divergence(name, got, want, cfg.dtype == "bfloat16")
+    same = sum(int((got[i][0] == want[i][0]).all()) for i in got)
+    log(f"{name} lockstep reference ({cfg.dtype} activations): "
+        f"{time.perf_counter() - t0:.1f} s; {same} of {len(got)} requests "
+        f"equal token for token, {n_div} part at a near-tie")
+
+
+def serve_stream(sched_cls, cfg, params, dev, prompts, new, scfg, ops,
+                 record_top=0):
+    """Serve ``prompts`` through a fresh scheduler with the kernel counts
+    and the peak-memory mark set just before; returns (scheduler, outputs
+    by request, launches, wall seconds)."""
+    sched = sched_cls(cfg, params, scfg, device=dev, record_top=record_top)
+    rids = [sched.submit(p, new) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        finished = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    assert all(len(finished[r]) == new for r in rids)
+    assert sched.pool.in_use == 0, sched.pool.in_use
+    return sched, [finished[r] for r in rids], launches, wall
+
+
+def serve_full_width(ops, dev):
+    """tinyllama-1.1b at full width through the port's scheduler: the
+    16-request greedy stream (B7 on every decode tick), held against the
+    lockstep engine's contiguous decode; short kv_bits 8 and 4 streams; one
+    request at ~4000 tokens (B8 by the threshold); one profiled tick."""
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.serving import paging
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    cfg = base.get_config("tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = registry.count_params(cfg)
+    lens = list(SERVE_LENS) * (SERVE_REQUESTS // len(SERVE_LENS))
+    prompts = serve.make_prompts(cfg, lens, 0)
+    log(f"serve tinyllama-1.1b: {n_params} float32 parameters on the card "
+        f"in {time.perf_counter() - t0:.1f} s; {len(prompts)} requests, "
+        f"prompt lengths {lens}, {SERVE_NEW} new tokens each")
+    geom = dict(SERVE_GEOM)
+    worst = geom["max_seqs"] * geom["pages_per_seq"]
+    scfg = ServeConfig(num_pages=2 * worst, kv_bits=32, **geom)
+    sched, outs, launches, wall = serve_stream(
+        Scheduler, cfg, params, dev, prompts, SERVE_NEW, scfg, ops,
+        record_top=TOP_K)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in ops.KERNELS}
+    want["paged_attention_decode"] = cfg.num_layers * sched.decode_steps
+    assert launches == want, (launches, sched.decode_steps)
+    ticks = np.asarray(sched.decode_step_s) * 1e3
+    pre = float(np.sum(sched.prefill_chunk_s))
+    log(f"serve paged stream: {wall:.2f} s wall, {sched.steps} ticks, "
+        f"{sched.decode_steps} decode ticks (median {np.median(ticks):.3f} ms"
+        f", mean {ticks.mean():.3f} ms, p90 {np.percentile(ticks, 90):.3f} "
+        f"ms), {sched.decode_tokens / (ticks.sum() / 1e3):.1f} decode "
+        f"tokens/s ({sched.decode_tokens} tokens fed by decode ticks), "
+        f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} generated tokens/s end to "
+        f"end, prefill {sched.prefill_tokens} tokens in "
+        f"{sched.prefill_chunks} chunks, {sched.prefill_tokens / pre:.1f} "
+        f"prefill tokens/s; peak device memory {peak_gb:.2f} GB; peak pages "
+        f"{sched.peak_pages_in_use} of {scfg.num_pages}, final 0")
+    log(f"serve launches {launches} (= {cfg.num_layers} x "
+        f"{sched.decode_steps} decode ticks, one variant: B7)")
+
+    compare_with_lockstep("serve", cfg, params, dev, prompts, SERVE_NEW,
+                          sched, outs, 2)
+    del sched
+
+    # the same stream with float32 activations and pools: paged (B7 on
+    # float32 pages) against lockstep at GAP_TOL
+    cfg32 = cfg.with_overrides(dtype="float32")
+    s32cfg = ServeConfig(num_pages=2 * worst, kv_bits=32,
+                         cache_dtype="float32", **geom)
+    s32, outs32, l32, w32 = serve_stream(
+        Scheduler, cfg32, params, dev, prompts, SERVE_NEW, s32cfg, ops,
+        record_top=TOP_K)
+    assert l32["paged_attention_decode"] == cfg.num_layers * s32.decode_steps
+    log(f"serve float32 stream: {w32:.2f} s wall, {s32.decode_steps} decode "
+        f"ticks (median {np.median(s32.decode_step_s) * 1e3:.3f} ms)")
+    compare_with_lockstep("serve float32", cfg32, params, dev, prompts,
+                          SERVE_NEW, s32, outs32, 2, torch.float32)
+    del s32
+
+    # short streams with quantized pages
+    for bits in (8, 4):
+        s2cfg = ServeConfig(num_pages=2 * worst, kv_bits=bits, **geom)
+        s2, outs2, l2, w2 = serve_stream(
+            Scheduler, cfg, params, dev, prompts[:SHORT_REQUESTS], SHORT_NEW,
+            s2cfg, ops)
+        want = {k: 0 for k in ops.KERNELS}
+        want["paged_attention_decode"] = cfg.num_layers * s2.decode_steps
+        assert l2 == want, l2
+        agree = sum(int((a == outs[i][:SHORT_NEW]).all())
+                    for i, a in enumerate(outs2))
+        log(f"serve kv_bits {bits}: {SHORT_REQUESTS} x {SHORT_NEW} tokens in "
+            f"{w2:.2f} s, {s2.decode_steps} decode ticks (median "
+            f"{np.median(s2.decode_step_s) * 1e3:.3f} ms), page bytes "
+            f"{paging.cache_page_bytes(s2.cache)}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, final pages "
+            f"0, {agree} of "
+            f"{SHORT_REQUESTS} streams equal to the bf16 pages' first "
+            f"{SHORT_NEW} tokens; launches {l2}")
+        del s2
+
+    # one long request: the threshold picks the online kernel
+    long_prompt = serve.make_prompts(cfg, [LONG_PROMPT], 1)[0]
+    lcfg = ServeConfig(
+        max_seqs=geom["max_seqs"], page_size=geom["page_size"],
+        pages_per_seq=LONG_PAGES, prefill_chunk=geom["prefill_chunk"],
+        num_pages=2 * paging.pages_needed(LONG_PROMPT + LONG_NEW,
+                                          geom["page_size"]), kv_bits=32)
+    s3, outs3, l3, w3 = serve_stream(Scheduler, cfg, params, dev,
+                                     [long_prompt], LONG_NEW, lcfg, ops,
+                                     record_top=TOP_K)
+    peak3 = torch.cuda.max_memory_allocated() / 1e9
+    variant = [k for k, n in l3.items() if n]
+    want = {k: 0 for k in ops.KERNELS}
+    want["paged_attention_decode_online"] = cfg.num_layers * s3.decode_steps
+    assert l3 == want, l3
+    compare_with_lockstep("serve long", cfg, params, dev, [long_prompt],
+                          LONG_NEW, s3, outs3, 1)
+    log(f"serve long request: prompt {LONG_PROMPT} + {LONG_NEW} tokens "
+        f"(ctx up to {LONG_PROMPT + LONG_NEW}), table {LONG_PAGES} pages: "
+        f"variant {variant} ran, {s3.decode_steps} decode ticks (median "
+        f"{np.median(s3.decode_step_s) * 1e3:.3f} ms), prefill "
+        f"{s3.prefill_chunks} chunks in {np.sum(s3.prefill_chunk_s):.2f} s, "
+        f"{w3:.2f} s wall, peak device memory {peak3:.2f} GB, final pages "
+        f"0")
+    del s3
+
+    # one steady-state decode tick (8 active sequences) under the profiler
+    s4 = Scheduler(cfg, params, scfg, device=dev)
+    for p in prompts[:geom["max_seqs"]]:
+        s4.submit(p, 8)
+    with torch.no_grad():
+        s4.step()
+        s4.step()
+        wall_ms, acts = device_times(s4.step)
+        s4.run()
+    busy_ms = sum(t for _, t in acts.values())
+    log(f"profile 1 decode tick (8 sequences): wall {wall_ms:.3f} ms, device "
+        f"activities {busy_ms:.3f} ms ({100.0 * busy_ms / wall_ms:.1f}% of "
+        f"wall), {sum(c for c, _ in acts.values())} device activities")
+    for key, (c, t) in sorted(acts.items(), key=lambda r: -r[1][1])[:10]:
+        log(f"profile   {t:10.3f} ms  x{c:<6d} {key[:80]}")
+    del s4, params
+    torch.cuda.empty_cache()
+    return {"paged_attention_decode": launches["paged_attention_decode"],
+            "paged_attention_decode_online":
+                l3["paged_attention_decode_online"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -754,7 +1193,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     t0 = time.perf_counter()
     build.build_all()
-    log(f"build: {len(build.SOURCES)} kernels in "
+    log(f"build: {len(build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -788,6 +1227,14 @@ def main() -> int:
     t0 = time.perf_counter()
     two = twopass_vs_fused(ops, dev)
     log(f"phase two-pass vs fused: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs.update(check_paged_parity(ref, dev))
+    times.update(time_paged(ref, dev))
+    log(f"phase paged-attention kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = serve_full_width(ops, dev)
+    log(f"phase serving full width: {time.perf_counter() - t0:.1f} s")
+    launches.update(served)
     launches.update(
         stoch_quantize_grouped_fused=lm["stoch_quantize_grouped_fused"],
         stoch_quantize_grouped_fused_tiled=tiled[
@@ -808,6 +1255,11 @@ def main() -> int:
             "src/repro/kernels/stoch_quant.py:235"),
         "stoch_quantize_grouped": (src + "grouped_quant.cu",
                                    "src/repro/kernels/stoch_quant.py:75"),
+        "paged_attention_decode": (src + "paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:120"),
+        "paged_attention_decode_online": (
+            src + "paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:157"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

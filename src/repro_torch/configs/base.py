@@ -1,15 +1,17 @@
 """Model configuration and registry: the port of ``repro.configs.base``,
 cut to the fields and the architectures the ported path reads.
 
-Only xlstm-125m is registered so far (``configs/xlstm_125m.py``); the
-other architectures of the JAX package wait for their block kinds
-(attention, MoE, Mamba2, encoder-decoder) to be ported (ROADMAP.md).
+Registered so far: xlstm-125m (``configs/xlstm_125m.py``, consensus
+training) and tinyllama-1.1b (``configs/tinyllama_1_1b.py``, serving). The
+other architectures of the JAX package wait for their block kinds (MoE,
+Mamba2, encoder-decoder, sliding-window attention) to be ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,12 +25,22 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     block_unit: Tuple[str, ...]         # repeating unit of block kinds
+    head_dim: Optional[int] = None
+    # attention
+    sliding_window: Optional[int] = None
+    rope_theta: float = 10000.0
     lstm_heads: int = 4                 # xLSTM heads
+    pos_embedding: str = "rope"         # rope | sinusoidal
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"             # activation dtype; weights are f32
     source: str = ""                    # provenance citation
     long_context: str = "swa_variant"
+    long_context_window: int = 4096
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
 
     @property
     def block_kinds(self) -> Tuple[str, ...]:
@@ -43,7 +55,7 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
-_MODULES = ("xlstm_125m",)
+_MODULES = ("xlstm_125m", "tinyllama_1_1b")
 
 
 def register(name: str, full: Callable[[], ModelConfig],

@@ -49,6 +49,29 @@ def tree_from_numpy(flat: Mapping[str, np.ndarray],
     return T.from_paths({k: _tensor(v, dev) for k, v in flat.items()})
 
 
+def model_params_from_numpy(flat: Mapping[str, np.ndarray], cfg,
+                            device: Device = None) -> Any:
+    """One model's parameters (no worker axis) from the JAX package's
+    ``registry.init_params(cfg, key)`` tree flattened to keystr paths, e.g.
+    ``['stack']['units']['p0']['attn']['q']['w']`` (22, 2048, 2048) for
+    tinyllama-1.1b. Every leaf must have the port's shape for ``cfg``."""
+    from repro_torch.models import registry
+
+    want = T.to_paths(registry.init_params(cfg, None, device="meta"))
+    if set(flat) != set(want):
+        raise ValueError(f"parameter paths differ from {cfg.name}'s: "
+                         f"missing {sorted(set(want) - set(flat))}, extra "
+                         f"{sorted(set(flat) - set(want))}")
+    for path, leaf in want.items():
+        if tuple(np.shape(flat[path])) != tuple(leaf.shape):
+            raise ValueError(f"{path}: shape {np.shape(flat[path])}, "
+                             f"expected {tuple(leaf.shape)}")
+    params = tree_from_numpy(flat, device)
+    params["stack"].setdefault("rem", {})
+    params["stack"].setdefault("units", {})
+    return params
+
+
 def tree_to_numpy(tree: Any) -> Dict[str, np.ndarray]:
     """keystr path -> numpy array, the inverse of :func:`tree_from_numpy`."""
     return {k: v.detach().cpu().numpy() for k, v in T.to_paths(tree).items()}

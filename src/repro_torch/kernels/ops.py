@@ -23,6 +23,8 @@ import torch
 from repro_torch.core.packing import runs_to_col_ids
 from repro_torch.kernels import ref
 from repro_torch.kernels.bipartite_mix import bipartite_mix_cuda
+from repro_torch.kernels.paged_attention import (
+    SMEM_PER_BLOCK, oneshot_smem_bytes, paged_attention_cuda)
 from repro_torch.kernels.grouped_quant import (
     stoch_quantize_grouped_cuda, stoch_quantize_grouped_fused_cuda,
     stoch_quantize_grouped_fused_tiled_cuda)
@@ -30,7 +32,8 @@ from repro_torch.kernels.stoch_quant import stoch_quantize_cuda
 
 KERNELS = ("stoch_quantize", "bipartite_mix", "stoch_quantize_grouped",
            "stoch_quantize_grouped_fused",
-           "stoch_quantize_grouped_fused_tiled")
+           "stoch_quantize_grouped_fused_tiled", "paged_attention_decode",
+           "paged_attention_decode_online")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -128,4 +131,56 @@ def stoch_quantize_grouped_fused_tiled(theta, q_hat_prev, uniforms,
         theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
         group_runs, omega, b0, b_max, block_d)
     launches["stoch_quantize_grouped_fused_tiled"] += 1
+    return out
+
+
+# The one-shot kernel keeps its (G, P·ps) float32 logits slab in shared
+# memory, next to q and one K/V tile (``oneshot_smem_bytes``); the online
+# kernel's footprint does not grow with the table. A Hopper block may use at
+# most 227 KB. The one-shot kernel runs while its footprint fits in half of
+# that, so that two blocks still fit on one SM when the batch has more
+# (sequence, KV head) blocks than the card has SMs; past it the online
+# kernel takes over. At tinyllama's G = 8, hd = 64, ps = 16 the switch falls
+# between 190 and 191 pages per sequence (3,040 and 3,056 table slots): a
+# 1,024-slot table takes the one-shot kernel (51,456 bytes), a 4,096-slot
+# table the online one (the one-shot kernel would need 149,760).
+ONESHOT_SMEM_LIMIT = SMEM_PER_BLOCK // 2
+
+
+def paged_attention_online_selected(heads: int, num_kv: int, head_dim: int,
+                                    pages_per_seq: int,
+                                    page_size: int) -> bool:
+    """Which variant :func:`paged_attention_decode` takes for this shape:
+    ``REPRO_PAGED_ATTN_ONLINE=1|0`` forces it, as in the JAX package;
+    otherwise the one-shot kernel's shared-memory footprint decides."""
+    force = os.environ.get("REPRO_PAGED_ATTN_ONLINE", "")
+    if force in ("0", "1"):
+        return force == "1"
+    return oneshot_smem_bytes(heads // num_kv, head_dim, pages_per_seq,
+                              page_size) > ONESHOT_SMEM_LIMIT
+
+
+def paged_attention_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
+                           k_scale=None, v_scale=None, kv_bits: int = 32):
+    """Single-token decode attention through the block table (see
+    ``ref.paged_attention_ref``). Unmapped (-1) and out-of-range page ids
+    are clamped into the pool here, as the JAX package's wrapper does;
+    their slots are masked by ``ctx_lens``. q (B, H, hd) -> (B, H, hd)
+    float32; ``kv_bits`` 8 or 4 reads code pools with their scales."""
+    num_pages = k_pages.shape[0]
+    bt = torch.clamp(block_tables.to(torch.int32), 0, num_pages - 1)
+    online = paged_attention_online_selected(
+        q.shape[1], k_pages.shape[2], q.shape[2], bt.shape[1],
+        k_pages.shape[1])
+    if q.device.type == "cpu":
+        plain = (ref.paged_attention_online_ref if online
+                 else ref.paged_attention_ref)
+        return plain(q, k_pages, v_pages, bt, ctx_lens, k_scale=k_scale,
+                     v_scale=v_scale, kv_bits=kv_bits)
+    out = paged_attention_cuda(
+        q.to(torch.float32).contiguous(), k_pages, v_pages, bt.contiguous(),
+        ctx_lens.to(torch.int32).contiguous(), online=online,
+        k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits)
+    launches["paged_attention_decode_online" if online
+             else "paged_attention_decode"] += 1
     return out

@@ -7,9 +7,12 @@ arithmetic in the same order; none is a yardstick of speed.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
-from repro_torch.core.quantization import bit_schedule
+from repro_torch.core.quantization import _exp2, bit_schedule
 
 _EPS = 1e-12
 
@@ -108,3 +111,129 @@ def bipartite_mix_ref(adjacency: torch.Tensor, values: torch.Tensor
     """Neighbor aggregation ``A @ V``: adjacency (M, N) cast to the values'
     dtype, values (N, d) -> (M, d)."""
     return adjacency.to(values.dtype) @ values
+
+
+# --------------------------------------------------- KV page quantization --
+def kv_page_levels(kv_bits: int, device) -> torch.Tensor:
+    """``2^b - 1`` of a fixed-bit page codec as the Eq. (18) schedule
+    evaluates it (``exp(b ln 2) - 1``, floored at 1), a float32 scalar
+    tensor on ``device``. The kernels take this value as an argument, so
+    the step size they derive is the plain version's on the same card."""
+    zeros = torch.zeros((), dtype=torch.float32, device=device)
+    bits, _, _ = bit_schedule(zeros, zeros, zeros, zeros, 0.0, kv_bits,
+                              kv_bits)
+    return torch.clamp_min(_exp2(bits) - 1.0, 1.0)
+
+
+def _kv_page_delta(rng: torch.Tensor, kv_bits: int) -> torch.Tensor:
+    """Step size Δ = 2R / (2^b - 1) of a fixed-bit page codec through the
+    same ``bit_schedule`` the engine's adaptive rounds use: a cache page is
+    a group whose width never grows (initialized=0 pins b = b0 =
+    ``kv_bits``)."""
+    zeros = torch.zeros_like(rng)
+    _, delta, _ = bit_schedule(zeros, rng, zeros, zeros, 0.0, kv_bits,
+                               kv_bits)
+    return torch.clamp_min(delta, _EPS)
+
+
+def kv_page_quantize(x: torch.Tensor, *, kv_bits: int):
+    """Encode K/V entries to ``kv_bits``-bit codes (Eqs. 14/15 with
+    Q̂_prev = 0 and the deterministic draw u = 0.5).
+
+    x: (..., KV, hd) -> (codes (..., KV, hd_store) uint8, rng (..., KV)
+    float32), hd_store = hd (8-bit) or hd // 2 (4-bit, two codes per byte
+    along head_dim, low nibble first). The per-entry range R = max|x| is
+    the only float carried; Δ follows from it."""
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+    x32 = x.to(torch.float32)
+    rng = torch.amax(torch.abs(x32), dim=-1)
+    delta = _kv_page_delta(rng, kv_bits)[..., None]
+    c = (x32 + rng[..., None]) / delta
+    floor_c = torch.floor(c)
+    q = floor_c + (0.5 < (c - floor_c)).to(torch.float32)
+    q = torch.clamp(q, 0.0, float(2 ** kv_bits - 1)).to(torch.int32)
+    if kv_bits == 4:
+        if x.shape[-1] % 2:
+            raise ValueError("4-bit KV pages need an even head_dim")
+        pair = q.reshape(q.shape[:-1] + (x.shape[-1] // 2, 2))
+        q = pair[..., 0] | (pair[..., 1] << 4)
+    return q.to(torch.uint8), rng
+
+
+def kv_page_dequantize(codes: torch.Tensor, rng: torch.Tensor, *,
+                       kv_bits: int, head_dim: int) -> torch.Tensor:
+    """Decode :func:`kv_page_quantize` output: x̂ = Δ·q - R (Eq. 20 with
+    Q̂_prev = 0). codes (..., KV, hd_store) uint8, rng (..., KV) float32 ->
+    (..., KV, head_dim) float32."""
+    q = codes.to(torch.int32)
+    if kv_bits == 4:
+        lo, hi = q & 0xF, (q >> 4) & 0xF
+        q = torch.stack([lo, hi], dim=-1).reshape(q.shape[:-1] + (head_dim,))
+    delta = _kv_page_delta(rng, kv_bits)[..., None]
+    return delta * q.to(torch.float32) - rng[..., None]
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        ctx_lens: torch.Tensor, *,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        kv_bits: int = 32) -> torch.Tensor:
+    """Single-token decode attention through a paged KV cache, in the JAX
+    package's order of evaluation: per-page QK dots for each KV head, ONE
+    softmax over the whole (H, P·ps) logits slab, and float32 V
+    accumulation in logical page order (batched over sequences and KV
+    heads, which leaves each dot's reduction unchanged).
+
+    q: (B, H, hd); k_pages/v_pages: (num_pages, ps, KV, hd_store) float32
+    or bf16 values, or uint8 codes with ``k_scale``/``v_scale``
+    (num_pages, ps, KV) float32 ranges when ``kv_bits`` is 8 or 4;
+    block_tables: (B, P) (-1 = unmapped: clamped into the pool and masked
+    by ``ctx_lens``); ctx_lens: (B,). A slot at position >= ctx gets logit
+    -1e30, so ctx = 0 averages all P·ps slots uniformly, as the JAX
+    package's one-shot kernel does. Returns (B, H, hd) float32."""
+    bsz, h, hd = q.shape
+    num_pages, page_size, num_kv, _ = k_pages.shape
+    groups = h // num_kv
+    pages_per_seq = block_tables.shape[1]
+    scale = 1.0 / float(np.sqrt(np.float32(hd)))
+    bt = torch.clamp(block_tables.to(torch.int64), 0, num_pages - 1)
+    ctx = ctx_lens.to(torch.int64)
+    qb = q.to(torch.float32).reshape(bsz, num_kv, groups, hd)
+
+    def page(pool, scales, p):                       # (B, ps, KV, hd) f32
+        pid = bt[:, p]
+        if kv_bits == 32:
+            return pool[pid].to(torch.float32)
+        return kv_page_dequantize(pool[pid], scales[pid], kv_bits=kv_bits,
+                                  head_dim=hd)
+
+    slabs = []
+    for p in range(pages_per_seq):
+        k = page(k_pages, k_scale, p)
+        dots = torch.einsum("bkgd,bskd->bkgs", qb, k) * scale
+        idx = p * page_size + torch.arange(page_size, device=q.device)
+        valid = (idx[None, :] < ctx[:, None])[:, None, None, :]
+        slabs.append(torch.where(valid, dots, -1e30))
+    probs = torch.softmax(torch.cat(slabs, dim=-1), dim=-1)
+    acc = torch.zeros((bsz, num_kv, groups, hd), dtype=torch.float32,
+                      device=q.device)
+    for p in range(pages_per_seq):
+        v = page(v_pages, v_scale, p)
+        pg = probs[..., p * page_size:(p + 1) * page_size]
+        acc = acc + torch.einsum("bkgs,bskd->bkgd", pg, v)
+    return acc.reshape(bsz, h, hd)
+
+
+def paged_attention_online_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                               *, k_scale=None, v_scale=None,
+                               kv_bits: int = 32) -> torch.Tensor:
+    """The online-softmax variant's contract: :func:`paged_attention_ref`
+    where ctx > 0 and zeros where ctx = 0 (an inactive slot attends to
+    nothing). It agrees with the one-shot version to float tolerance, not
+    bit for bit, on the card (the kernel rescales its running sums)."""
+    out = paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                              k_scale=k_scale, v_scale=v_scale,
+                              kv_bits=kv_bits)
+    return torch.where((ctx_lens > 0)[:, None, None], out, 0.0)

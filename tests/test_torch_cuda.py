@@ -313,3 +313,128 @@ def test_grouped_kernels_reject_what_they_do_not_take(cuda):
         ops.stoch_quantize_grouped_fused(dev_args[0].double(),
                                          *dev_args[1:], None,
                                          group_runs=pk.group_runs, **kw)
+
+
+# ------------------------------------------------ paged-attention decode --
+# (B, H, KV, hd, ps, P): the smoke model's heads, tinyllama's heads, and a
+# long table (256 pages of 16: the online kernel's own range)
+PAGED_SHAPES = {"smoke": (3, 8, 2, 32, 4, 16),
+                "tinyllama": (8, 32, 4, 64, 16, 64),
+                "tinyllama-long": (8, 32, 4, 64, 16, 256)}
+
+
+def paged_inputs(bsz, heads, num_kv, hd, ps, pps, kv_bits, seed, *,
+                 pool_dtype=torch.float32, ctx=None):
+    """Numpy-seeded decode inputs as CPU tensors: q (B, H, hd), K/V pools
+    (bsz * pps + 3 pages) as values in ``pool_dtype`` (kv_bits 32) or as
+    ``ref.kv_page_quantize`` codes with their ranges, a block table of
+    distinct pages whose slots past ctx are poisoned (-1, or ids past the
+    pool), and ctx lens with 0 (an inactive slot), 1 and the full table.
+    Returns (kwargs for ``ops.paged_attention_decode``, max |V| as the
+    kernel reads it)."""
+    rng = np.random.default_rng(seed)
+    num_pages = bsz * pps + 3
+    q = rng.standard_normal((bsz, heads, hd)).astype(np.float32)
+    k = rng.standard_normal((num_pages, ps, num_kv, hd)).astype(np.float32)
+    v = (2.0 * rng.standard_normal((num_pages, ps, num_kv, hd))
+         ).astype(np.float32)
+    if ctx is None:
+        ctx = rng.integers(1, pps * ps + 1, size=bsz)
+        ctx[0] = 0
+        ctx[-1] = pps * ps
+        if bsz > 2:
+            ctx[1] = 1
+    ctx = np.asarray(ctx, np.int32)
+    bt = rng.permutation(num_pages)[:bsz * pps].reshape(bsz, pps)
+    bt = bt.astype(np.int32)
+    for b in range(bsz):
+        used = -(-int(ctx[b]) // ps)
+        bt[b, used::2] = -1
+        bt[b, used + 1::2] = num_pages + 7
+    kw = dict(q=torch.from_numpy(q), block_tables=torch.from_numpy(bt),
+              ctx_lens=torch.from_numpy(ctx), kv_bits=kv_bits)
+    if kv_bits == 32:
+        kw.update(k_pages=torch.from_numpy(k).to(pool_dtype),
+                  v_pages=torch.from_numpy(v).to(pool_dtype))
+        vmax = float(kw["v_pages"].float().abs().max())
+    else:
+        kc, kr = ref.kv_page_quantize(torch.from_numpy(k), kv_bits=kv_bits)
+        vc, vr = ref.kv_page_quantize(torch.from_numpy(v), kv_bits=kv_bits)
+        kw.update(k_pages=kc, v_pages=vc, k_scale=kr, v_scale=vr)
+        vmax = float(ref.kv_page_dequantize(vc, vr, kv_bits=kv_bits,
+                                            head_dim=hd).abs().max())
+    return kw, vmax
+
+
+def paged_call(fn, kw, device):
+    kw = {k: (x.to(device) if isinstance(x, torch.Tensor) else x)
+          for k, x in kw.items()}
+    return fn(kw.pop("q"), kw.pop("k_pages"), kw.pop("v_pages"),
+              kw.pop("block_tables"), kw.pop("ctx_lens"), **kw)
+
+
+PAGED_CASES = [(shape, bits, dt) for shape in sorted(PAGED_SHAPES)
+               for bits, dt in ((32, torch.float32), (32, torch.bfloat16),
+                                (8, None), (4, None))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("shape,kv_bits,pool_dtype", PAGED_CASES)
+def test_paged_attention_kernels_match_plain_on_card(cuda, monkeypatch,
+                                                     shape, kv_bits,
+                                                     pool_dtype, online):
+    """B7 (one-shot) and B8 (online) against their plain versions on the
+    card to 1e-5 of max|V| (float32 sums in another order), with poisoned
+    tables and ctx 0, 1 and full; B8 against B7 where ctx > 0."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    kw, vmax = paged_inputs(*PAGED_SHAPES[shape], kv_bits, seed=3,
+                            pool_dtype=pool_dtype or torch.float32)
+    name = ("paged_attention_decode_online" if online
+            else "paged_attention_decode")
+    before = ops.launches[name]
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 1
+    plain = (ref.paged_attention_online_ref if online
+             else ref.paged_attention_ref)
+    want = paged_call(plain, kw, cuda)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
+    if online:
+        assert torch.equal(got[0], torch.zeros_like(got[0]))   # ctx = 0
+        monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "0")
+        oneshot = paged_call(ops.paged_attention_decode, kw, cuda)
+        err = float((got[1:] - oneshot[1:]).abs().max())
+        assert err <= 1e-5 * vmax, (err, vmax)
+
+
+@pytest.mark.cuda
+def test_paged_attention_threshold_picks_the_variant_on_card(cuda,
+                                                             monkeypatch):
+    """Without an override, a 64-page tinyllama table takes the one-shot
+    kernel and a 256-page one the online kernel."""
+    monkeypatch.delenv("REPRO_PAGED_ATTN_ONLINE", raising=False)
+    for shape, name in (("tinyllama", "paged_attention_decode"),
+                        ("tinyllama-long", "paged_attention_decode_online")):
+        kw, _ = paged_inputs(*PAGED_SHAPES[shape], 32, seed=4,
+                             pool_dtype=torch.bfloat16)
+        ops.reset_launches()
+        paged_call(ops.paged_attention_decode, kw, cuda)
+        torch.cuda.synchronize()
+        assert ops.launches == {k: int(k == name) for k in ops.KERNELS}
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_what_it_does_not_take(cuda):
+    kw, _ = paged_inputs(*PAGED_SHAPES["smoke"], 8, seed=5)
+    kw = {k: (x.to(cuda) if isinstance(x, torch.Tensor) else x)
+          for k, x in kw.items()}
+    with pytest.raises(ValueError, match="k_scale"):
+        ops.paged_attention_decode(kw["q"], kw["k_pages"], kw["v_pages"],
+                                   kw["block_tables"], kw["ctx_lens"],
+                                   kv_bits=8)
+    with pytest.raises(ValueError):                 # float64 pools
+        ops.paged_attention_decode(kw["q"], kw["k_pages"].double(),
+                                   kw["v_pages"].double(),
+                                   kw["block_tables"], kw["ctx_lens"])

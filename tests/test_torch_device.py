@@ -10,13 +10,15 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import interop, quickstart
+from repro_torch.configs import base
 from repro_torch.core import admm_baselines as ab
 from repro_torch.core import cq_ggadmm
 from repro_torch.core import engine as E
 from repro_torch.core import topology
 from repro_torch.core.graph import chain_graph
 from repro_torch.kernels import build, ops, ref
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
+from repro_torch.serving.scheduler import Scheduler, ServeConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -38,6 +40,7 @@ def test_resolve_device(no_cuda):
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     g = chain_graph(4)
+    tiny = base.get_smoke_config("tinyllama-1.1b")
     x = np.zeros((4, 3, 2), np.float32)
     y = np.zeros((4, 3), np.float32)
     cfg = ab.cq_ggadmm()
@@ -55,6 +58,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         lambda: interop.engine_state_from_numpy({}),
         lambda: interop.tree_from_numpy({}),
         lambda: train.main(["--smoke", "--steps", "1", "--batch", "4"]),
+        lambda: serve.main(["--decode-tokens", "1"]),
+        lambda: serve.LockstepEngine(tiny, None),
+        lambda: Scheduler(tiny, None, ServeConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -103,6 +109,12 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         ops.stoch_quantize_grouped(*args[:3], side, side, None,
                                    group_runs=runs)
+    pool = torch.zeros((4, 2, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_attention_decode(
+            torch.zeros((2, 2, 8), device="meta"), pool, pool,
+            torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+            torch.ones((2,), dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.parametrize("argv", [["--mode", "fsdp"], ["--fleet"],
@@ -134,6 +146,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    scanned = {p.relative_to(ROOT).parts[2] for p in files[:-1]}
+    assert {"serving", "launch", "models", "kernels"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
