@@ -23,32 +23,52 @@ with its time printed:
    generation near 5 GB), 20 iterations: the distance to the optimum falls
    and every kernel launch is counted (2 quantizes and 3 mixes per
    iteration);
-6. the three grouped quantize kernels (``stoch_quantize_grouped_fused``,
+6. ``run_dynamic`` at full size (the same problem, a new p=0.35 graph
+   every 5 iterations, 20 iterations of cq-ggadmm) on the sparse backend,
+   then with the same draws on the dense one: exactly 3 ``edge_gather_mix``
+   launches per iteration, tx_mask equal, theta within 1e-4 max|theta*|;
+7. the fleet on the convex path (sparse backend): the full size under
+   faults (participation 0.8, staleness 2, 20 rounds), dark workers
+   charged 0 bits, 3 B6 launches per round; a fault-free fleet at the
+   paper size bit for bit equal to ``run_synchronous``;
+8. the three grouped quantize kernels (``stoch_quantize_grouped_fused``,
    its D-tiled twin, ``stoch_quantize_grouped``) against their plain
    versions at (64, 2000) G=1, the xlstm-smoke tree (4, 1,905,668) G=19,
    a ragged (5, 4099) layout with degenerate groups and the full-width
    xlstm-125m buffer (4, 134,277,912) G=19: the (N, G) outputs bit for bit,
    ``out`` bit for bit or one step Δ apart only at a rounding boundary;
    kernel and plain times at the full-width shape;
-7. full-width consensus training of xlstm-125m through
+9. ``edge_gather_mix`` (B6) against its plain version, bit for bit, at
+   (6, 7), (24, 50), (64, 2000), ``star_graph(257)`` and a 1,024-worker
+   p=0.05 graph at d=2000, and the LM trainer's (4, 134,277,912) buffer
+   (S=2), and with a poisoned table; device time, time per call, plain
+   time, bytes bounds, ``torch.sparse.mm`` (CSR) and B2 on the dense
+   adjacency at each;
+10. full-width consensus training of xlstm-125m through
    ``repro_torch.launch.train.main`` with the example's flags (4 workers,
    batch 16, seq 128, 2 local steps, ``--groups leaf``, 3 steps): a finite
    loss, below the seeded initial model's after the last step, exactly 2
    fused quantize and 3 mix launches per step;
    s/step, peak device memory, and the top device activities of one more
    step from torch.profiler;
-8. the tiled path: the smoke config for 2 steps with
+11. the slice's main path: the same training with ``--mix-backend sparse
+   --fleet --fleet-participation 0.75 --fleet-staleness 2 --fleet-churn
+   2:1:1`` for 4 rounds: a finite loss every round, the churn applied at
+   round 2, dark workers charged 0 bits, exactly 3 B6 and 2 fused
+   quantize launches per round; s/round, peak device memory, and one more
+   round with a worker timed out under torch.profiler;
+12. the tiled path: the smoke config for 2 steps with
    ``REPRO_QUANT_TILE_D=512``, ``--groups block:embed,mlp,norm`` and
    ``--censor-mode group``: 2 tiled quantize launches per step;
-9. one packed quantize step at the smoke width through the two-pass path
+13. one packed quantize step at the smoke width through the two-pass path
    (``stoch_quantize_grouped``) and the fused one: value-identical;
-10. the two paged-attention decode kernels (one-shot and online softmax)
+14. the two paged-attention decode kernels (one-shot and online softmax)
    against their plain versions, and the online one against the one-shot
    one, to 1e-5 of max|V|, at the smoke model's heads and at tinyllama's
    (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages, ctx 0 to
    4096, poisoned table slots), with bf16, 8-bit and 4-bit pools; kernel,
    plain and SDPA times at the shapes the serving path gives them;
-11. serving tinyllama-1.1b at full width (random float32 weights from
+15. serving tinyllama-1.1b at full width (random float32 weights from
    seed 0, bf16 activations) through the paged scheduler: 16 greedy
    requests (prompt lengths 17..700, 128 new tokens, max_seqs 8, pages of
    16, 64-page tables, 64-token prefill chunks), exactly 22 one-shot
@@ -65,6 +85,7 @@ that path ran), parity error, times and bound, then nvidia-smi's
 name/power-limit line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -357,7 +378,7 @@ def full_size(ops, dev):
         + ", ".join(f"{k} {t:.3f}" for k, t in parts.items())
         + f"; timed in {time.perf_counter() - t0:.1f} s")
     profile_steps(graph, cfg, E.ExactSolver(prob), state, dev)
-    return launches
+    return launches, prob, theta_star
 
 
 def profile_steps(graph, cfg, solver, state, dev):
@@ -761,6 +782,375 @@ def twopass_vs_fused(ops, dev):
         f"candidate, (N, G) state, bits and payload identical; launches "
         f"{launches}")
     return launches
+
+
+# slice 4: the sparse topology (B6), time-varying graphs and the fleet
+DYN_ITERS, DYN_REFRESH, FLEET_ROUNDS, PAPER_FLEET_ROUNDS = 20, 5, 20, 60
+LM_FLEET_ROUNDS = 4
+LM_FLEET_FLAGS = LM_FLAGS + ["--mix-backend", "sparse", "--fleet",
+                             "--fleet-participation", "0.75",
+                             "--fleet-staleness", "2",
+                             "--fleet-churn", "2:1:1"]
+LM_DIM = 134277912          # xlstm-125m parameters per worker
+
+
+def edge_cases():
+    """label -> (graph, d) of the B6 checks: an odd width, the paper and
+    full convex sizes, a star (S = 256, heavy padding), a 1,024-worker
+    sparse graph and the LM trainer's 4-worker graph at full width."""
+    from repro_torch.core import graph as G
+    from repro_torch.runtime import steps as ST
+
+    return {
+        "(6, 7)": (G.random_bipartite_graph(6, 0.5, seed=1), 7),
+        "paper (24, 50)": (G.random_bipartite_graph(24, 0.35, seed=0), 50),
+        "full (64, 2000)": (G.random_bipartite_graph(64, 0.35, seed=0),
+                            2000),
+        "star_graph(257) d=2000": (G.star_graph(257), 2000),
+        "random(1024, 0.05) d=2000": (
+            G.random_bipartite_graph(1024, 0.05, seed=0), 2000),
+        "lm (4, 134277912)": (ST.worker_graph(4), LM_DIM),
+    }
+
+
+def edge_inputs(graph, d, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table, valid = graph.neighbor_table
+    return (torch.randn((graph.n, d), generator=gen, device=dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def edge_bytes(graph, d):
+    """(unique, gathered) bytes of one call: V's rows that a valid slot
+    reads, once, or every slot's row, padded ones included; plus out
+    written once and the (N, S) table and validity read once."""
+    table, valid = graph.neighbor_table
+    side = 4.0 * graph.n * d + 8.0 * table.size
+    referenced = np.unique(table[valid > 0]).size
+    return 4.0 * referenced * d + side, 4.0 * table.size * d + side
+
+
+def check_edge_parity(ops, ref, dev):
+    """B6 against its plain version on the card, bit for bit, at every
+    shape of ``edge_cases`` and with a poisoned table (pad ids out of
+    range at both ends, NaN and inf in the rows they clamp to)."""
+    from repro_torch.core import graph as G
+
+    max_err = 0.0
+    for seed, (label, (graph, d)) in enumerate(edge_cases().items()):
+        vals, table, valid = edge_inputs(graph, d, dev, seed)
+        got = ops.edge_gather_mix(vals, table, valid)
+        torch.cuda.synchronize()
+        want = ref.edge_gather_mix_ref(vals, table, valid)
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"edge_gather_mix {label}: max |err| "
+                                 f"{err:.3e}, not bit for bit")
+        log(f"parity edge_gather_mix {label} S={table.shape[1]} "
+            f"(N·S {table.numel()}, {int(valid.sum())} valid): bit for bit "
+            f"(max |err| {err:.3e})")
+        del vals, got, want
+    g = G.random_bipartite_graph(6, 0.5, seed=1)
+    table, valid = (x.copy() for x in g.neighbor_table)
+    pads = valid == 0
+    table[pads] = np.resize(np.array([7, -3, 100, -1], np.int32),
+                            int(pads.sum()))
+    vals = torch.randn((6, 1001), device=dev)
+    vals[0, 2], vals[5, 1] = float("nan"), float("inf")
+    args = (torch.from_numpy(table).to(dev), torch.from_numpy(valid).to(dev))
+    got = ops.edge_gather_mix(vals, *args)
+    want = ref.edge_gather_mix_ref(vals, *args)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan) and bool(nan.any())
+    # the rest, inf included, equal bit for bit
+    assert torch.equal(got[~nan], want[~nan])
+    log(f"parity edge_gather_mix poisoned table (ids {sorted(set(table[pads].tolist()))} "
+        f"in pad slots, NaN/inf rows): NaN where the plain version has NaN "
+        f"({int(nan.sum())}), the other {int((~nan).sum())} entries "
+        f"({int(want.isinf().sum())} inf) bit for bit")
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def time_edge(ops, ref, dev):
+    """B6 per shape: device time (torch.profiler) and time per call (CUDA
+    events), the plain version, the unique- and gathered-bytes bounds,
+    the library calls for the same function (``torch.matmul`` over the
+    dense 0/1 adjacency, the library column, and ``torch.sparse.mm`` with
+    a CSR float32 adjacency) and B2 on the dense adjacency. Returns the LM
+    shape's numbers, the ones the main path pays."""
+    from repro_torch.kernels.bipartite_mix import bipartite_mix_cuda
+
+    out = None
+    for label, (graph, d) in edge_cases().items():
+        vals, table, valid = edge_inputs(graph, d, dev, 7)
+        big = graph.n * d > 1e8
+        reps, plain_reps = (10, 2) if big else (50, 5)
+        nnz = int(valid.sum())
+        unique, gathered = edge_bytes(graph, d)
+        b = bound(unique, 2.0 * nnz * d)
+        t = {"ms": time_ms(lambda: ops.edge_gather_mix(vals, table, valid),
+                           reps, 5),
+             "plain_ms": time_ms(lambda: ref.edge_gather_mix_ref(
+                 vals, table, valid), plain_reps, 3),
+             "bound": b}
+        _, acts = device_times(
+            lambda: ops.edge_gather_mix(vals, table, valid), 10)
+        hits = [(c, ms) for k, (c, ms) in acts.items()
+                if "edge_gather_mix" in k]
+        t["device_ms"] = (sum(ms for _, ms in hits)
+                          / sum(c for c, _ in hits) if hits else None)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(graph.csr_offsets.astype(np.int64)).to(dev),
+            torch.from_numpy(graph.csr_indices.astype(np.int64)).to(dev),
+            torch.ones(graph.csr_indices.size, device=dev),
+            size=(graph.n, graph.n), check_invariants=True)
+        adj = torch.as_tensor(graph.adjacency, device=dev).contiguous()
+        want = ref.edge_gather_mix_ref(vals, table, valid)
+        # a library call counts only where it computes the same function:
+        # within 1e-6 S max|V| of the plain version (another summation
+        # order). torch.matmul over the dense 0/1 adjacency is the
+        # library column; torch.sparse.mm (CSR) is printed beside it
+        lib_tol = 1e-6 * table.shape[1] * float(vals.abs().max())
+        lib = {}
+        for name, fn in (("torch.matmul (dense)", lambda: torch.matmul(
+                              adj, vals)),
+                         ("torch.sparse.mm (CSR)", lambda: torch.sparse.mm(
+                              csr, vals))):
+            cols = (fn() - want).abs().amax(0)
+            bad = torch.nonzero(cols > lib_tol)
+            lib[name] = (time_ms(fn, reps, 5), float(cols.max()),
+                         int(bad[0, 0]) if bad.numel() else None)
+        del want
+        mm_ms, mm_err, mm_bad = lib["torch.matmul (dense)"]
+        t["library_ms"] = mm_ms if mm_bad is None else None
+        b2 = time_ms(lambda: bipartite_mix_cuda(adj, vals), reps, 5)
+        lib_txt = "; ".join(
+            f"{name} {ms:.5f} ms (max |diff| {err:.3e}: "
+            + ("the same function" if first is None else
+               f"WRONG from column {first} of {d}, not reported") + ")"
+            for name, (ms, err, first) in lib.items())
+        log(f"time edge_gather_mix {label} S={table.shape[1]} nnz {nnz}: "
+            f"device {t['device_ms']} ms, per call {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms; {lib_txt}, tolerance {lib_tol:.3e}; "
+            f"B2 on the dense adjacency {b2:.5f} ms; bound {b[0]:.5f} ms "
+            f"({b[1]}; {unique / 1e9:.4f} GB unique, gathered "
+            f"{gathered / 1e9:.4f} GB = {gathered / PEAK_BYTES_PER_S * 1e3:.5f}"
+            f" ms)")
+        if label.startswith("lm"):
+            out = t
+        del vals, table, valid, csr, adj
+        torch.cuda.empty_cache()
+    return out
+
+
+def dynamic_full_size(ops, dev, prob, theta_star):
+    """``run_dynamic`` at full size (64 workers, d=2000, p=0.35, a new
+    graph every 5 iterations, 20 iterations of cq-ggadmm) on the sparse
+    backend, then with the same draws on the dense one: exactly 3 B6
+    launches per iteration, the same tx_mask, theta within 1e-4
+    max|theta*|."""
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import dynamic as D
+
+    topo = D.DynamicTopology(FULL_N, p=0.35, refresh_every=DYN_REFRESH,
+                             seed=0)
+
+    def draws(it, phase):
+        gen = torch.Generator(device=dev).manual_seed(2 * it + phase + 11)
+        return torch.rand((FULL_N, FULL_D), generator=gen, device=dev)
+
+    runs = {}
+    for backend in ("sparse", "dense"):
+        cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0), mix_backend=backend)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = D.run_dynamic(topo, prob, cfg, FULL_D, DYN_ITERS,
+                                   theta_star=theta_star, uniforms=draws,
+                                   device=dev)
+        torch.cuda.synchronize()
+        runs[backend] = (state, out, dict(ops.launches),
+                         time.perf_counter() - t0)
+    (s_state, s_out, s_l, s_t), (d_state, d_out, d_l, d_t) = (
+        runs["sparse"], runs["dense"])
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(stoch_quantize=2 * DYN_ITERS, edge_gather_mix=3 * DYN_ITERS)
+    assert s_l == want, s_l
+    want.update(edge_gather_mix=0, bipartite_mix=3 * DYN_ITERS)
+    assert d_l == want, d_l
+    flips = int((s_out["tx_mask"] != d_out["tx_mask"]).sum())
+    err = float((s_state.theta - d_state.theta).abs().max())
+    tol = 1e-4 * float(theta_star.abs().max())
+    assert flips == 0, f"{flips} tx_mask entries differ"
+    assert err <= tol, (err, tol)
+    dist = s_out["dist_to_opt"]
+    assert np.isfinite(dist).all() and dist[-1] < dist[0], dist
+    log(f"dynamic cq-ggadmm N={FULL_N} d={FULL_D} p=0.35 refresh "
+        f"{DYN_REFRESH}, {DYN_ITERS} iterations: sparse "
+        f"{s_t / DYN_ITERS * 1e3:.2f} ms/iteration, dense "
+        f"{d_t / DYN_ITERS * 1e3:.2f} ms/iteration; dist-to-opt "
+        f"{dist[0]:.4e} -> {dist[-1]:.4e}; tx_mask equal ({int(s_out['tx_mask'].sum())} "
+        f"transmissions), theta sparse vs dense max |diff| {err:.3e} "
+        f"(tolerance {tol:.3e}), bitwise {bool(torch.equal(s_state.theta, d_state.theta))}")
+    log(f"dynamic launches sparse {s_l}")
+    return s_l
+
+
+def fleet_convex(ops, dev, prob, theta_star):
+    """The fleet on the convex path, sparse backend, cq-ggadmm: full size
+    under faults (participation 0.8, staleness 2, 20 rounds; no churn,
+    the exact solver holds per-member data), then a fault-free fleet at
+    the paper size against ``run_synchronous``, bit for bit."""
+    from repro_torch import interop
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import engine as E
+    from repro_torch.core.graph import random_bipartite_graph
+    from repro_torch.data import regression as R
+    from repro_torch.fleet import FaultConfig, FleetConfig, FleetSim
+    from repro_torch.fleet import run_synchronous
+
+    cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0), mix_backend="sparse")
+    graph = random_bipartite_graph(FULL_N, 0.35, seed=0)
+    fcfg = FleetConfig(rounds=FLEET_ROUNDS, faults=FaultConfig(
+        participation=0.8, staleness=2, seed=0), seed=0)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fs, m = FleetSim(FULL_N, cfg, fcfg,
+                     torch.zeros((FULL_N, FULL_D), device=dev),
+                     solver=E.ExactSolver(prob), graph0=graph).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(stoch_quantize=2 * FLEET_ROUNDS,
+                edge_gather_mix=3 * FLEET_ROUNDS)
+    assert launches == want, launches
+    dark = (m["fleet_participation"] == 0) & (m["fleet_deliver"] == 0)
+    assert dark.any() and (m["payload_bits"][dark] == 0).all()
+    assert (m["payload_bits"][m["tx_mask"] == 0] == 0).all()
+    theta = fs.engine.theta
+    dist0 = float(FULL_N * (theta_star ** 2).sum())
+    dist = float(((theta - theta_star[None]) ** 2).sum())
+    assert np.isfinite(dist) and dist < dist0, (dist, dist0)
+    log(f"fleet full size N={FULL_N} d={FULL_D} participation 0.8 "
+        f"staleness 2, {FLEET_ROUNDS} rounds: {wall / FLEET_ROUNDS * 1e3:.2f}"
+        f" ms/round, {int(dark.sum())} dark worker-rounds (0 bits each), "
+        f"{int(m['fleet_deliver'].sum())} stale deliveries, tx "
+        f"{int(m['tx_mask'].sum())} of {FLEET_ROUNDS * FULL_N}, bits "
+        f"{m['payload_bits_total'].sum():.4e}, dist-to-opt {dist0:.4e} -> "
+        f"{dist:.4e}; launches {launches}")
+
+    x, y = R.partition_uniform(R.synth_linear(), 24)
+    pprob = interop.problem_from_numpy(x, y, "linear", device=dev)
+    pgraph = random_bipartite_graph(24, 0.35, seed=0)
+    metrics = E.flat_metrics(pgraph, "sparse", device=dev)
+    theta0 = torch.zeros((24, 50), device=dev)
+    sync_state, sync_m = run_synchronous(
+        pgraph, cfg, E.ExactSolver(pprob), theta0, PAPER_FLEET_ROUNDS,
+        extra_metrics=metrics)
+    fs, fm = FleetSim(24, cfg, FleetConfig(rounds=PAPER_FLEET_ROUNDS),
+                      theta0, solver=E.ExactSolver(pprob),
+                      extra_metrics=metrics, graph0=pgraph).run()
+    for k in sync_m:
+        assert np.array_equal(fm[k], sync_m[k]), f"fleet metric {k}"
+    for name in ("theta", "theta_hat", "alpha"):
+        assert torch.equal(getattr(fs.engine, name),
+                           getattr(sync_state, name)), name
+    log(f"fleet fault-free paper size (24, 50), {PAPER_FLEET_ROUNDS} rounds: "
+        f"{len(sync_m)} metrics and the final theta, theta_hat, alpha bit "
+        f"for bit equal to run_synchronous; bits "
+        f"{fm['payload_bits_total'].sum():.4e}")
+    return launches
+
+
+def lm_fleet_full_width(ops, dev):
+    """The slice's main path: full-width xlstm-125m consensus training
+    through ``train.main`` with ``--mix-backend sparse --fleet``
+    (participation 0.75, staleness 2, churn at round 2), its launches
+    counted; then one faulted round (a worker timed out) under
+    torch.profiler."""
+    from repro_torch.core import engine as E
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(LM_FLEET_FLAGS + ["--steps", str(LM_FLEET_ROUNDS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m, hist = out["metrics"], out["history"]
+    assert len(hist) == LM_FLEET_ROUNDS and np.isfinite(hist).all(), hist
+    assert [ev["round"] for ev in out["churn_log"]] == [2], out["churn_log"]
+    assert m["n_members"].tolist() == [4] * LM_FLEET_ROUNDS
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(edge_gather_mix=3 * LM_FLEET_ROUNDS,
+                stoch_quantize_grouped_fused=2 * LM_FLEET_ROUNDS)
+    assert launches == want, launches
+    dark = (m["fleet_participation"] == 0) & (m["fleet_deliver"] == 0)
+    assert dark.any() and (m["payload_bits"][dark] == 0).all()
+    assert (m["payload_bits"][m["tx_mask"] == 0] == 0).all()
+    log(f"lm fleet xlstm-125m sparse 4 workers x "
+        f"{E.tree_dim(out['fleet_state'].engine.theta)} params: loss "
+        f"{' -> '.join(f'{x:.4f}' for x in hist)}; churn "
+        f"{out['churn_log']}; dark worker-rounds "
+        f"{int(dark.sum())} (0 bits each), stale deliveries "
+        f"{int(m['fleet_deliver'].sum())}, tx {m['tx_count'].tolist()}, "
+        f"bits {out['total_bits']:.4e}; s/round "
+        f"{', '.join(f'{x:.3f}' for x in out['step_seconds'])} (wall "
+        f"{wall:.1f} s with init); peak device memory {peak_gb:.2f} GB")
+    log(f"lm fleet launches {launches} (= 3 B6 and 2 B3 per round)")
+    profile_lm_fleet_round(out, dev)
+    return launches
+
+
+def profile_lm_fleet_round(out, dev):
+    """One more round of the run's own ``FleetSim`` (its fault step on its
+    last state, graph and batches) with a worker timed out, under
+    torch.profiler: device-busy share and top device activities."""
+    from repro_torch.core import engine as E
+    from repro_torch.fleet.sim import round_draws
+
+    sim = out.pop("sim")
+    holder = {"fs": out.pop("fleet_state")}
+    n = len(sim.members)
+    batch = sim.batch_fn(LM_FLEET_ROUNDS, tuple(sim.members))
+    draw = round_draws(sim.fleet_cfg.seed, LM_FLEET_ROUNDS,
+                       (n, E.tree_dim(holder["fs"].engine.theta)), dev)
+    # time out a worker with no packet in flight (nothing lands for it)
+    late = int(np.flatnonzero(holder["fs"].timer.cpu().numpy() == 0)[0])
+    drop = torch.zeros(n, device=dev)
+    drop[late] = 1.0
+    lag = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def one_round():
+        holder["fs"], holder["m"] = sim._step(holder["fs"], draw, batch,
+                                              drop, lag)
+
+    t0 = time.perf_counter()
+    wall_ms, acts = device_times(one_round)
+    busy_ms = sum(t for _, t in acts.values())
+    m = holder["m"]
+    assert float(m["fleet_participation"][late]) == 0.0
+    assert float(m["payload_bits"][late]) == 0.0
+    assert float(m["tx_mask"][late]) == 0.0
+    log(f"profile 1 faulted full-width lm fleet round (worker {late} timed "
+        f"out: tx 0, 0 bits; offered "
+        f"{float(m['offered_payload_bits'][late]):.0f}): wall "
+        f"{wall_ms:.1f} ms, device activities {busy_ms:.1f} ms "
+        f"({100.0 * busy_ms / wall_ms:.1f}% of wall), "
+        f"{sum(c for c, _ in acts.values())} device activities; profiling "
+        f"took {time.perf_counter() - t0:.1f} s")
+    for key, (c, t) in sorted(acts.items(), key=lambda r: -r[1][1])[:10]:
+        log(f"profile   {t:10.3f} ms  x{c:<6d} {key[:80]}")
+    holder.clear()
+    del sim, batch
+    torch.cuda.empty_cache()
+
 
 
 # serving: tinyllama-1.1b at full width (arXiv:2401.02385), the request
@@ -1212,15 +1602,30 @@ def main() -> int:
     paper_size(ops, dev)
     log(f"phase paper size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = full_size(ops, dev)
+    launches, prob, theta_star = full_size(ops, dev)
     log(f"phase full size: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dynamic_full_size(ops, dev, prob, theta_star)
+    log(f"phase dynamic full size: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet_convex(ops, dev, prob, theta_star)
+    del prob, theta_star
+    torch.cuda.empty_cache()
+    log(f"phase fleet convex: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     errs.update(check_grouped_parity(ops, ref, dev))
     times.update(time_grouped(ops, ref, dev))
     log(f"phase grouped kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    errs["edge_gather_mix"] = check_edge_parity(ops, ref, dev)
+    times["edge_gather_mix"] = time_edge(ops, ref, dev)
+    log(f"phase edge_gather_mix kernel: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     lm = lm_full_width(ops, dev)
     log(f"phase lm full width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_fleet = lm_fleet_full_width(ops, dev)
+    log(f"phase lm fleet full width: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tiled = lm_tiled(ops)
     log(f"phase lm tiled: {time.perf_counter() - t0:.1f} s")
@@ -1239,7 +1644,8 @@ def main() -> int:
         stoch_quantize_grouped_fused=lm["stoch_quantize_grouped_fused"],
         stoch_quantize_grouped_fused_tiled=tiled[
             "stoch_quantize_grouped_fused_tiled"],
-        stoch_quantize_grouped=two["stoch_quantize_grouped"])
+        stoch_quantize_grouped=two["stoch_quantize_grouped"],
+        edge_gather_mix=lm_fleet["edge_gather_mix"])
     assert all(launches[k] > 0 for k in ops.KERNELS), launches
 
     src = "src/repro_torch/kernels/csrc/"
@@ -1260,6 +1666,8 @@ def main() -> int:
         "paged_attention_decode_online": (
             src + "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:157"),
+        "edge_gather_mix": (src + "edge_gather_mix.cu",
+                            "src/repro/kernels/edge_gather_mix.py:32"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

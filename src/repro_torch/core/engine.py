@@ -21,9 +21,10 @@ quantization groups of ``EngineConfig.groups`` (``"model"``, ``"leaf"``,
 ``stoch_quantize_grouped_fused`` call (or its D-tiled twin with
 ``REPRO_QUANT_TILE_D``); :func:`grouped_quantize_step_twopass` computes the
 ranges in a separate pass and calls ``stoch_quantize_grouped``, with the
-same values. Every neighbour mix is one ``bipartite_mix`` call on the packed
-buffer (``core/topology.py``). On a CPU tensor each kernel entry point runs
-its plain version (``kernels/ops.py``).
+same values. Every neighbour mix is one call of the topology's kernel on the
+packed buffer (``core/topology.py``): ``bipartite_mix`` for the dense
+backend, ``edge_gather_mix`` for the sparse one. On a CPU tensor each kernel
+entry point runs its plain version (``kernels/ops.py``).
 
 Local solvers: :class:`ExactSolver` (closed form / Newton on a flat
 problem) and :class:`InexactSolver` (K Adam or SGD steps on the augmented
@@ -35,8 +36,9 @@ The stochastic-rounding uniforms are ``(N, D)`` per phase, from
 ``draw(phase)``; ``run(seed=...)`` draws them from a ``torch.Generator``,
 ``run(uniforms=...)`` injects them (a test feeds the JAX package's draws).
 
-Not ported yet (ROADMAP.md): the sparse and sharded topologies, narrowed
-``hat_dtype`` replicas and the fleet ``participation`` hook.
+The step takes the fleet's ``participation`` mask (``fleet/sim.py``): a
+timed-out worker is composed into the censor decision. Not ported yet
+(ROADMAP.md): the sharded topology and narrowed ``hat_dtype`` replicas.
 """
 from __future__ import annotations
 
@@ -149,7 +151,8 @@ class EngineConfig:
     groups: GroupSpec = "model"       # "model"|"leaf"|"block:..."|"auto:K"|
     #                                   explicit ids | index buckets
     censor_mode: str = "global"       # "global" (paper) | "group"
-    mix_backend: str = "dense"        # only "dense" is ported
+    mix_backend: str = "dense"        # "dense" | "sparse" ("sharded": not
+    #                                   ported)
     use_pallas_mix: bool = False
     use_pallas_quant: bool = False
     hat_dtype: Optional[str] = None   # narrowed replicas: not ported
@@ -161,10 +164,10 @@ class EngineConfig:
                              f"{self.censor_mode!r}")
         if self.mix_backend not in topo_lib.BACKENDS:
             raise ValueError(f"unknown mix backend {self.mix_backend!r}")
-        if self.mix_backend != "dense":
+        if self.mix_backend == "sharded":
             raise NotImplementedError(
-                f"mix_backend={self.mix_backend!r} is not ported yet "
-                f"(ROADMAP.md queue A items 9 and 14)")
+                "mix_backend='sharded' is not ported yet "
+                "(ROADMAP.md queue A item 14)")
         if isinstance(self.groups, str):
             packing.validate_spec_syntax(self.groups)
         if self.hat_dtype is not None:
@@ -613,13 +616,23 @@ def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
 
 def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
            solver, topo: topo_lib.Topology, rho_d: torch.Tensor,
-           cfg: EngineConfig, uniforms: Optional[torch.Tensor], batch
+           cfg: EngineConfig, uniforms: Optional[torch.Tensor], batch,
+           participation: Optional[torch.Tensor] = None,
            ) -> Tuple[EngineState, Metrics]:
     """One group's primal update + quantize + censor + commit. Metrics are
     restricted to ``phase_mask`` (zeros elsewhere); ``payload_bits`` counts
     only bits put on the wire, ``candidate_payload_bits`` what the round
-    would have cost uncensored. On this synchronous path ``censor_mask``
-    and ``offered_payload_bits`` equal ``tx_mask`` and ``payload_bits``."""
+    would have cost uncensored.
+
+    ``participation`` is the fleet's optional (N,) 0/1 on-time mask. A
+    timed-out worker is a censored one: its primal and quantizer chain
+    advance, its ``theta_hat`` commit is suppressed and it is charged zero
+    bits; the transmit decision is ``timeout & censor``
+    (``censoring.compose_tx_mask``). ``censor_mask`` and
+    ``offered_payload_bits`` report the censor-only decision and the bits
+    offered before that composition (the staleness buffer charges them at
+    delivery). With ``participation=None`` they equal ``tx_mask`` and
+    ``payload_bits``."""
     group_ids = resolve_groups(state.theta, cfg.groups)
     n_groups = max(group_ids) + 1
     rho = cfg.rho
@@ -648,8 +661,16 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
         quant_new, candidate, bits, payload = identity_quantize_step(
             state.quant, theta)
 
-    cmask, gmask = _censor_masks(state, candidate, cfg, group_ids, n_groups,
-                                 state.k + 1)
+    cmask_cens, gmask_cens = _censor_masks(state, candidate, cfg, group_ids,
+                                           n_groups, state.k + 1)
+    if participation is not None:
+        # the timeout composes after the censor test, which (like the
+        # quantizer chain) does not see it
+        cmask, gmask = censor_lib.compose_tx_mask(participation, cmask_cens,
+                                                  gmask_cens)
+    else:
+        cmask, gmask = cmask_cens, gmask_cens
+    censor_mask = cmask_cens * phase_mask
     tx_mask = cmask * phase_mask
     group_tx = gmask * phase_mask[:, None]
     candidate_payload = payload * phase_mask
@@ -661,8 +682,12 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
             if cfg.quantize is not None else 0.0
         per_group = bits * dims[None, :] + overhead
         payload_tx = torch.sum(per_group * group_tx, dim=-1)
+        offered = payload_tx if participation is None else torch.sum(
+            per_group * gmask_cens * phase_mask[:, None], dim=-1)
     else:
         payload_tx = payload * tx_mask
+        offered = payload_tx if participation is None \
+            else payload * censor_mask
 
     # theta_hat: each leaf commits where its group transmitted
     hat_leaves = T.leaves(state.theta_hat)
@@ -692,8 +717,8 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
         "candidate_payload_bits": candidate_payload,
         "bits_per_group": bits * phase_mask[:, None],
         "group_tx": group_tx,
-        "censor_mask": tx_mask,
-        "offered_payload_bits": payload_tx,
+        "censor_mask": censor_mask,
+        "offered_payload_bits": offered,
     }
 
 
@@ -710,7 +735,8 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     ``bits_per_group``, ``group_tx``, ``censor_mask``,
     ``offered_payload_bits`` and ``dual_residual``
     ``||rho (D - A) theta_hat||²``, plus ``extra_metrics(state, batch)``.
-    The fleet ``participation`` argument of the JAX step is not ported."""
+    ``participation`` is the fleet's optional (N,) on-time mask (see
+    :func:`_phase`); None is the synchronous path."""
     topo = topology if topology is not None else topo_lib.build(
         graph, cfg.mix_backend, device=device)
     dev = topo.degrees.device
@@ -724,24 +750,19 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
 
     def step(state: EngineState, draw: Callable[[int], torch.Tensor],
              batch: Any = None, participation=None):
-        if participation is not None:
-            raise NotImplementedError("the fleet participation hook is not "
-                                      "ported yet (ROADMAP.md queue A "
-                                      "item 10)")
-
         def uniforms(phase: int) -> Optional[torch.Tensor]:
             return draw(phase) if cfg.quantize is not None else None
 
         if cfg.alternating:
             state, m_h = _phase(state, head, head_rows, solver, topo, rho_d,
-                                cfg, uniforms(0), batch)
+                                cfg, uniforms(0), batch, participation)
             state, m_t = _phase(state, tail, tail_rows, solver, topo, rho_d,
-                                cfg, uniforms(1), batch)
+                                cfg, uniforms(1), batch, participation)
             metrics = {k: m_h[k] + m_t[k] for k in m_h}
         else:
             state, metrics = _phase(state, torch.ones_like(head), all_rows,
                                     solver, topo, rho_d, cfg, uniforms(0),
-                                    batch)
+                                    batch, participation)
 
         # Dual update, Eq. (23): alpha += rho * (D - A) theta_hat, through
         # the same topology (and mix kernel) as the phase mixes.

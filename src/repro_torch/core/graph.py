@@ -296,3 +296,20 @@ def random_bipartite_graph(n: int, p: float, seed: int = 0,
         edges.add(pair)
     return _finalize(n, sorted(edges), head_mask)
 
+
+
+def membership_graph(n: int, p: float, seed: int = 0,
+                     epoch: int = 0) -> WorkerGraph:
+    """Redraw the fleet's communication graph for its current membership.
+
+    One membership epoch is one join/leave event; each epoch gets an
+    independent connected bipartite graph over the surviving and joined
+    workers, with ``n // 2`` heads, so a fleet that churns down to N=2
+    still gets the single-edge H-T pair. The draw is a pure function of
+    ``(seed, epoch, n)``, hashed through ``SeedSequence`` so consecutive
+    epochs are decorrelated; the CSR and edge metadata derive lazily on the
+    fresh instance.
+    """
+    assert n >= 2, f"fleet membership must keep >= 2 workers, got {n}"
+    derived = int(np.random.SeedSequence([seed, epoch, n]).generate_state(1)[0])
+    return random_bipartite_graph(n, p, seed=derived)

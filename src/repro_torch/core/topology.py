@@ -1,4 +1,4 @@
-"""Topology backends for the consensus engine: the dense backend.
+"""Topology backends for the consensus engine: dense and sparse.
 
 Every place the engine touches the communication graph — the neighbor
 aggregation ``A @ V`` of the primal updates, the Laplacian term
@@ -6,19 +6,26 @@ aggregation ``A @ V`` of the primal updates, the Laplacian term
 residual (Eq. 28) — goes through one :class:`Topology` built from a
 :class:`~repro_torch.core.graph.WorkerGraph`.
 
-The port has the dense backend only. Its mix is always the
-``bipartite_mix`` kernel on a CUDA tensor (``kernels.ops``), as the JAX
-package's ``use_pallas_mix=True``; a CPU tensor takes the plain version.
-A tree mixes through its packed ``(N, D)`` buffer when all leaves share a
-dtype (one kernel call for the whole tree), leaf-wise otherwise, as the
-JAX package's ``_apply_flat``. The sparse and sharded backends are still
-to be ported (ROADMAP.md, queue A items 9 and 14).
+* **dense**: one ``bipartite_mix`` against the full (N, N) adjacency;
+* **sparse**: one ``edge_gather_mix`` over the graph's degree-padded CSR
+  table ``(N, S)``, S the largest degree: O(N·S·d) work and no (N, N)
+  operand. The table is built on the host once per graph.
+
+Each mix is always its kernel on a CUDA tensor (``kernels.ops``), as the
+JAX package's ``use_pallas_mix=True``; a CPU tensor takes the plain
+version. (The JAX sparse backend's jnp gather/segment-sum arm, taken
+without ``use_pallas_mix``, has no counterpart here.) A tree mixes through
+its packed ``(N, D)`` buffer when all leaves share a dtype (one kernel call
+for the whole tree), leaf-wise otherwise, as the JAX package's
+``_apply_flat``. The sharded backend is still to be ported (ROADMAP.md,
+queue A item 14).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import packing
@@ -78,6 +85,11 @@ class Topology:
         (Eq. 28)."""
         raise NotImplementedError
 
+    def rebuild(self, graph: WorkerGraph) -> "Topology":
+        """This backend rebuilt for a new graph (membership changed, or
+        the topology was redrawn), on the same device."""
+        return build(graph, self.backend, device=self.degrees.device)
+
     def dual_residual(self, lap: Tree) -> torch.Tensor:
         """Squared norm of a Laplacian image, summed over the tree: with
         ``lap = laplacian(theta_hat)`` this is ``||(D - A) theta_hat||²``,
@@ -106,6 +118,29 @@ class DenseTopology(Topology):
                          * torch.sum(diffs ** 2, dim=-1)) / 2.0
 
 
+@dataclasses.dataclass(frozen=True)
+class SparseTopology(Topology):
+    """One ``edge_gather_mix`` over the degree-padded CSR table; the
+    residual sums over the undirected edge list."""
+
+    und_head: torch.Tensor = None   # (E,) int64 undirected edge heads
+    und_tail: torch.Tensor = None   # (E,) int64 undirected edge tails
+    nbr_table: torch.Tensor = None  # (N, S) int32 neighbor ids
+    nbr_valid: torch.Tensor = None  # (N, S) float32 1/0 slot validity
+
+    backend = "sparse"
+
+    def _mix_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        return ops.edge_gather_mix(flat, self.nbr_table,
+                                   self.nbr_valid).to(flat.dtype)
+
+    def primal_residual(self, theta: torch.Tensor) -> torch.Tensor:
+        t32 = theta.to(torch.float32)
+        diff = (t32.index_select(0, self.und_head)
+                - t32.index_select(0, self.und_tail))
+        return torch.sum(torch.square(diff))
+
+
 def build(graph: WorkerGraph, backend: str = "dense", *,
           device: Optional[Union[str, torch.device]] = None) -> Topology:
     """Build the selected topology backend from a worker graph, with its
@@ -114,14 +149,24 @@ def build(graph: WorkerGraph, backend: str = "dense", *,
     if backend not in BACKENDS:
         raise ValueError(f"unknown mix backend {backend!r}; "
                          f"expected one of {BACKENDS}")
-    if backend != "dense":
+    if backend == "sharded":
         raise NotImplementedError(
-            f"the {backend!r} topology backend is not ported yet "
-            f"(ROADMAP.md queue A: sparse is item 9, sharded item 14)")
+            "the 'sharded' topology backend is not ported yet "
+            "(ROADMAP.md queue A item 14)")
     dev = resolve_device(device)
+    degrees = torch.as_tensor(graph.degrees, dtype=torch.float32, device=dev)
+    if backend == "sparse":
+        edges = np.asarray(graph.edges, dtype=np.int64)
+        table, valid = graph.neighbor_table
+        return SparseTopology(
+            n=graph.n, degrees=degrees,
+            und_head=torch.as_tensor(np.ascontiguousarray(edges[:, 0]),
+                                     device=dev),
+            und_tail=torch.as_tensor(np.ascontiguousarray(edges[:, 1]),
+                                     device=dev),
+            nbr_table=torch.as_tensor(table, device=dev).contiguous(),
+            nbr_valid=torch.as_tensor(valid, device=dev).contiguous())
     return DenseTopology(
-        n=graph.n,
-        degrees=torch.as_tensor(graph.degrees, dtype=torch.float32,
-                                device=dev),
+        n=graph.n, degrees=degrees,
         adjacency=torch.as_tensor(graph.adjacency, dtype=torch.float32,
                                   device=dev).contiguous())

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.packing import runs_to_col_ids
 from repro_torch.kernels import ref
 from repro_torch.kernels.bipartite_mix import bipartite_mix_cuda
+from repro_torch.kernels.edge_gather_mix import edge_gather_mix_cuda
 from repro_torch.kernels.paged_attention import (
     SMEM_PER_BLOCK, oneshot_smem_bytes, paged_attention_cuda)
 from repro_torch.kernels.grouped_quant import (
@@ -33,7 +34,7 @@ from repro_torch.kernels.stoch_quant import stoch_quantize_cuda
 KERNELS = ("stoch_quantize", "bipartite_mix", "stoch_quantize_grouped",
            "stoch_quantize_grouped_fused",
            "stoch_quantize_grouped_fused_tiled", "paged_attention_decode",
-           "paged_attention_decode_online")
+           "paged_attention_decode_online", "edge_gather_mix")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -61,6 +62,19 @@ def bipartite_mix(adjacency: torch.Tensor, values: torch.Tensor
         return ref.bipartite_mix_ref(adjacency, values)
     out = bipartite_mix_cuda(adjacency, values)
     launches["bipartite_mix"] += 1
+    return out
+
+
+def edge_gather_mix(values: torch.Tensor, nbr_table: torch.Tensor,
+                    nbr_valid: torch.Tensor) -> torch.Tensor:
+    """Neighbour sum over the degree-padded CSR table, float32 out (see
+    ``ref.edge_gather_mix_ref``). Values of another dtype are cast to
+    float32 first, as the JAX kernel does."""
+    values = values.to(torch.float32)
+    if values.device.type == "cpu":
+        return ref.edge_gather_mix_ref(values, nbr_table, nbr_valid)
+    out = edge_gather_mix_cuda(values.contiguous(), nbr_table, nbr_valid)
+    launches["edge_gather_mix"] += 1
     return out
 
 

@@ -113,6 +113,28 @@ def bipartite_mix_ref(adjacency: torch.Tensor, values: torch.Tensor
     return adjacency.to(values.dtype) @ values
 
 
+def edge_gather_mix_ref(values: torch.Tensor, nbr_table: torch.Tensor,
+                        nbr_valid: torch.Tensor) -> torch.Tensor:
+    """Neighbor sum over a degree-padded CSR table, in float32:
+    ``out[n] = sum_s valid[n, s] * values[nbr[n, s]]``. values (N, d),
+    nbr_table (N, S) int, nbr_valid (N, S) 1/0 -> (N, d).
+
+    The kernel's arithmetic in its order: from 0, one slot after another,
+    ``out + valid[:, s] * V[nbr[:, s]]`` with the product rounded before
+    the add. A padded slot is multiplied by its 0.0, not skipped, so a NaN
+    or inf in the row it points at reaches the output as in the Pallas
+    body. Table ids are clamped into [0, N), as the TPU kernel's block
+    index is."""
+    vals = values.to(torch.float32)
+    n = vals.shape[0]
+    idx = torch.clamp(nbr_table.to(torch.int64), 0, n - 1)
+    w = nbr_valid.to(device=vals.device, dtype=torch.float32)
+    out = torch.zeros(vals.shape, dtype=torch.float32, device=vals.device)
+    for s in range(idx.shape[1]):
+        out.add_(w[:, s, None] * vals.index_select(0, idx[:, s]))
+    return out
+
+
 # --------------------------------------------------- KV page quantization --
 def kv_page_levels(kv_bits: int, device) -> torch.Tensor:
     """``2^b - 1`` of a fixed-bit page codec as the Eq. (18) schedule

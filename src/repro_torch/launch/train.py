@@ -15,8 +15,18 @@ checkpoints the worker-stacked parameters in the JAX package's npz layout.
 
 Without ``--device cpu`` it runs on the CUDA card and raises when there is
 none. ``REPRO_QUANT_TILE_D=<n>`` routes the fused quantize through its
-D-tiled kernel. ``--mode fsdp``, ``--fleet``, ``--campaign`` and
-``--trace`` are not ported yet (ROADMAP.md) and exit with a message.
+D-tiled kernel. ``--mix-backend sparse`` mixes through the
+``edge_gather_mix`` kernel. ``--fleet`` drives the run through the fleet
+simulator (``fleet/sim.py``: straggler timeouts, bounded staleness, churn):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+        --workers 4 --batch 16 --seq 128 --local-steps 2 --bits 6 \
+        --groups leaf --mix-backend sparse --fleet \
+        --fleet-participation 0.75 --fleet-staleness 2 \
+        --fleet-churn 2:1:1 --steps 4
+
+``--mode fsdp``, ``--campaign`` and ``--trace`` are not ported yet
+(ROADMAP.md) and exit with a message.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import npz as ckpt
@@ -35,6 +46,7 @@ from repro_torch.core.censoring import CensorConfig
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
 from repro_torch.device import resolve_device
+from repro_torch.fleet import ChurnEvent, FaultConfig, FleetConfig, FleetSim
 from repro_torch.models import registry
 from repro_torch.runtime import steps as ST
 
@@ -60,6 +72,80 @@ def lm_loss_fn(cfg):
         with torch.no_grad():
             return torch.mean(registry.lm_loss(theta, cfg, batch)[0])
     return loss_fn
+
+
+def parse_churn(spec: str):
+    """Parse ``--fleet-churn`` "round:leave:join[,round:leave:join...]"
+    into a tuple of :class:`repro_torch.fleet.ChurnEvent`."""
+    if not spec:
+        return ()
+    events = []
+    for item in spec.split(","):
+        parts = item.split(":")
+        if len(parts) != 3:
+            raise SystemExit(
+                f"[train] bad --fleet-churn item {item!r}: expected "
+                f"round:leave:join (e.g. '10:2:1,20:1:0')")
+        try:
+            events.append(ChurnEvent(round=int(parts[0]),
+                                     leave=int(parts[1]),
+                                     join=int(parts[2])))
+        except (ValueError, AssertionError) as e:
+            raise SystemExit(
+                f"[train] bad --fleet-churn item {item!r}: {e}") from e
+    return tuple(events)
+
+
+def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
+              uniforms=None) -> dict:
+    """Drive the consensus run through FleetSim: straggler timeouts fold
+    into the censor mask, late updates land through the bounded-staleness
+    buffer, churn redraws the graph and remaps the state. Rounds without a
+    fault run the plain synchronous step; per-round draws derive from
+    ``(--seed, round)`` (or ``uniforms(round, phase)``), so the trajectory
+    differs from :func:`run_admm`'s loop through its draws only."""
+    fcfg = FleetConfig(
+        rounds=args.steps,
+        faults=FaultConfig(participation=args.fleet_participation,
+                           staleness=args.fleet_staleness,
+                           stale_frac=args.fleet_stale_frac,
+                           churn=parse_churn(args.fleet_churn),
+                           seed=args.fleet_seed),
+        graph_seed=args.seed, seed=args.seed)
+    per = args.batch // args.workers
+
+    def batch_fn(r, members):
+        return model_batch(cfg, data.worker_batch(r, len(members), per), dev)
+
+    sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
+                   extra_metrics=E.consensus_metrics(loss_fn),
+                   batch_fn=batch_fn, graph0=graph, uniforms=uniforms)
+    t0 = time.perf_counter()
+    fs, m = sim.run()
+    history = [float(x) for x in m["loss"]]
+    total_bits = float(np.sum(m["payload_bits_total"]))
+    for i in range(args.steps):
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"round {i:4d}  loss={history[i]:.4f}  "
+                  f"tx={int(m['tx_count'][i])}/{int(m['n_members'][i])}  "
+                  f"bits={float(m['payload_bits_total'][i]):.3e}  "
+                  f"({float(m['round_seconds'][i]):.2f}s)")
+    for ev in m["churn_log"]:
+        print(f"[fleet] round {ev['round']}: left={ev['left']} "
+              f"joined={ev['joined']} -> {ev['n_members']} members")
+    print(f"[fleet] {args.steps} rounds, participation="
+          f"{args.fleet_participation} staleness={args.fleet_staleness}: "
+          f"final_loss={history[-1]:.4f} cum_bits={total_bits:.3e} "
+          f"({(time.perf_counter() - t0) / args.steps:.2f}s/round)",
+          flush=True)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, args.steps, fs.engine.theta)
+    return {"final_loss": history[-1], "history": history,
+            "total_bits": total_bits,
+            "n_groups": fs.engine.quant.n_groups,
+            "churn_log": m["churn_log"], "metrics": m,
+            "step_seconds": [float(x) for x in m["round_seconds"]],
+            "sim": sim, "fleet_state": fs}
 
 
 def run_admm(cfg, args, *, params=None,
@@ -107,6 +193,16 @@ def run_admm(cfg, args, *, params=None,
         raise SystemExit(
             f"[train] bad --groups spec for {cfg.name}: {e}\n"
             f"[train] buckets: {registry.param_buckets(cfg)}") from e
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, args.seq,
+                                         seed=args.seed))
+    if args.fleet:
+        if args.regroup_every:
+            raise SystemExit(
+                "[train] --fleet is incompatible with --regroup-every: "
+                "auto regrouping rebuilds the step on a schedule the fleet "
+                "driver owns (churn already rebuilds it)")
+        return run_fleet(cfg, args, graph, ecfg, solver, lm_loss_fn(cfg),
+                         theta, data, dev, uniforms)
     state = E.init_state(theta, ecfg, solver)
     n_groups = state.quant.n_groups
     grouper = E.AutoGrouper.from_config(ecfg)
@@ -117,8 +213,6 @@ def run_admm(cfg, args, *, params=None,
                            device=dev)
 
     step = build_step(ecfg)
-    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, args.seq,
-                                         seed=args.seed))
     shape = (args.workers, E.tree_dim(theta))
     ugen = torch.Generator(device=dev).manual_seed(args.seed + 1000)
     total_bits = 0.0
@@ -209,7 +303,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--omega", type=float, default=0.999)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fleet", action="store_true",
-                    help=f"FleetSim driving {NOT_PORTED}")
+                    help="drive the run through FleetSim: straggler "
+                         "timeouts, bounded-staleness delivery, churn")
+    ap.add_argument("--fleet-participation", type=float, default=1.0,
+                    help="per-round P(a worker's update arrives on time)")
+    ap.add_argument("--fleet-staleness", type=int, default=0,
+                    help="max delivery lag (rounds) of late updates; 0 "
+                         "drops them")
+    ap.add_argument("--fleet-stale-frac", type=float, default=1.0,
+                    help="P(a late update is delayed rather than dropped)")
+    ap.add_argument("--fleet-churn", default="",
+                    help="membership changes as round:leave:join[,...], "
+                         "e.g. '10:2:1,20:1:0'")
+    ap.add_argument("--fleet-seed", type=int, default=0,
+                    help="fault-schedule seed (replays the same trace)")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help=f"Chrome-trace output {NOT_PORTED}")
@@ -223,7 +330,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, *, params=None, uniforms=None) -> dict:
     args = build_parser().parse_args(argv)
     for flag, given in (("--trace", args.trace), ("--campaign", args.campaign),
-                        ("--fleet", args.fleet),
                         ("--mode fsdp", args.mode == "fsdp")):
         if given:
             raise SystemExit(f"[train] {flag} {NOT_PORTED}")

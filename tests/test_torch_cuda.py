@@ -438,3 +438,96 @@ def test_paged_attention_rejects_what_it_does_not_take(cuda):
         ops.paged_attention_decode(kw["q"], kw["k_pages"].double(),
                                    kw["v_pages"].double(),
                                    kw["block_tables"], kw["ctx_lens"])
+
+
+# ------------------------------------------------------ edge_gather_mix --
+def _edge_graphs():
+    from repro_torch.core import graph as G
+    from repro_torch.runtime import steps as ST
+    return {"6-odd-d": (G.random_bipartite_graph(6, 0.5, seed=1), 7),
+            "paper-24": (G.random_bipartite_graph(24, 0.35, seed=0), 50),
+            "full-64": (G.random_bipartite_graph(64, 0.35, seed=0), 2000),
+            "star-257": (G.star_graph(257), 2000),
+            "random-1024": (G.random_bipartite_graph(1024, 0.05, seed=0),
+                            256),
+            "lm-4": (ST.worker_graph(4), 1 << 20)}
+
+
+EDGE_SHAPES = ["6-odd-d", "paper-24", "full-64", "star-257", "random-1024",
+               "lm-4"]
+
+
+def edge_inputs(g, d, seed, device):
+    table, valid = g.neighbor_table
+    vals = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (g.n, d)).astype(np.float32))
+    return (vals.to(device), torch.from_numpy(table).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_SHAPES)
+def test_edge_gather_mix_kernel_matches_plain_bitwise_on_card(cuda, name):
+    g, d = _edge_graphs()[name]
+    vals, table, valid = edge_inputs(g, d, 3, cuda)
+    before = ops.launches["edge_gather_mix"]
+    got = ops.edge_gather_mix(vals, table, valid)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_gather_mix"] == before + 1
+    want = ref.edge_gather_mix_ref(vals, table, valid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_edge_gather_mix_poisoned_table_and_scalar_path_on_card(cuda):
+    """Pad ids out of range at both ends, NaN/inf in the rows they clamp
+    to, and 16-byte-unaligned rows (the scalar path): bit for bit."""
+    from repro_torch.core import graph as G
+    g = G.random_bipartite_graph(6, 0.5, seed=1)
+    table, valid = (x.copy() for x in g.neighbor_table)
+    pads = valid == 0
+    table[pads] = np.resize(np.array([7, -3, 100, -1], np.int32),
+                            int(pads.sum()))
+    vals = np.random.default_rng(3).standard_normal((6, 64)).astype(
+        np.float32)
+    vals[0, 2], vals[5, 1] = np.nan, np.inf
+    t, v = torch.from_numpy(table).to(cuda), torch.from_numpy(valid).to(cuda)
+    dense = torch.from_numpy(vals).to(cuda)
+    unaligned = torch.empty(6 * 64 + 1, device=cuda)[1:].view(6, 64)
+    unaligned.copy_(dense)
+    assert unaligned.data_ptr() % 16 != 0
+    want = ref.edge_gather_mix_ref(dense, t, v)
+    for x in (dense, unaligned):
+        got = ops.edge_gather_mix(x, t, v)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert bool(want.isnan().any())
+
+
+@pytest.mark.cuda
+def test_sparse_mix_equals_dense_mix_on_card(cuda):
+    """On a 0/1 graph B6 (products by 1.0, adds in ascending neighbor
+    order) and B2 (an FMA chain over all workers in ascending order, the
+    0.0 terms adding nothing) round the same sums the same way."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import topology
+    g = G.random_bipartite_graph(64, 0.35, seed=0)
+    vals = edge_inputs(g, 2000, 5, cuda)[0]
+    sparse = topology.build(g, "sparse", device=cuda)
+    dense = topology.build(g, "dense", device=cuda)
+    assert torch.equal(sparse.mix(vals), dense.mix(vals))
+    assert torch.equal(sparse.laplacian(vals), dense.laplacian(vals))
+
+
+@pytest.mark.cuda
+def test_edge_gather_mix_rejects_what_it_does_not_take(cuda):
+    vals = torch.zeros((4, 8), device=cuda)
+    table = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    valid = torch.ones((4, 2), device=cuda)
+    with pytest.raises(ValueError):                      # int64 table
+        ops.edge_gather_mix(vals, table.long(), valid)
+    with pytest.raises(ValueError):                      # table on the CPU
+        ops.edge_gather_mix(vals, table.cpu(), valid)
+    with pytest.raises(ValueError):                      # rows mismatch
+        ops.edge_gather_mix(vals, table[:3], valid[:3])

@@ -15,6 +15,7 @@ from repro_torch.core import admm_baselines as ab
 from repro_torch.core import cq_ggadmm
 from repro_torch.core import engine as E
 from repro_torch.core import topology
+from repro_torch.core.dynamic import DynamicTopology, run_dynamic
 from repro_torch.core.graph import chain_graph
 from repro_torch.kernels import build, ops, ref
 from repro_torch.launch import serve, train
@@ -49,6 +50,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         lambda: quickstart.part1(iters=1),
         lambda: quickstart.main(["--iters", "1"]),
         lambda: topology.build(g),
+        lambda: topology.build(g, "sparse"),
+        lambda: run_dynamic(DynamicTopology(4, refresh_every=1), prob, cfg,
+                            2, 1),
         lambda: E.make_step(g, cfg, E.ExactSolver(prob)),
         lambda: E.flat_metrics(g),
         lambda: cq_ggadmm.init_state(4, 2, cfg),
@@ -109,6 +113,10 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         ops.stoch_quantize_grouped(*args[:3], side, side, None,
                                    group_runs=runs)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.edge_gather_mix(args[0], torch.zeros((3, 2), dtype=torch.int32,
+                                                 device="meta"),
+                            torch.ones((3, 2), device="meta"))
     pool = torch.zeros((4, 2, 1, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_attention_decode(
@@ -117,12 +125,26 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
             torch.ones((2,), dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fsdp"], ["--fleet"],
+@pytest.mark.parametrize("argv", [["--mode", "fsdp"],
                                   ["--campaign", "lm-sweep"],
-                                  ["--trace", "t.json"]])
+                                  ["--trace", "t.json"],
+                                  ["--fleet", "--trace", "t.json"]])
 def test_train_flags_not_ported_exit_naming_roadmap(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_train_fleet_flag_runs_and_refuses_regroup_every():
+    """``--fleet`` runs (it exited before the fleet was ported) and, as in
+    the JAX package, refuses ``--regroup-every``; a bad churn spec exits."""
+    argv = ["--smoke", "--device", "cpu", "--workers", "2", "--batch", "2",
+            "--seq", "8", "--steps", "1", "--local-steps", "1", "--fleet"]
+    out = train.main(argv + ["--mix-backend", "sparse"])
+    assert np.isfinite(out["history"]).all() and len(out["history"]) == 1
+    with pytest.raises(SystemExit, match="regroup-every"):
+        train.main(argv + ["--groups", "auto:2", "--regroup-every", "1"])
+    with pytest.raises(SystemExit, match="fleet-churn"):
+        train.main(argv + ["--fleet-churn", "1:1"])
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -147,7 +169,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     scanned = {p.relative_to(ROOT).parts[2] for p in files[:-1]}
-    assert {"serving", "launch", "models", "kernels"} <= scanned
+    assert {"serving", "launch", "models", "kernels", "fleet"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

@@ -242,8 +242,7 @@ def test_cq_ggadmm_adapter_run(setup):
     assert np.isfinite(out["objective"]).all()
 
 
-@pytest.mark.parametrize("kw", [dict(mix_backend="sparse"),
-                                dict(mix_backend="sharded"),
+@pytest.mark.parametrize("kw", [dict(mix_backend="sharded"),
                                 dict(hat_dtype="bfloat16"),
                                 dict(hat_dtype="float16"),
                                 dict(hat_dtype="float32", groups="leaf")])
@@ -252,13 +251,47 @@ def test_engine_config_refuses_what_is_not_ported(kw):
         E.EngineConfig(**kw)
 
 
-def test_step_refuses_the_fleet_participation_hook(setup):
+def test_engine_config_accepts_the_sparse_backend(setup):
+    """``mix_backend="sparse"`` runs (it was refused before the sparse
+    topology was ported): ggadmm on the sparse backend follows the dense
+    backend's trajectory, the two mixes differing by summation order."""
     s = setup
-    step = E.make_step(s["graph"], ab.ggadmm(), E.ExactSolver(s["prob"]),
+    _, dense, _, _ = run_port(s, ab.ggadmm(rho=1.0), 20)
+    cfg = dataclasses.replace(ab.ggadmm(rho=1.0), mix_backend="sparse")
+    _, sparse, _, _ = run_port(s, cfg, 20)
+    assert_trajectories_agree(sparse["theta"], dense["theta"], s["jstar"])
+    np.testing.assert_array_equal(sparse["tx_mask"], dense["tx_mask"])
+
+
+def test_step_takes_the_fleet_participation_hook(setup):
+    """The fleet's on-time mask (it was refused before the fleet was
+    ported): all-ones is the synchronous step bit for bit; a timed-out
+    worker transmits nothing and is charged zero bits, while its
+    censor-only decision and offered bits are still reported."""
+    s = setup
+    cfg = ab.cq_ggadmm(rho=1.0)
+    step = E.make_step(s["graph"], cfg, E.ExactSolver(s["prob"]),
                        device="cpu")
-    state = E.init_state(torch.zeros((N, D)), ab.ggadmm())
-    with pytest.raises(NotImplementedError, match="participation"):
-        step(state, None, participation=torch.ones(N))
+    u = jax_uniforms(2, 1)[0]
+
+    def draw(phase):
+        return torch.from_numpy(u[phase].copy())
+
+    state = E.init_state(torch.zeros((N, D)), cfg)
+    _, sync = step(state, draw)
+    _, ones = step(state, draw, participation=torch.ones(N))
+    for k in sync:
+        torch.testing.assert_close(ones[k], sync[k], rtol=0, atol=0)
+    part = torch.ones(N)
+    part[[0, 5]] = 0.0
+    _, m = step(state, draw, participation=part)
+    assert float(m["tx_mask"][0]) == 0.0 and float(m["tx_mask"][5]) == 0.0
+    assert float(m["payload_bits"][0]) == 0.0
+    assert float(m["payload_bits"][5]) == 0.0
+    torch.testing.assert_close(m["censor_mask"], sync["censor_mask"])
+    torch.testing.assert_close(m["offered_payload_bits"],
+                               sync["payload_bits"])
+    torch.testing.assert_close(m["tx_mask"], sync["tx_mask"] * part)
 
 
 @pytest.mark.parametrize("groups", ["model", "leaf", "block:attn,mlp",
