@@ -77,7 +77,25 @@ with its time printed:
    activations and pools; kv_bits 8 and 4 streams; one request at ~4000
    tokens, where the shared-memory threshold picks the online kernel; 0
    pages in use after each; decode ms per tick, tokens/s, peak memory and
-   the top device activities of one profiled tick.
+   the top device activities of one profiled tick;
+16. the sLSTM cell kernel (B9, ``slstm_cell``) against its plain version
+   at xlstm-125m's heads (H 4, dh 192): the lockstep prefill (8, 700) and
+   the paged bulk chunk (1, 64), bf16 and float32 wx, an odd (3, 129),
+   from m0 = -1e30, 0 and a carried state; hs and every final state within
+   1e-4 of max|hs|; device time, time per call, plain time and bound;
+17. serving xlstm-125m at full width (random float32 weights from seed 0):
+   a (8, 700) prefill forward through ``registry.apply_model`` with B9
+   (exactly 6 launches) against the port's time loop, logits and every
+   layer's final state (bf16 and float32 activations); the 16-request
+   stream of phase 15 through the paged scheduler in bf16 and float32
+   activations, exactly 6 B9 launches per bulk prefill chunk, 0 pages in
+   use after, four requests (prompts 17, 255, 700, 384) held to the same
+   request served alone (equal, or parting at a near-tie), the lockstep
+   engine on equal-length waves beside it (printed, not a gate: a paged
+   admission zeroes the stabilizer m, as in the JAX package), and the
+   float32 stream once more with m set to -1e30 at each admission held
+   to the lockstep engine (every request equal, or parting at a
+   near-tie); one decode tick and one prefill chunk profiled.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -1354,14 +1372,14 @@ def bf16_spacing(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
 
 
-def first_divergence(name, got, want, bf16: bool):
+def first_divergence(name, got, want, bf16: bool, gate: bool = True):
     """Compare two greedy streams ((tokens, (top-k values, top-k ids)) per
     request). Where they part, print the step and both runs' top-2 logit
     gaps there. A divergence fails unless, in one of the runs, the other
     run's token is within a near-tie tolerance of the top logit: GAP_TOL
     for float32 logits, one bfloat16 step at the top logit for bf16 logits
     (whose resolution, 2^-8 to 2^-6 at these magnitudes, is coarser than
-    GAP_TOL)."""
+    GAP_TOL). With ``gate`` False the partings are only printed."""
     diverged = 0
     for r in sorted(got):
         a, (va, ia) = got[r]
@@ -1383,8 +1401,8 @@ def first_divergence(name, got, want, bf16: bool):
             hit = np.nonzero(ids == other)[0]
             return bool(len(hit)) and v[0] - v[hit[0]] <= tol
 
-        if not (tied(va[k], ia[k], b[k], tol_a)
-                or tied(vb[k], ib[k], a[k], tol_b)):
+        if gate and not (tied(va[k], ia[k], b[k], tol_a)
+                         or tied(vb[k], ib[k], a[k], tol_b)):
             raise AssertionError(f"{name} request {r}: a divergence at step "
                                  f"{k} with top-2 gaps {gap_a:.4e} / "
                                  f"{gap_b:.4e}")
@@ -1392,29 +1410,37 @@ def first_divergence(name, got, want, bf16: bool):
 
 
 def compare_with_lockstep(name, cfg, params, dev, prompts, new, sched, outs,
-                          batch, cache_dtype=torch.bfloat16):
+                          batch, cache_dtype=torch.bfloat16, gate=True,
+                          want=None):
     """Run the lockstep engine on ``prompts`` in waves of ``batch``
     equal-length prompts (so nothing is padded) and hold the scheduler's
-    greedy streams against it (:func:`first_divergence`)."""
+    greedy streams against it (:func:`first_divergence`; with ``gate``
+    False only count and print the partings). ``want``, what an earlier
+    call on the same prompts returned, stands in for the lockstep run.
+    Returns the lockstep streams."""
     from repro_torch.launch import serve
 
-    by_len = sorted(range(len(prompts)), key=lambda i: (len(prompts[i]), i))
     t0 = time.perf_counter()
-    with torch.no_grad():
-        lock = serve.LockstepEngine(cfg, params, batch=batch, device=dev,
-                                    cache_dtype=cache_dtype).run(
-            [prompts[i] for i in by_len], new, keep_top=TOP_K)
-    torch.cuda.synchronize()
-    want = {by_len[j]: (lock["outputs"][j], lock["top"][j])
-            for j in range(len(by_len))}
+    if want is None:
+        by_len = sorted(range(len(prompts)),
+                        key=lambda i: (len(prompts[i]), i))
+        with torch.no_grad():
+            lock = serve.LockstepEngine(cfg, params, batch=batch, device=dev,
+                                        cache_dtype=cache_dtype).run(
+                [prompts[i] for i in by_len], new, keep_top=TOP_K)
+        torch.cuda.synchronize()
+        want = {by_len[j]: (lock["outputs"][j], lock["top"][j])
+                for j in range(len(by_len))}
     got = {i: (outs[i], (np.stack([v for v, _ in sched.top[i]]),
                          np.stack([t for _, t in sched.top[i]])))
            for i in range(len(outs))}
-    n_div = first_divergence(name, got, want, cfg.dtype == "bfloat16")
+    n_div = first_divergence(name, got, want, cfg.dtype == "bfloat16", gate)
     same = sum(int((got[i][0] == want[i][0]).all()) for i in got)
     log(f"{name} lockstep reference ({cfg.dtype} activations): "
         f"{time.perf_counter() - t0:.1f} s; {same} of {len(got)} requests "
-        f"equal token for token, {n_div} part at a near-tie")
+        f"equal token for token, {n_div} part"
+        + (" at a near-tie" if gate else " (not a gate)"))
+    return want
 
 
 def serve_stream(sched_cls, cfg, params, dev, prompts, new, scfg, ops,
@@ -1573,6 +1599,349 @@ def serve_full_width(ops, dev):
                 l3["paged_attention_decode_online"]}
 
 
+# sLSTM cell (B9) and xlstm-125m serving at full width (arXiv:2405.04517):
+# H = 4 heads of dh = 192 in each of the 6 sLSTM layers
+SLSTM_H, SLSTM_DH = 4, 192
+# label: ((B, S), wx dtype, initial state): the lockstep prefill of the
+# longest wave, the paged bulk chunk (bf16 is the main path's, timed for
+# the kernels line), an odd shape; m0 = 0 (a paged admission) and -1e30 (a
+# fresh contiguous cache)
+SLSTM_CHECKS = {
+    "lockstep prefill (8, 700) bf16, m0 -1e30": ((8, 700), torch.bfloat16,
+                                                 "fresh"),
+    "lockstep prefill (8, 700) bf16, m0 0": ((8, 700), torch.bfloat16,
+                                             "admitted"),
+    "paged chunk (1, 64) bf16, m0 0": ((1, 64), torch.bfloat16, "admitted"),
+    "paged chunk (1, 64) f32, m0 0": ((1, 64), torch.float32, "admitted"),
+    "paged chunk (1, 64) f32, carried state": ((1, 64), torch.float32,
+                                               "carried"),
+    "odd (3, 129) f32, m0 -1e30": ((3, 129), torch.float32, "fresh"),
+    "odd (3, 129) bf16, m0 0": ((3, 129), torch.bfloat16, "admitted"),
+}
+SLSTM_MAIN = "paged chunk (1, 64) bf16, m0 0"
+SLSTM_TOL = 1e-4         # of max|hs|: fmaf in k order against cuBLAS sums
+# float32 operations per (row, step, unit) outside the product: 4 pre adds,
+# fbias add, logsigmoid (min, abs, neg, exp, log1p, sub), m' (add, max),
+# the two exponentials (3 + 2), c' (tanh, 2 mul, add), n' (2 ops + max),
+# h' (neg, exp, add, div, mul, div)
+SLSTM_GATE_OPS = 31
+XLSTM_PREFILL = (8, 700)
+XLSTM_ALONE = (0, 2, 4, 6)    # prompts 17, 255, 700, 384: the shortest and
+                              # the longest of the stream among them
+
+
+def slstm_inputs(dev, shape, wx_dtype, state, seed):
+    """B9's inputs on the card from a seeded generator at xlstm-125m's
+    heads: wx (B, S, 4, 768), R (4, 192, 768) / sqrt(192), fbias 3.0 (the
+    init's), and a fresh (m -1e30), admitted (all 0) or carried state."""
+    (b, s), h, dh = shape, SLSTM_H, SLSTM_DH
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wx = (0.5 * torch.randn((b, s, h, 4 * dh), generator=gen, device=dev)
+          ).to(wx_dtype)
+    r_w = torch.randn((h, dh, 4 * dh), generator=gen, device=dev) / dh ** 0.5
+    fb = torch.full((h, dh), 3.0, device=dev)
+    zero = torch.zeros((b, h, dh), device=dev)
+    if state == "fresh":
+        st = [zero, zero.clone(), torch.full_like(zero, -1e30), zero.clone()]
+    elif state == "admitted":
+        st = [zero, zero.clone(), zero.clone(), zero.clone()]
+    else:
+        st = [torch.randn((b, h, dh), generator=gen, device=dev),
+              1.0 + torch.rand((b, h, dh), generator=gen, device=dev),
+              torch.randn((b, h, dh), generator=gen, device=dev),
+              0.5 * torch.randn((b, h, dh), generator=gen, device=dev)]
+    return [wx, r_w, fb] + st
+
+
+def slstm_bound(shape, wx_dtype):
+    """Least time of one call: wx, R, fbias and the state read once, hs and
+    the state written once, at the memory rate; against the product's
+    2 B S H dh 4dh and SLSTM_GATE_OPS per (row, step, unit) at the float32
+    rate."""
+    (b, s), h, dh = shape, SLSTM_H, SLSTM_DH
+    wx_bytes = 2 if wx_dtype == torch.bfloat16 else 4
+    n_bytes = (b * s * h * 4 * dh * wx_bytes + 4 * b * s * h * dh
+               + 4 * h * dh * 4 * dh + 4 * h * dh + 8 * 4 * b * h * dh)
+    n_ops = 2.0 * b * s * h * dh * 4 * dh + SLSTM_GATE_OPS * b * s * h * dh
+    return bound(n_bytes, n_ops)
+
+
+def check_slstm_parity(ref, dev):
+    """B9 against its plain version on the same card tensors at every
+    SLSTM_CHECKS shape: max |err| of hs and of each final state, each
+    within SLSTM_TOL of max|hs|. Returns the largest max |err|."""
+    from repro_torch.kernels.slstm_cell import slstm_cell_cuda
+
+    worst = 0.0
+    for seed, (label, (shape, wx_dtype, state)) in enumerate(
+            SLSTM_CHECKS.items()):
+        args = slstm_inputs(dev, shape, wx_dtype, state, seed)
+        got = slstm_cell_cuda(*args)
+        want = ref.slstm_cell_ref(*args)
+        torch.cuda.synchronize()
+        hmax = float(want[0].abs().max())
+        errs = [float((got[0] - want[0]).abs().max())] + [
+            float((a - b).abs().max()) for a, b in zip(got[1], want[1])]
+        rel = [e / hmax for e in errs]
+        assert all(np.isfinite(float(x.float().abs().max()))
+                   for x in (got[0],) + tuple(got[1])), label
+        if not max(rel) <= SLSTM_TOL:
+            raise AssertionError(f"slstm_cell {label}: max |err| / max|hs| "
+                                 f"{rel} > {SLSTM_TOL}")
+        worst = max(worst, max(errs))
+        log(f"parity slstm_cell {label}: max |err| / max|hs| ({hmax:.4f}): "
+            f"hs {rel[0]:.3e}, c {rel[1]:.3e}, n {rel[2]:.3e}, m "
+            f"{rel[3]:.3e}, h {rel[4]:.3e}")
+        del args, got, want
+    return worst
+
+
+def time_slstm(ref, dev):
+    """Device time (profiler), time per call (CUDA events), plain time and
+    bound of B9 at the lockstep prefill and paged chunk shapes; the main
+    path's (the bf16 paged chunk) is returned for the kernels line."""
+    from repro_torch.kernels.slstm_cell import slstm_cell_cuda
+
+    out = {}
+    for label in ("lockstep prefill (8, 700) bf16, m0 -1e30",
+                  "paged chunk (1, 64) bf16, m0 0",
+                  "paged chunk (1, 64) f32, m0 0"):
+        shape, wx_dtype, state = SLSTM_CHECKS[label]
+        args = slstm_inputs(dev, shape, wx_dtype, state, 99)
+        reps = 5 if shape[1] > 100 else 50
+        t = {"ms": time_ms(lambda: slstm_cell_cuda(*args), reps, 3),
+             "plain_ms": time_ms(lambda: ref.slstm_cell_ref(*args), 2, 3),
+             "bound": slstm_bound(shape, wx_dtype), "library_ms": None}
+        _, acts = device_times(lambda: slstm_cell_cuda(*args), 5)
+        hits = [(c, ms) for k, (c, ms) in acts.items()
+                if "slstm_cell_kernel" in k]
+        t["device_ms"] = (sum(ms for _, ms in hits)
+                          / sum(c for c, _ in hits)) if hits else None
+        steps = shape[1]
+        log(f"time slstm_cell {label}: per call {t['ms']:.4f} ms (device "
+            f"only {t['device_ms']} ms, {1e3 * t['ms'] / steps:.3f} us per "
+            f"step), plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound'][0]:.5f} ms ({t['bound'][1]}); no single PyTorch "
+            f"call computes this cell")
+        out[label] = t
+        del args
+    return out[SLSTM_MAIN]
+
+
+def xlstm_state_errors(cache, ref_cache):
+    """max |a - b| / max|b| over every cache leaf of every layer."""
+    worst = {}
+    for key in ref_cache["units"]:
+        for name, want in ref_cache["units"][key].items():
+            got = cache["units"][key][name]
+            scale = float(want.abs().max())
+            worst[f"{key}.{name}"] = float((got - want).abs().max()) / scale
+    return worst
+
+
+def xlstm_prefill_full_width(ops, dev, cfg, params):
+    """A full-width xlstm-125m prefill forward of (8, 700) tokens into
+    fresh contiguous caches through ``registry.apply_model``, with the
+    serving route (B9, 6 launches) and with ``slstm_apply(use_kernel=
+    False)`` (the port's time loop): logits and every layer's final state,
+    bf16 activations to 4e-2 of the largest value (bf16 rounds the sLSTM
+    output into the next layer, so a float32 difference in the cell can
+    flip a bf16 step), float32 activations to 1e-4."""
+    from repro_torch.models import registry, xlstm
+
+    real = xlstm.slstm_apply
+    b, s = XLSTM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    def forward(c, route):
+        cache = registry.init_cache(c, b, 0, device=dev)
+        if route == "loop":
+            xlstm.slstm_apply = lambda *a, **k: real(
+                *a, **{**k, "use_kernel": False})
+        try:
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = registry.apply_model(params, c, {"tokens": toks},
+                                              caches=cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            xlstm.slstm_apply = real
+        return logits, cache, wall, ops.launches["slstm_cell"]
+
+    for dtype, tol, rounds in (("bfloat16", 4e-2, 2), ("float32", 1e-4, 1)):
+        c = cfg.with_overrides(dtype=dtype)
+        runs = {}
+        for _ in range(rounds):
+            for route in ("B9", "loop"):
+                runs[route] = forward(c, route)
+        (lk, ck, tk, nk), (ll, cl, tl, nl) = runs["B9"], runs["loop"]
+        # one launch per sLSTM layer: 6 at xlstm-125m's 12 layers
+        assert (nk, nl) == (cfg.block_kinds.count("slstm"), 0), (nk, nl)
+        lk, ll = lk.float(), ll.float()
+        assert bool(torch.isfinite(lk).all()), "non-finite logits"
+        assert tuple(lk.shape) == (b, s, cfg.vocab_size)
+        err = float((lk - ll).abs().max()) / float(ll.abs().max())
+        st = xlstm_state_errors(ck, cl)
+        agree = float((lk[:, -1].argmax(-1) == ll[:, -1].argmax(-1)
+                       ).float().mean())
+        log(f"xlstm prefill {b}x{s} {dtype}: B9 route {tk * 1e3:.1f} ms "
+            f"({nk} B9 launches), time loop {tl * 1e3:.1f} ms; logits max "
+            f"|diff| / max|logit| {err:.3e}, last-token argmax agree "
+            f"{agree:.3f}; worst final state {max(st.values()):.3e} "
+            f"({max(st, key=st.get)}); tolerance {tol}")
+        if not (err <= tol and max(st.values()) <= tol):
+            raise AssertionError(f"xlstm prefill {dtype}: logits {err:.3e},"
+                                 f" states {st}")
+        del runs, lk, ll, ck, cl
+        torch.cuda.empty_cache()
+
+
+def admit_fresh_m(real):
+    """``paging.admit_slot`` (``real``) followed by setting the admitted
+    slot's stabilizer ``m`` to -1e30 in every recurrent block, where the
+    JAX package's admission leaves it at 0."""
+    def admit(cache, slot, row, fresh_row=None):
+        real(cache, slot, row, fresh_row)
+        for c in cache["units"].values():
+            if "m" in c:
+                c["m"][:, slot] = -1e30
+        return cache
+
+    return admit
+
+
+def serve_xlstm_full_width(ops, dev):
+    """xlstm-125m at full width (random float32 weights from seed 0)
+    through the port's paged scheduler: the prefill forward with B9
+    against the time loop; the 16-request greedy stream (B9 at (1, 64) on
+    every bulk prefill chunk) in bf16 and float32 activations, four
+    requests held to the same request served alone, the lockstep engine on
+    equal-length waves beside it (not a gate: the paged admission zeroes
+    m, ROADMAP C); the float32 stream with m at -1e30 from each admission
+    held to the lockstep engine (a gate); one decode tick and one prefill
+    chunk profiled."""
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.serving import paging
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    cfg = base.get_config("xlstm-125m")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_slstm = cfg.block_kinds.count("slstm")
+    log(f"serve xlstm-125m: {registry.count_params(cfg)} float32 parameters"
+        f" on the card in {time.perf_counter() - t0:.1f} s; {n_slstm} sLSTM "
+        f"layers")
+    t0 = time.perf_counter()
+    xlstm_prefill_full_width(ops, dev, cfg, params)
+    log(f"xlstm prefill forwards: {time.perf_counter() - t0:.1f} s")
+
+    lens = list(SERVE_LENS) * (SERVE_REQUESTS // len(SERVE_LENS))
+    prompts = serve.make_prompts(cfg, lens, 0)
+    geom = dict(SERVE_GEOM)
+    scfg = ServeConfig(num_pages=2 * geom["max_seqs"] * geom["pages_per_seq"],
+                       kv_bits=32, **geom)
+    launches = None
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.with_overrides(dtype=dtype)
+        sched, outs, l1, wall = serve_stream(
+            Scheduler, c, params, dev, prompts, SERVE_NEW, scfg, ops,
+            record_top=TOP_K)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {k: 0 for k in ops.KERNELS}
+        want["slstm_cell"] = n_slstm * sched.prefill_chunks
+        assert l1 == want, (l1, sched.prefill_chunks)
+        if launches is None:
+            launches = l1
+        ticks = np.asarray(sched.decode_step_s) * 1e3
+        pre = float(np.sum(sched.prefill_chunk_s))
+        log(f"serve xlstm {dtype} stream: {wall:.2f} s wall, {sched.steps} "
+            f"ticks, {sched.decode_steps} decode ticks (median "
+            f"{np.median(ticks):.3f} ms, p90 {np.percentile(ticks, 90):.3f} "
+            f"ms), {sched.decode_tokens / (ticks.sum() / 1e3):.1f} decode "
+            f"tokens/s ({sched.decode_tokens} tokens fed by decode ticks), "
+            f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} generated tokens/s end "
+            f"to end, prefill {sched.prefill_tokens} tokens in "
+            f"{sched.prefill_chunks} chunks ({1e3 * pre / sched.prefill_chunks:.3f}"
+            f" ms each), {sched.prefill_tokens / pre:.1f} prefill tokens/s; "
+            f"peak device memory {peak_gb:.2f} GB; final pages in use 0; "
+            f"B9 launches {l1['slstm_cell']} = {n_slstm} x "
+            f"{sched.prefill_chunks} bulk chunks")
+        got, alone = {}, {}
+        for i in XLSTM_ALONE:
+            s1, o1, l2, _ = serve_stream(Scheduler, c, params, dev,
+                                         [prompts[i]], SERVE_NEW, scfg, ops,
+                                         record_top=TOP_K)
+            assert l2["slstm_cell"] == n_slstm * s1.prefill_chunks, l2
+            alone[i] = (o1[0], (np.stack([v for v, _ in s1.top[0]]),
+                                np.stack([t for _, t in s1.top[0]])))
+            got[i] = (outs[i], (np.stack([v for v, _ in sched.top[i]]),
+                                np.stack([t for _, t in sched.top[i]])))
+        n_div = first_divergence(f"xlstm {dtype} alone", got, alone,
+                                 dtype == "bfloat16")
+        log(f"serve xlstm {dtype}: requests {list(XLSTM_ALONE)} (prompts "
+            f"{[lens[i] for i in XLSTM_ALONE]}) served alone: "
+            f"{len(XLSTM_ALONE) - n_div} equal token for token, {n_div} "
+            f"part at a near-tie")
+        lock = compare_with_lockstep(f"serve xlstm {dtype}", c, params,
+                                     dev, prompts, SERVE_NEW, sched, outs, 2,
+                                     gate=False)
+        del sched
+
+    # the float32 stream again with m set to -1e30 at each admission, as a
+    # fresh contiguous cache starts: the only difference left from the
+    # lockstep engine's start, so held to it with the gate on
+    real = paging.admit_slot
+    paging.admit_slot = admit_fresh_m(real)
+    try:
+        sched, outs, l1, _ = serve_stream(Scheduler, c, params, dev, prompts,
+                                          SERVE_NEW, scfg, ops,
+                                          record_top=TOP_K)
+    finally:
+        paging.admit_slot = real
+    assert l1["slstm_cell"] == n_slstm * sched.prefill_chunks, l1
+    compare_with_lockstep("serve xlstm float32, m -1e30 at admission", c,
+                          params, dev, prompts, SERVE_NEW, sched, outs, 2,
+                          want=lock)
+    del sched
+
+    # one steady-state decode tick (8 active sequences) and one bulk
+    # prefill chunk (1, 64) under the profiler, bf16 activations
+    s4 = Scheduler(cfg, params, scfg, device=dev)
+    for p in prompts[:geom["max_seqs"]]:
+        s4.submit(p, 8)
+    chunk = geom["prefill_chunk"]
+    toks = np.asarray(prompts[4][:chunk], np.int32)[None]
+    pos = np.arange(chunk, dtype=np.int32)[None]
+    with torch.no_grad():
+        s4.step()
+        s4.step()
+        for name, fn in (("decode tick (8 sequences)", s4.step),
+                         (f"prefill chunk (1, {chunk})",
+                          lambda: s4._prefill_chunk(0, toks, pos))):
+            wall_ms, acts = device_times(fn)
+            busy_ms = sum(t for _, t in acts.values())
+            log(f"profile xlstm 1 {name}: wall {wall_ms:.3f} ms, device "
+                f"activities {busy_ms:.3f} ms ({100.0 * busy_ms / wall_ms:.1f}"
+                f"% of wall), {sum(c for c, _ in acts.values())} device "
+                f"activities")
+            for key, (n, t) in sorted(acts.items(),
+                                      key=lambda r: -r[1][1])[:10]:
+                log(f"profile   {t:10.3f} ms  x{n:<6d} {key[:80]}")
+        s4.run()
+    del s4, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1640,6 +2009,13 @@ def main() -> int:
     served = serve_full_width(ops, dev)
     log(f"phase serving full width: {time.perf_counter() - t0:.1f} s")
     launches.update(served)
+    t0 = time.perf_counter()
+    errs["slstm_cell"] = check_slstm_parity(ref, dev)
+    times["slstm_cell"] = time_slstm(ref, dev)
+    log(f"phase slstm_cell kernel: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["slstm_cell"] = serve_xlstm_full_width(ops, dev)["slstm_cell"]
+    log(f"phase xlstm serving full width: {time.perf_counter() - t0:.1f} s")
     launches.update(
         stoch_quantize_grouped_fused=lm["stoch_quantize_grouped_fused"],
         stoch_quantize_grouped_fused_tiled=tiled[
@@ -1668,6 +2044,8 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:157"),
         "edge_gather_mix": (src + "edge_gather_mix.cu",
                             "src/repro/kernels/edge_gather_mix.py:32"),
+        "slstm_cell": (src + "slstm_cell.cu",
+                       "src/repro/kernels/slstm_cell.py:33"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

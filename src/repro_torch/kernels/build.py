@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 SOURCES = ("stoch_quant", "bipartite_mix", "grouped_quant", "grouped_fused",
-           "grouped_fused_tiled", "paged_attention", "edge_gather_mix")
+           "grouped_fused_tiled", "paged_attention", "edge_gather_mix",
+           "slstm_cell")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -29,12 +29,13 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.grouped_quant import (
     stoch_quantize_grouped_cuda, stoch_quantize_grouped_fused_cuda,
     stoch_quantize_grouped_fused_tiled_cuda)
+from repro_torch.kernels.slstm_cell import slstm_cell_cuda
 from repro_torch.kernels.stoch_quant import stoch_quantize_cuda
 
 KERNELS = ("stoch_quantize", "bipartite_mix", "stoch_quantize_grouped",
            "stoch_quantize_grouped_fused",
            "stoch_quantize_grouped_fused_tiled", "paged_attention_decode",
-           "paged_attention_decode_online", "edge_gather_mix")
+           "paged_attention_decode_online", "edge_gather_mix", "slstm_cell")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -75,6 +76,21 @@ def edge_gather_mix(values: torch.Tensor, nbr_table: torch.Tensor,
         return ref.edge_gather_mix_ref(values, nbr_table, nbr_valid)
     out = edge_gather_mix_cuda(values.contiguous(), nbr_table, nbr_valid)
     launches["edge_gather_mix"] += 1
+    return out
+
+
+def slstm_cell(wx: torch.Tensor, r_w: torch.Tensor, fbias: torch.Tensor,
+               c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+               h0: torch.Tensor):
+    """The sLSTM recurrence over a whole sequence: wx (B, S, H, 4dh) in the
+    activation dtype, R (H, dh, 4dh), fbias (H, dh), state (B, H, dh) ->
+    (hs (B, S, H, dh) float32, (c, n, m, h)) (see ``ref.slstm_cell_ref``).
+    The inputs go to the kernel as they are: it reads bf16 or float32
+    ``wx`` and raises on anything else, or on a non-contiguous tensor."""
+    if wx.device.type == "cpu":
+        return ref.slstm_cell_ref(wx, r_w, fbias, c0, n0, m0, h0)
+    out = slstm_cell_cuda(wx, r_w, fbias, c0, n0, m0, h0)
+    launches["slstm_cell"] += 1
     return out
 
 

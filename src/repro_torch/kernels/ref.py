@@ -259,3 +259,41 @@ def paged_attention_online_ref(q, k_pages, v_pages, block_tables, ctx_lens,
                               k_scale=k_scale, v_scale=v_scale,
                               kv_bits=kv_bits)
     return torch.where((ctx_lens > 0)[:, None, None], out, 0.0)
+
+
+# ------------------------------------------------------------ sLSTM cell --
+def slstm_cell_ref(wx: torch.Tensor, r_w: torch.Tensor, fbias: torch.Tensor,
+                   c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                   h0: torch.Tensor):
+    """The stabilized sLSTM recurrence over a whole sequence, one step at
+    a time (the kernel's contract, as the JAX package's
+    ``ref.slstm_cell_ref``).
+
+    wx (B, S, H, 4dh) input projections in the activation dtype (gates in
+    the order i, f, z, o); r_w (H, dh, 4dh) float32 recurrent weights;
+    fbias (H, dh) float32; c0, n0, m0, h0 (B, H, dh) float32. Each step:
+    ``pre = wx_t + h R``, ``log_f = logsigmoid(f + fbias)``,
+    ``m' = max(log_f + m, i)``, ``c' = e^(log_f + m - m') c +
+    e^(i - m') tanh(z)``, ``n' = max(e^(log_f + m - m') n + e^(i - m'),
+    1e-6)``, ``h' = sigmoid(o) c' / n'``. Returns (hs (B, S, H, dh)
+    float32, (c, n, m, h) final). ``m0`` may be -1e30 (a fresh state) or
+    any finite value (a paged slot admits with 0)."""
+    dh = r_w.shape[1]
+    r32 = r_w.to(torch.float32)
+    fb = fbias.to(torch.float32)[None]
+    c, n, m, h = (t.to(torch.float32) for t in (c0, n0, m0, h0))
+    hs = []
+    for t in range(wx.shape[1]):
+        rec = torch.einsum("bhk,hkf->bhf", h, r32)
+        pre = wx[:, t].to(torch.float32) + rec
+        i_pre, f_pre, z_pre, o_pre = torch.split(pre, dh, dim=-1)
+        log_f = torch.nn.functional.logsigmoid(f_pre + fb)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_sc = torch.exp(i_pre - m_new)
+        f_sc = torch.exp(log_f + m - m_new)
+        c = f_sc * c + i_sc * torch.tanh(z_pre)
+        n = torch.clamp_min(f_sc * n + i_sc, 1e-6)
+        h = torch.sigmoid(o_pre) * c / n
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, m, h)

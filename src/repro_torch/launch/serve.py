@@ -3,14 +3,18 @@
 ``repro.launch.serve``).
 
 ``--engine paged`` serves a stream of (possibly mixed-length) requests
-through ``repro_torch.serving.scheduler``: paged KV cache, admission on
-free pages, chunked prefill, eviction mid-flight; its single-token decode
-attention runs the paged-attention kernels. ``--engine lockstep`` is the
-fixed-batch baseline with one contiguous cache per wave: no admission
-until the whole wave has finished.
+through ``repro_torch.serving.scheduler``: paged KV cache (or per-slot
+recurrent state for xlstm-125m), admission on free pages, chunked
+prefill, eviction mid-flight; its single-token decode attention runs the
+paged-attention kernels, and an xLSTM prefill chunk the sLSTM cell
+kernel. ``--engine lockstep`` is the fixed-batch baseline with one
+contiguous cache per wave: no admission until the whole wave has
+finished.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --prompt-lens 9,17,5 --decode-tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --smoke --prompt-lens 9,17,5,13 --decode-tokens 8 [--engine lockstep]
 
 Without ``--device cpu`` it runs on the CUDA card and raises when there is
 none; ``--full`` serves the full-width model. ``--share-prefix``,

@@ -5,9 +5,12 @@ and full-attention parts of ``repro.models.blocks``):
     apply(kind, params, cfg, x, ctx=None)     -> x_new
     make_cache(kind, cfg, batch, cache_len)   -> the block's decode cache
 
-x is (W, B, S, D) for the xLSTM kinds (consensus training) and (B, S, D)
-for "attn" (serving); ``ctx`` carries the positions and the cache, which
-the block writes in place. Residual connections and pre-norms live here.
+x is (W, B, S, D) for the xLSTM kinds in consensus training and (B, S, D)
+in serving (every kind); ``ctx`` carries the positions and the cache,
+which the block writes in place. A cached sLSTM forward (serving) takes
+the fused cell, ``use_kernel=True``, as the JAX package's kernel route;
+training keeps the autograd time loop. Residual connections and pre-norms
+live here.
 The other block kinds of the JAX package (sliding-window attention, MoE,
 Mamba2, cross attention) are not ported yet and raise.
 """
@@ -25,7 +28,7 @@ PORTED_KINDS = ("mlstm", "slstm", "attn")
 
 @dataclasses.dataclass(frozen=True)
 class BlockCtx:
-    positions: torch.Tensor                # (B, S) absolute positions
+    positions: Optional[torch.Tensor]      # (B, S) absolute positions
     cache: Optional[dict] = None
 
 
@@ -70,13 +73,16 @@ def apply(kind: str, params, cfg, x: torch.Tensor,
         y = layers.mlp_apply(params["mlp"],
                              layers.rmsnorm(params["ln2"], x, cfg.norm_eps))
         return x + y
+    cache = None if ctx is None else ctx.cache
     if kind == "mlstm":
         h = xlstm.mlstm_apply(params["cell"], cfg,
-                              layers.rmsnorm(params["ln"], x, cfg.norm_eps))
+                              layers.rmsnorm(params["ln"], x, cfg.norm_eps),
+                              cache=cache)
         return x + h
     if kind == "slstm":
         h = xlstm.slstm_apply(params["cell"], cfg,
-                              layers.rmsnorm(params["ln"], x, cfg.norm_eps))
+                              layers.rmsnorm(params["ln"], x, cfg.norm_eps),
+                              cache=cache, use_kernel=cache is not None)
         x = x + h
         y = layers.mlp_apply(params["mlp"],
                              layers.rmsnorm(params["ln2"], x, cfg.norm_eps))
@@ -86,8 +92,14 @@ def apply(kind: str, params, cfg, x: torch.Tensor,
 
 def make_cache(kind: str, cfg, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cpu"):
-    """Contiguous decode cache of one block."""
+    """Decode cache of one block: a contiguous K/V cache for "attn", the
+    float32 recurrent state (fresh, m at -1e30) for the xLSTM kinds, whose
+    size does not grow with ``cache_len``."""
     if kind == "attn":
         return layers.init_kv_cache(batch, cache_len, cfg.num_kv_heads,
                                     cfg.resolved_head_dim, dtype, device)
+    if kind == "mlstm":
+        return xlstm.mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.slstm_cache(cfg, batch, device)
     raise _not_ported(kind)

@@ -14,7 +14,9 @@ axis W on every leaf) and a batch of ``tokens`` / ``labels`` shaped
 ``(W, B, S)``, and returns one loss per worker. Serving takes the tree of
 one model as :func:`init_params` makes it, tokens ``(B, S)`` at absolute
 ``positions`` and a decode cache (:func:`init_cache`, or the paged one of
-``serving.paging``), which the attention blocks write in place.
+``serving.paging``), which the blocks write in place: K/V for attention,
+the recurrent state (stacked on the depth axis like the parameters) for
+mLSTM and sLSTM.
 """
 from __future__ import annotations
 
@@ -88,7 +90,7 @@ def _run_stack(params, cfg, x: torch.Tensor, positions=None,
     depth_axis = 1 if params["embed"]["table"].dim() == 3 else 0
 
     def ctx(cache):
-        return (None if positions is None
+        return (None if positions is None and cache is None
                 else blocks.BlockCtx(positions=positions, cache=cache))
 
     for r in range(n_full):

@@ -1,5 +1,7 @@
 """Request scheduler with continuous batching over the paged cache (the
-port of ``repro.serving.scheduler`` for FIFO full-reservation admission).
+port of ``repro.serving.scheduler`` for FIFO full-reservation admission),
+for attention stacks (KV pages) and xLSTM stacks (per-slot recurrent
+state, zeroed at admission).
 
 ``max_seqs`` sequence slots share one page pool; a sequence that finishes
 releases its slot and pages at once, and the next request is admitted as
@@ -13,9 +15,12 @@ deterministically, so a replayed run makes the same decisions.
 * **Chunked prefill**: an admitted prompt is written in exact
   ``prefill_chunk``-token chunks (batch-1 steps against the shared pools
   through ``paging.slice_slot``); the rest, at least the last prompt
-  token, rides the shared decode steps as teacher-forced tokens.
+  token, rides the shared decode steps as teacher-forced tokens. Chunks
+  are never padded, so recurrent state sees only real tokens; an xLSTM
+  chunk runs the sLSTM cell kernel at (1, ``prefill_chunk``).
 * **Decode**: one step for all slots per tick; inactive slots carry
-  position -1 (their writes are dropped). Greedy sampling is an argmax on
+  position -1 (their pool writes are dropped; their recurrent state moves
+  and is zeroed again at the next admission, as in the JAX package). Greedy sampling is an argmax on
   the device; temperature sampling draws each slot's token with its own
   ``torch.Generator`` seeded from (seed, request id, position), so a
   request's draws do not depend on which requests share its batch.

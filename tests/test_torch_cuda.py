@@ -531,3 +531,119 @@ def test_edge_gather_mix_rejects_what_it_does_not_take(cuda):
         ops.edge_gather_mix(vals, table.cpu(), valid)
     with pytest.raises(ValueError):                      # rows mismatch
         ops.edge_gather_mix(vals, table[:3], valid[:3])
+
+
+# ---------------------------------------------------------- B9 slstm_cell --
+def cell_inputs(shape, m0, seed, wx_dtype=np.float32):
+    """sLSTM cell inputs as float32 numpy: wx (B, S, H, 4dh) (rounded to
+    bf16 values first when ``wx_dtype`` is "bfloat16"), R (H, dh, 4dh),
+    fbias (H, dh) and a state (B, H, dh) x 4. ``m0`` "fresh" is the
+    contiguous cache's -1e30 with a zero state, "admitted" the paged
+    admission's all-zero state, "carried" a state from mid-sequence."""
+    b, s, h, dh = shape
+    rng = np.random.default_rng(seed)
+    wx = (0.5 * rng.standard_normal((b, s, h, 4 * dh))).astype(np.float32)
+    if wx_dtype == "bfloat16":
+        wx = torch.from_numpy(wx).to(torch.bfloat16).float().numpy()
+    r_w = (rng.standard_normal((h, dh, 4 * dh)) / np.sqrt(dh)).astype(
+        np.float32)
+    fb = np.full((h, dh), 3.0, np.float32)
+    zero = np.zeros((b, h, dh), np.float32)
+    if m0 == "fresh":
+        state = (zero, zero, np.full_like(zero, -1e30), zero)
+    elif m0 == "admitted":
+        state = (zero, zero, zero, zero)
+    else:
+        state = (rng.standard_normal((b, h, dh)).astype(np.float32),
+                 (1.0 + rng.uniform(size=(b, h, dh))).astype(np.float32),
+                 rng.standard_normal((b, h, dh)).astype(np.float32),
+                 (0.5 * rng.standard_normal((b, h, dh))).astype(np.float32))
+    return (wx, r_w, fb) + state
+
+
+def cell_tensors(args, device, wx_dtype=torch.float32):
+    ts = [torch.from_numpy(a).to(device) for a in args]
+    ts[0] = ts[0].to(wx_dtype)
+    return ts
+
+
+def cell_errors(got, want):
+    """max |got - want| of hs and of each final state (c, n, m, h), and
+    max |hs| of ``want``."""
+    errs = [float((got[0] - want[0]).abs().max())]
+    errs += [float((a - b).abs().max()) for a, b in zip(got[1], want[1])]
+    return errs, float(want[0].abs().max())
+
+
+# (B, S, H, dh), initial state, wx dtype: an odd batch and length;
+# xlstm-125m's heads at the lockstep and paged prefill shapes; nine rows
+# from a carried state
+SLSTM_CASES = [((3, 129, 2, 16), "admitted", torch.float32),
+               ((8, 96, 4, 192), "fresh", torch.bfloat16),
+               ((1, 64, 4, 192), "admitted", torch.float32),
+               ((9, 33, 4, 64), "carried", torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,m0,wx_dtype", SLSTM_CASES)
+def test_slstm_cell_kernel_matches_plain_on_card(cuda, shape, m0, wx_dtype):
+    """B9 against its plain version on the same card tensors: hs and every
+    final state within 1e-4 of max|hs| (the kernel sums h R with fmaf in
+    k order, the plain version through cuBLAS)."""
+    args = cell_tensors(cell_inputs(shape, m0, sum(shape)), cuda, wx_dtype)
+    before = ops.launches["slstm_cell"]
+    got = ops.slstm_cell(*args)
+    assert ops.launches["slstm_cell"] == before + 1
+    want = ref.slstm_cell_ref(*args)
+    torch.cuda.synchronize()
+    errs, hmax = cell_errors(got, want)
+    assert max(errs) <= 1e-4 * hmax, (errs, hmax)
+    assert tuple(got[0].shape) == shape[:2] + (shape[2], shape[3])
+
+
+@pytest.mark.cuda
+def test_slstm_cell_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.slstm_cell import slstm_cell_cuda
+
+    args = cell_tensors(cell_inputs((2, 5, 2, 16), "fresh", 0), cuda)
+    bad = [
+        [args[0].half()] + args[1:],                       # float16 wx
+        [args[0], args[1].double()] + args[2:],            # float64 R
+        [args[0].transpose(0, 1).contiguous().transpose(0, 1)]
+        + args[1:],                                        # non-contiguous
+        args[:3] + [args[3].cpu()] + args[4:],             # c0 on the CPU
+        [args[0][..., :60]] + args[1:],                    # 4dh mismatch
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            ops.slstm_cell(*call)
+    with pytest.raises(ValueError, match="CUDA"):
+        slstm_cell_cuda(*[a.cpu() for a in args])
+    wide = cell_tensors(cell_inputs((1, 2, 1, 264), "fresh", 0), cuda)
+    with pytest.raises(ValueError, match="head width"):
+        ops.slstm_cell(*wide)
+
+
+@pytest.mark.cuda
+def test_xlstm_scheduler_runs_b9_per_bulk_chunk_on_card(cuda):
+    """The smoke xLSTM served by the paged scheduler on the card: one B9
+    launch per sLSTM layer per bulk prefill chunk, none in decode, and no
+    page left in use."""
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    cfg = base.get_smoke_config("xlstm-125m")
+    params = registry.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    sched = Scheduler(cfg, params, ServeConfig(
+        max_seqs=3, page_size=4, num_pages=48, pages_per_seq=16,
+        prefill_chunk=4), device=cuda)
+    rng = np.random.default_rng(0)
+    for n, m in zip((9, 17, 5, 13), (5, 3, 6, 4)):
+        sched.submit(rng.integers(0, cfg.vocab_size, n), m)
+    ops.reset_launches()
+    with torch.no_grad():
+        sched.run()
+    n_slstm = cfg.block_kinds.count("slstm")
+    assert sched.prefill_chunks > 0
+    assert ops.launches["slstm_cell"] == n_slstm * sched.prefill_chunks
+    assert sched.pool.in_use == 0
