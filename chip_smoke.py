@@ -12,7 +12,10 @@ with its time printed:
 3. hold ``stoch_quantize`` and ``bipartite_mix`` against their plain
    PyTorch versions on the card, at the convex path's shapes and ragged
    ones, and time kernel, plain version and (for the mix) ``torch.matmul``
-   with CUDA events;
+   with CUDA events and the profiler: the mix and ``torch.matmul`` at the
+   convex (64, 2000), the LM trainer's (4, 134,277,912) and a 1,024-worker
+   (1024, 2000) shape (checked there too), and what a ctypes launch pays
+   on the host (an empty call, ``torch.empty``, the stream handle);
 4. paper size: quickstart part 1 (24 workers, synth-linear d=50, p=0.35,
    300 iterations) for ggadmm and cq-ggadmm on the card: distance to the
    optimum below 1e-8, 7200 rounds, and ggadmm's trajectory equal to the
@@ -66,8 +69,10 @@ with its time printed:
    against their plain versions, and the online one against the one-shot
    one, to 1e-5 of max|V|, at the smoke model's heads and at tinyllama's
    (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages, ctx 0 to
-   4096, poisoned table slots), with bf16, 8-bit and 4-bit pools; kernel,
-   plain and SDPA times at the shapes the serving path gives them;
+   4096, poisoned table slots, every sequence on or around a split
+   boundary of B8), with bf16, 8-bit and 4-bit pools; kernel, plain and
+   SDPA times at the shapes the serving path gives them; B8 at 64, 128,
+   256 and 512 slots per split;
 15. serving tinyllama-1.1b at full width (random float32 weights from
    seed 0, bf16 activations) through the paged scheduler: 16 greedy
    requests (prompt lengths 17..700, 128 new tokens, max_seqs 8, pages of
@@ -258,6 +263,99 @@ def check_mix_parity(ops, ref, dev):
     return max_err
 
 
+def device_ms(fn, calls: int = 20):
+    """Device time of one call of ``fn``: every device activity of
+    ``calls`` calls under torch.profiler, summed, over the count. The
+    profiler at times records fewer launches than were made; where a name
+    was seen fewer than ``calls`` times, its mean per launch counts once
+    per call instead. None if it saw nothing."""
+    _, acts = device_times(fn, calls)
+    if not acts:
+        return None
+    if all(n >= calls for n, _ in acts.values()):
+        return sum(ms for _, ms in acts.values()) / calls
+    return sum(ms / n for n, ms in acts.values())
+
+
+# B2 timing shapes (M, N, d): the convex main path, the LM trainer's
+# packed buffer and a 1,024-worker dense mix
+MIX_TIMES = {
+    "convex (64, 64) x (64, 2000)": (64, 64, 2000),
+    "LM (4, 4) x (4, 134277912)": (4, 4, 134277912),
+    "(1024, 1024) x (1024, 2000)": (1024, 1024, 2000),
+}
+
+
+def mix_bound(m, n, d):
+    return bound(4.0 * (m * n + n * d + m * d), 2.0 * m * n * d)
+
+
+def launch_floor(dev):
+    """What a ctypes launch pays on this host before any kernel runs: an
+    empty call into B2's library (m = 0 returns at once), the allocation of
+    a (64, 2000) output three ways and the current stream's handle two
+    ways, timed as :func:`time_ms` times a call."""
+    from repro_torch.kernels import bipartite_mix as bm
+
+    fn = bm._lib().bipartite_mix_f32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    like = torch.empty((64, 2000), device=dev)
+    floor = {"empty ctypes call": time_ms(
+                 lambda: fn(None, None, None, 0, 0, 0, stream), 1000),
+             "torch.empty((64, 2000))": time_ms(
+                 lambda: torch.empty((64, 2000), device=dev), 1000),
+             "torch.empty_like(V (64, 2000))": time_ms(
+                 lambda: torch.empty_like(like), 1000),
+             "V.new_empty((64, 2000))": time_ms(
+                 lambda: like.new_empty((64, 2000)), 1000),
+             "torch.cuda.current_stream().cuda_stream": time_ms(
+                 lambda: torch.cuda.current_stream(dev).cuda_stream, 1000),
+             "torch._C._cuda_getCurrentRawStream": time_ms(
+                 lambda: torch._C._cuda_getCurrentRawStream(like.get_device()),
+                 1000)}
+    log("launch floor per call: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in floor.items()))
+    return floor
+
+
+def time_mix(ops, ref, dev):
+    """B2 against ``torch.matmul`` (its plain version, the library call)
+    at each ``MIX_TIMES`` shape: device time (profiler, all activities of
+    one call) and time per call (CUDA events), with B2's parity there.
+    Returns the convex shape's numbers, the ones the main path pays."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = None
+    for label, (m, n, d) in MIX_TIMES.items():
+        adj = (torch.rand((m, n), generator=gen, device=dev) < 0.35).float()
+        vals = torch.randn((n, d), generator=gen, device=dev)
+        big = n * d > 1e8
+        reps = 10 if big else 100
+        got = ops.bipartite_mix(adj, vals)
+        want = ref.bipartite_mix_ref(adj, vals)
+        scale = adj.abs() @ vals.abs()
+        err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= 1e-6 * scale).all()):
+            raise AssertionError(f"bipartite_mix {label}: max |err| {err:.3e}")
+        del got, want, scale
+        t = {"ms": time_ms(lambda: ops.bipartite_mix(adj, vals), reps),
+             "plain_ms": time_ms(lambda: ref.bipartite_mix_ref(adj, vals),
+                                 reps),
+             "library_ms": time_ms(lambda: torch.matmul(adj, vals), reps),
+             "device_ms": device_ms(lambda: ops.bipartite_mix(adj, vals)),
+             "library_device_ms": device_ms(lambda: torch.matmul(adj, vals)),
+             "bound": mix_bound(m, n, d), "max_abs_err": err}
+        log(f"time bipartite_mix {label}: device {t['device_ms']} ms, per "
+            f"call {t['ms']:.5f} ms; torch.matmul device "
+            f"{t['library_device_ms']} ms, per call {t['library_ms']:.5f} "
+            f"ms; plain {t['plain_ms']:.5f} ms; bound {t['bound'][0]:.5f} "
+            f"ms ({t['bound'][1]}); max |err| {err:.3e}")
+        if out is None:
+            out = t
+        del adj, vals
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(ops, ref, dev):
     """Kernel, plain and library times at the main path's full-size
     shapes, with warm inputs (the main path finds them in L2)."""
@@ -269,33 +367,17 @@ def time_kernels(ops, ref, dev):
     qrange = (theta - qprev).abs().amax(dim=1)
     delta = 2.0 * qrange / 255.0
     q_args = (theta, qprev, unif, delta, qrange)
-    adj = (torch.rand((n, n), generator=gen, device=dev) < 0.35).float()
-    out = {"stoch_quantize": {
-        "ms": time_ms(lambda: ops.stoch_quantize(*q_args)),
-        "plain_ms": time_ms(lambda: ref.stoch_quantize_ref(*q_args)),
-        "library_ms": None,
-        "bound": bound(4.0 * (4 * n * d + 2 * n),
-                       QUANT_OPS_PER_ELEM * n * d + 2 * n)}}
-    out["bipartite_mix"] = {
-        "ms": time_ms(lambda: ops.bipartite_mix(adj, theta)),
-        "plain_ms": time_ms(lambda: ref.bipartite_mix_ref(adj, theta)),
-        "library_ms": time_ms(lambda: torch.matmul(adj, theta)),
-        "bound": bound(4.0 * (n * n + n * d + n * d), 2.0 * n * n * d)}
-    kernel_fns = {
-        "stoch_quantize": (lambda: ops.stoch_quantize(*q_args),
-                           "stoch_quantize_kernel"),
-        "bipartite_mix": (lambda: ops.bipartite_mix(adj, theta),
-                          "bipartite_mix_kernel")}
-    for name, t in out.items():
-        fn, kname = kernel_fns[name]
-        _, acts = device_times(fn, 50)
-        hits = [(n, ms) for k, (n, ms) in acts.items() if kname in k]
-        dev = (f"{sum(ms for _, ms in hits) / sum(n for n, _ in hits):.5f}"
-               if hits else "not measured")
-        log(f"time {name}: per call {t['ms']:.5f} ms (device only {dev} ms)"
-            f", plain {t['plain_ms']:.5f} ms, library {t['library_ms']} ms, "
-            f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
-    return out
+    t = {"ms": time_ms(lambda: ops.stoch_quantize(*q_args)),
+         "plain_ms": time_ms(lambda: ref.stoch_quantize_ref(*q_args)),
+         "library_ms": None,
+         "device_ms": device_ms(lambda: ops.stoch_quantize(*q_args), 50),
+         "bound": bound(4.0 * (4 * n * d + 2 * n),
+                        QUANT_OPS_PER_ELEM * n * d + 2 * n)}
+    log(f"time stoch_quantize: per call {t['ms']:.5f} ms (device only "
+        f"{t['device_ms']} ms), plain {t['plain_ms']:.5f} ms, bound "
+        f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
+    launch_floor(dev)
+    return {"stoch_quantize": t, "bipartite_mix": time_mix(ops, ref, dev)}
 
 
 def paper_size(ops, dev):
@@ -1190,6 +1272,11 @@ PAGED_CHECKS = {
                        (0, 1, 81, 160, 319, 576, 764, 1024)),
     "tinyllama P=256": ((8, 32, 4, 64, 16, 256),
                         (0, 1, 700, 1500, 2500, 3300, 4000, 4096)),
+    # every sequence live, ctx on and around B8's split boundaries (at 128
+    # and 256 slots per split)
+    "tinyllama P=256 split edges": ((8, 32, 4, 64, 16, 256),
+                                    (127, 128, 129, 255, 256, 257, 513,
+                                     4095)),
 }
 
 
@@ -1318,7 +1405,6 @@ def time_paged(ref, dev):
         "B7 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, False),
         "B8 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, True),
     }
-    kname = {False: "paged_oneshot_kernel", True: "paged_online_kernel"}
     out = {}
     for label, (shape, ctx, online) in {**cases, **extra}.items():
         for bits in ((32, 8, 4) if label in cases else (32,)):
@@ -1328,14 +1414,8 @@ def time_paged(ref, dev):
                  "plain_ms": time_ms(lambda: paged_plain(ref, q, kw, online),
                                      3, 3),
                  "bound": b, "library_ms": None}
-            _, acts = device_times(lambda: paged_kernel(q, kw, online), 20)
-            hits = [(c, ms) for k, (c, ms) in acts.items()
-                    if kname[online] in k]
-            t["device_ms"] = (sum(ms for _, ms in hits) / sum(c for c, _ in hits)
-                              if hits else None)
-            if not hits:
-                log(f"profile found no {kname[online]} among "
-                    f"{sorted(acts)[:6]}")
+            # every kernel one call launches, summed
+            t["device_ms"] = device_ms(lambda: paged_kernel(q, kw, online))
             if bits == 32:
                 # the same function after the gather: SDPA over contiguous
                 # bf16 K/V of the whole table, masked by ctx
@@ -1364,6 +1444,38 @@ def time_paged(ref, dev):
             del q, kw
     torch.cuda.empty_cache()
     return out
+
+
+def time_split_rows(dev):
+    """B8's slots per block, the one setting of its split design: device
+    time and time per call at each of 64, 128, 256 and 512 slots, at B8's
+    shape (one sequence at ~4000 tokens) and with all eight sequences at
+    ~4000 (bf16 pools); the wrapper's ``SPLIT_ROWS`` is the one chosen
+    from these."""
+    # ops first: importing paged_attention alone runs into the kernels
+    # package's import cycle (ref -> core -> topology -> ops)
+    from repro_torch.kernels import ops  # noqa: F401
+    from repro_torch.kernels import paged_attention as pa
+
+    shapes = {"B8's shape": (LONG_PROMPT + LONG_NEW // 2,) + (0,) * 7,
+              "8 x ~4000": (4000,) * 8}
+    shape = (8, 32, 4, 64, 16, LONG_PAGES)
+    chosen = pa.SPLIT_ROWS
+    try:
+        for label, ctx in shapes.items():
+            q, kw, _ = paged_inputs(dev, shape, ctx, 32, 50)
+            line = []
+            for rows in (64, 128, 256, 512):
+                pa.SPLIT_ROWS = rows
+                fn = lambda: paged_kernel(q, kw, True)
+                line.append(f"{rows}: {device_ms(fn)} / "
+                            f"{time_ms(fn, 50, 5):.5f}")
+            log(f"time B8 split_rows at {label} (device / per call ms; "
+                f"SPLIT_ROWS {chosen}): " + ", ".join(line))
+            del q, kw
+    finally:
+        pa.SPLIT_ROWS = chosen
+    torch.cuda.empty_cache()
 
 
 def bf16_spacing(x: float) -> float:
@@ -1412,25 +1524,32 @@ def first_divergence(name, got, want, bf16: bool, gate: bool = True):
 def compare_with_lockstep(name, cfg, params, dev, prompts, new, sched, outs,
                           batch, cache_dtype=torch.bfloat16, gate=True,
                           want=None):
-    """Run the lockstep engine on ``prompts`` in waves of ``batch``
-    equal-length prompts (so nothing is padded) and hold the scheduler's
-    greedy streams against it (:func:`first_divergence`; with ``gate``
-    False only count and print the partings). ``want``, what an earlier
-    call on the same prompts returned, stands in for the lockstep run.
-    Returns the lockstep streams."""
+    """Run the lockstep engine on ``prompts`` grouped by length, one
+    ``run`` per length in waves of ``batch`` (the engine pads every wave
+    to its stream's longest prompt, so a group of equal lengths carries no
+    padding), and hold the scheduler's greedy streams against it
+    (:func:`first_divergence`; with ``gate`` False only count and print
+    the partings). ``want``, what an earlier call on the same prompts
+    returned, stands in for the lockstep run. Returns the lockstep
+    streams."""
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
     if want is None:
-        by_len = sorted(range(len(prompts)),
-                        key=lambda i: (len(prompts[i]), i))
-        with torch.no_grad():
-            lock = serve.LockstepEngine(cfg, params, batch=batch, device=dev,
-                                        cache_dtype=cache_dtype).run(
-                [prompts[i] for i in by_len], new, keep_top=TOP_K)
+        groups = {}
+        for i in range(len(prompts)):
+            groups.setdefault(len(prompts[i]), []).append(i)
+        engine = serve.LockstepEngine(cfg, params, batch=batch, device=dev,
+                                      cache_dtype=cache_dtype)
+        want = {}
+        for n in sorted(groups):
+            idx = groups[n]
+            with torch.no_grad():
+                lock = engine.run([prompts[i] for i in idx], new,
+                                  keep_top=TOP_K)
+            want.update({i: (lock["outputs"][j], lock["top"][j])
+                         for j, i in enumerate(idx)})
         torch.cuda.synchronize()
-        want = {by_len[j]: (lock["outputs"][j], lock["top"][j])
-                for j in range(len(by_len))}
     got = {i: (outs[i], (np.stack([v for v, _ in sched.top[i]]),
                          np.stack([t for _, t in sched.top[i]])))
            for i in range(len(outs))}
@@ -1462,6 +1581,42 @@ def serve_stream(sched_cls, cfg, params, dev, prompts, new, scfg, ops,
     assert all(len(finished[r]) == new for r in rids)
     assert sched.pool.in_use == 0, sched.pool.in_use
     return sched, [finished[r] for r in rids], launches, wall
+
+
+def serve_long(ops, dev, cfg, params):
+    """One ~4000-token request through the paged scheduler (a 256-page
+    table: the threshold picks B8, exactly 22 launches per decode tick),
+    held against the lockstep engine; prints its median decode tick and
+    returns its launches."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import paging
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    geom = SERVE_GEOM
+    long_prompt = serve.make_prompts(cfg, [LONG_PROMPT], 1)[0]
+    lcfg = ServeConfig(
+        max_seqs=geom["max_seqs"], page_size=geom["page_size"],
+        pages_per_seq=LONG_PAGES, prefill_chunk=geom["prefill_chunk"],
+        num_pages=2 * paging.pages_needed(LONG_PROMPT + LONG_NEW,
+                                          geom["page_size"]), kv_bits=32)
+    s3, outs3, l3, w3 = serve_stream(Scheduler, cfg, params, dev,
+                                     [long_prompt], LONG_NEW, lcfg, ops,
+                                     record_top=TOP_K)
+    peak3 = torch.cuda.max_memory_allocated() / 1e9
+    variant = [k for k, n in l3.items() if n]
+    want = {k: 0 for k in ops.KERNELS}
+    want["paged_attention_decode_online"] = cfg.num_layers * s3.decode_steps
+    assert l3 == want, l3
+    compare_with_lockstep("serve long", cfg, params, dev, [long_prompt],
+                          LONG_NEW, s3, outs3, 1)
+    log(f"serve long request: prompt {LONG_PROMPT} + {LONG_NEW} tokens "
+        f"(ctx up to {LONG_PROMPT + LONG_NEW}), table {LONG_PAGES} pages: "
+        f"variant {variant} ran, {s3.decode_steps} decode ticks (median "
+        f"{np.median(s3.decode_step_s) * 1e3:.3f} ms), prefill "
+        f"{s3.prefill_chunks} chunks in {np.sum(s3.prefill_chunk_s):.2f} s, "
+        f"{w3:.2f} s wall, peak device memory {peak3:.2f} GB, final pages "
+        f"0")
+    return l3
 
 
 def serve_full_width(ops, dev):
@@ -1551,31 +1706,7 @@ def serve_full_width(ops, dev):
             f"{SHORT_NEW} tokens; launches {l2}")
         del s2
 
-    # one long request: the threshold picks the online kernel
-    long_prompt = serve.make_prompts(cfg, [LONG_PROMPT], 1)[0]
-    lcfg = ServeConfig(
-        max_seqs=geom["max_seqs"], page_size=geom["page_size"],
-        pages_per_seq=LONG_PAGES, prefill_chunk=geom["prefill_chunk"],
-        num_pages=2 * paging.pages_needed(LONG_PROMPT + LONG_NEW,
-                                          geom["page_size"]), kv_bits=32)
-    s3, outs3, l3, w3 = serve_stream(Scheduler, cfg, params, dev,
-                                     [long_prompt], LONG_NEW, lcfg, ops,
-                                     record_top=TOP_K)
-    peak3 = torch.cuda.max_memory_allocated() / 1e9
-    variant = [k for k, n in l3.items() if n]
-    want = {k: 0 for k in ops.KERNELS}
-    want["paged_attention_decode_online"] = cfg.num_layers * s3.decode_steps
-    assert l3 == want, l3
-    compare_with_lockstep("serve long", cfg, params, dev, [long_prompt],
-                          LONG_NEW, s3, outs3, 1)
-    log(f"serve long request: prompt {LONG_PROMPT} + {LONG_NEW} tokens "
-        f"(ctx up to {LONG_PROMPT + LONG_NEW}), table {LONG_PAGES} pages: "
-        f"variant {variant} ran, {s3.decode_steps} decode ticks (median "
-        f"{np.median(s3.decode_step_s) * 1e3:.3f} ms), prefill "
-        f"{s3.prefill_chunks} chunks in {np.sum(s3.prefill_chunk_s):.2f} s, "
-        f"{w3:.2f} s wall, peak device memory {peak3:.2f} GB, final pages "
-        f"0")
-    del s3
+    l3 = serve_long(ops, dev, cfg, params)
 
     # one steady-state decode tick (8 active sequences) under the profiler
     s4 = Scheduler(cfg, params, scfg, device=dev)
@@ -2004,6 +2135,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errs.update(check_paged_parity(ref, dev))
     times.update(time_paged(ref, dev))
+    time_split_rows(dev)
     log(f"phase paged-attention kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     served = serve_full_width(ops, dev)

@@ -14,50 +14,80 @@
 // float32 ranges for code pools; block_tables (B, P) int32 (clamped into
 // the pool here as well); ctx_lens (B,) int32. Output (B, H, hd) float32.
 // Slot s of logical page p holds position p*ps + s and is attended iff
-// p*ps + s < ctx.
+// p*ps + s < ctx. Codes dequantize as x = Δ·q - R with Δ = max(2R / (2^b
+// - 1), 1e-12), each rounding pinned with __f*_rn, as the plain version
+// evaluates it.
 //
-// Design. One block per (sequence, KV head): it covers the G = H / KV
-// query heads of that KV head (G = 8 for tinyllama), so each K/V entry is
-// read from device memory once per decode step. The block reads its own
+// One-shot (B7). One block per (sequence, KV head): it covers the G = H /
+// KV query heads of that KV head (G = 8 for tinyllama), so each K/V entry
+// is read from device memory once per decode step. The block reads its own
 // block-table row and walks its pages in logical order in tiles of whole
-// pages (64 rows at ps = 16). A tile is loaded with 16-byte vector loads,
-// one (row, 16-byte chunk) per thread, and its codes are dequantized in
-// registers right after the load (x = Δ·q - R with Δ = max(2R / (2^b - 1),
-// 1e-12), each rounding pinned with __f*_rn, as the plain version
-// evaluates it); the float32 tile sits in shared memory with rows padded
-// to hd + 1 floats, so the threads of a warp read distinct banks.
+// pages (64 rows at ps = 16), loaded with 16-byte vector loads and
+// dequantized in registers into a float32 tile in shared memory, rows
+// padded to hd + 1 floats. The (G, P·ps) float32 logits slab sits in
+// shared memory: pass 1 writes the masked logits (-1e30 past ctx) tile by
+// tile; one softmax per head runs over the slab; pass 2 reloads V and
+// accumulates, per output (g, d), each page's sum into the float32 result
+// in logical page order. Pages past ctx have probability exactly 0 and are
+// not read; ctx = 0 masks every slot, so the softmax is uniform over all
+// P·ps slots of the (clamped) table, the JAX kernel's result. Its shared
+// memory grows with P·ps; kernels/ops.py picks the online kernel once the
+// footprint passes half of the 227 KB a block may use.
 //
-// One-shot: the (G, P·ps) float32 logits slab sits in shared memory. Pass
-// 1 writes the masked logits (-1e30 past ctx) tile by tile; one softmax per
-// head runs over the slab; pass 2 reloads V tile by tile and accumulates,
-// per output (g, d), each page's sum into the float32 result in logical
-// page order. Pages past ctx have probability exactly 0 and are not read;
-// ctx = 0 masks every slot, so the softmax is uniform over all P·ps slots
-// of the (clamped) table, the JAX kernel's result. Its shared memory grows
-// with P·ps; kernels/ops.py picks the online kernel once the footprint
-// passes half of the 227 KB a block may use.
+// Online (B8). What bounds it on this card: bytes (the K/V entries and
+// ranges of the pages up to ctx, read once; about 2 flops per byte of bf16
+// K/V). The first design (one block per (sequence, KV head), 32 blocks at
+// B = 8, KV = 4, each walking its tiles in series with four barriers a
+// tile) was bound by the latency of its loads instead: 341x its bound. This
+// design splits each sequence's slots over blocks (flash-decoding):
 //
-// Online: per tile, K and V are loaded together, the logits go to a (G,
-// tile) buffer, and each head's running max m, normalizer l and float32
-// (G, hd) accumulator are rescaled by exp(m - m_new). Probabilities past
-// ctx are masked to 0 (not only their logits: with m still at -1e30 they
-// would exp to 1). Pages past ctx are skipped; ctx = 0 gives zeros.
+// * Grid (splits, KV, B). A split is split_rows slots (a whole number of
+//   64-row tiles); splits = ceil(P·ps / split_rows) comes from the table
+//   width alone, so the host never reads ctx_lens. A split whose first slot
+//   lies at or past n_rows = ceil(ctx / ps)·ps exits at once.
+// * A block keeps its tiles' raw K/V bytes (and the code pools' ranges) in
+//   a 3-stage shared-memory ring filled by 16-byte cp.async, two tiles in
+//   flight while one is reduced, one barrier a tile. Codes are dequantized
+//   from shared memory as they are read.
+// * Each warp owns 8 rows of every tile and keeps its own online softmax:
+//   the running max m and normalizer l per query head and a (G, hd)
+//   accumulator in registers (m and l replicated over the lanes). q·K: a
+//   row is split over hd / 8 lanes (8 elements each, q in registers), the
+//   partial dots summed by shuffles; the lanes write the probabilities of
+//   their rows to warp-private shared memory; P·V: each lane owns hd / 32
+//   columns of every head. Probabilities past ctx are masked to 0.
+// * At the end of its tiles a block merges its warps' (m, l, acc) through
+//   shared memory and writes the merged partial (m, l per head, the
+//   unnormalized (G, hd) accumulator) to a float32 workspace. The last
+//   live split to arrive at the (sequence, KV head) — a ticket counter
+//   taken after __threadfence — combines the live partials:
+//   M = max m_s, out = Σ e^(m_s - M)·acc_s / Σ e^(m_s - M)·l_s (the (m, l)
+//   table staged in shared memory, a warp per head for M and the
+//   weights, the accumulators' loads over splits unrolled), and sets the
+//   counter back to 0 for the next call. One live split writes its result
+//   directly; ctx = 0 has no live split, and split 0 writes zeros.
 //
-// What bounds it on this card: bytes (the K/V entries and ranges of the
-// pages up to ctx, read once; about 2 flops per byte of bf16 K/V). With
-// one block per (sequence, KV head), 32 blocks at B = 8, KV = 4, it does
-// not fill the 132 SMs: a simple kernel, limited by the latency of each
-// block's tile loads at long contexts. Splitting the pages of a sequence
-// over several blocks is later work.
+// The workspace and the counters are the wrapper's, kept across calls on
+// one device; calls that share them must run in stream order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOut = 4;          // outputs (g, d) per thread: G*hd <= 1024
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// online kernel
+constexpr int kTile = 64;                       // slots per tile
+constexpr int kRowsPerWarp = kTile / kWarps;    // 8
+constexpr int kStages = 3;                      // cp.async ring depth
+constexpr int kMaxGroups = 8;                   // query heads per KV head
 
 enum Kind { kF32 = 0, kBF16 = 1, kU8 = 2, kU4 = 3 };
 
@@ -79,6 +109,10 @@ struct Args {
   int heads, num_kv, hd, ps, pages_per_seq, num_pages, row_bytes;
   int tile_rows;
   float levels, scale;
+  // online only
+  float* ws;                        // (B, KV, splits, G, hd + 2) float32
+  int* tickets;                     // (B, KV) int32, 0 between calls
+  int split_rows, splits;
 };
 
 __device__ __forceinline__ float dequant(uint32_t code, float rng,
@@ -261,130 +295,538 @@ paged_oneshot_kernel(const Args a) {
   }
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-paged_online_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int groups = a.heads / a.num_kv, hd = a.hd, tr = a.tile_rows;
-  const int slab_len = a.pages_per_seq * a.ps;
-  float* qs = smem;
-  float* kt = qs + groups * hd;
-  float* vt = kt + tr * (hd + 1);
-  float* lt = vt + tr * (hd + 1);          // (G, tile) logits, then probs
-  float* m_run = lt + groups * tr;
-  float* l_run = m_run + groups;
-  float* alpha = l_run + groups;
-  const int ctx = a.ctx_lens[b];
-  const int* bt_row = a.block_tables + (size_t)b * a.pages_per_seq;
-  const int n_rows = ctx > 0
-      ? min((ctx + a.ps - 1) / a.ps * a.ps, slab_len) : 0;
-  load_q(a, b, kvh, groups, qs);
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    m_run[g] = kNegInf;
-    l_run[g] = 0.0f;
-  }
-  float acc[kMaxOut];
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.0f;
-  __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row0 = 0; row0 < n_rows; row0 += tr) {
-    const int rows = min(tr, n_rows - row0);
-    load_tile<KIND>(a, a.k_pages, a.k_scale, bt_row, kvh, row0, rows, kt);
-    load_tile<KIND>(a, a.v_pages, a.v_scale, bt_row, kvh, row0, rows, vt);
-    __syncthreads();
-    tile_logits(a, qs, kt, groups, row0, rows, ctx, lt, tr);
-    __syncthreads();
-    for (int g = warp; g < groups; g += blockDim.x >> 5) {
-      float* row = lt + g * tr;
-      float m = kNegInf;
-      for (int r = lane; r < rows; r += 32) m = fmaxf(m, row[r]);
-      const float m_prev = m_run[g];
-      const float m_new = fmaxf(m_prev, warp_max(m));
-      float s = 0.0f;
-      for (int r = lane; r < rows; r += 32) {
-        const float p =
-            row0 + r < ctx ? expf(__fsub_rn(row[r], m_new)) : 0.0f;
-        row[r] = p;
-        s = __fadd_rn(s, p);
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float al = expf(__fsub_rn(m_prev, m_new));
-        alpha[g] = al;
-        l_run[g] = __fadd_rn(__fmul_rn(al, l_run[g]), s);
-        m_run[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int o = threadIdx.x + k * blockDim.x;
-      if (o >= groups * hd) break;
-      const int g = o / hd, d = o - g * hd;
-      const float* p = lt + g * tr;
-      float pv = 0.0f;
-      for (int r = 0; r < rows; ++r)
-        pv = fmaf(p[r], vt[r * (hd + 1) + d], pv);
-      acc[k] = __fadd_rn(__fmul_rn(alpha[g], acc[k]), pv);
-    }
-    __syncthreads();
+// ------------------------------------------------------------- online --
+template <int KIND, int HD>
+struct Geo {
+  static constexpr int kRowBytes = KIND == kF32 ? 4 * HD
+                                   : KIND == kBF16 ? 2 * HD
+                                   : KIND == kU8 ? HD : HD / 2;
+  static constexpr int kVecPerRow = kRowBytes / 16;
+  static constexpr int kLanesPerRow = HD / 8;     // q·K: 8 elements a lane
+  static constexpr int kChunkBytes = kRowBytes / kLanesPerRow;
+  static constexpr int kItems = HD / 32;          // q·K rows a lane
+  static constexpr int kCols = HD / 32;           // P·V columns a lane
+  // K rows, V rows, K ranges, V ranges
+  static constexpr int kStageBytes = 2 * kTile * kRowBytes + 2 * kTile * 4;
+};
+
+__device__ __forceinline__ size_t slot_entry(const Args& a, const int* bt_row,
+                                             int kvh, int i) {
+  const int lp = i / a.ps;
+  const int page = min(max(__ldg(bt_row + lp), 0), a.num_pages - 1);
+  return ((size_t)page * a.ps + (i - lp * a.ps)) * a.num_kv + kvh;
+}
+
+// issue the copies of slots [row0, row0 + rows) into one ring stage
+template <int KIND, int HD>
+__device__ __forceinline__ void issue_tile(const Args& a, const int* bt_row,
+                                           int kvh, int row0, int rows,
+                                           uint8_t* stage) {
+  using G = Geo<KIND, HD>;
+  const int n = rows * G::kVecPerRow;
+  for (int v = threadIdx.x; v < 2 * n; v += kThreads) {
+    const int which = v >= n;                     // 0: K, 1: V
+    const int u = v - which * n;
+    const int r = u / G::kVecPerRow;
+    const int c = u - r * G::kVecPerRow;
+    const size_t entry = slot_entry(a, bt_row, kvh, row0 + r);
+    const uint8_t* pool = which ? a.v_pages : a.k_pages;
+    async_copy::copy16(
+        stage + (which * kTile + r) * G::kRowBytes + c * 16,
+        pool + entry * G::kRowBytes + (size_t)c * 16);
   }
-  float* dst = a.out + ((size_t)b * a.heads + (size_t)kvh * groups) * hd;
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) {
-    const int o = threadIdx.x + k * blockDim.x;
-    if (o < groups * hd) {
-      const float l = l_run[o / hd];
-      dst[o] = __fdiv_rn(acc[k], l > 0.0f ? l : 1.0f);
+  if constexpr (KIND >= kU8) {
+    float* rng = reinterpret_cast<float*>(stage + 2 * kTile * G::kRowBytes);
+    for (int v = threadIdx.x; v < 2 * rows; v += kThreads) {
+      const int which = v >= rows;
+      const int r = v - which * rows;
+      const size_t entry = slot_entry(a, bt_row, kvh, row0 + r);
+      async_copy::copy4_zfill(rng + which * kTile + r,
+                              (which ? a.v_scale : a.k_scale) + entry, 4);
     }
   }
 }
 
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// 8 consecutive elements of a row (q·K), dequantized
 template <int KIND>
-void (*pick(int online))(Args) {
-  return online ? paged_online_kernel<KIND> : paged_oneshot_kernel<KIND>;
+__device__ __forceinline__ void load8(const uint8_t* p, float rng,
+                                      float delta, float* x) {
+  if constexpr (KIND == kF32) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    const float4 w = *reinterpret_cast<const float4*>(p + 16);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    x[4] = w.x; x[5] = w.y; x[6] = w.z; x[7] = w.w;
+  } else if constexpr (KIND == kBF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = bf16_lo(w[i]);
+      x[2 * i + 1] = bf16_hi(w[i]);
+    }
+  } else if constexpr (KIND == kU8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = dequant(((i < 4 ? u.x : u.y) >> (8 * (i & 3))) & 0xffu, rng,
+                     delta);
+  } else {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = dequant((u >> (4 * i)) & 0xfu, rng, delta);
+  }
+}
+
+// elements [d0, d0 + N) of a row (P·V), dequantized; N in {1, 2}
+template <int KIND, int N>
+__device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
+                                          float rng, float delta, float* x) {
+  if constexpr (KIND == kF32) {
+    const float* p = reinterpret_cast<const float*>(row) + d0;
+    if constexpr (N == 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p);
+      x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    } else if constexpr (N == 2) {
+      const float2 u = *reinterpret_cast<const float2*>(p);
+      x[0] = u.x; x[1] = u.y;
+    } else {
+      x[0] = *p;
+    }
+  } else if constexpr (KIND == kBF16) {
+    const uint16_t* p = reinterpret_cast<const uint16_t*>(row) + d0;
+    if constexpr (N == 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      x[0] = bf16_lo(u.x); x[1] = bf16_hi(u.x);
+      x[2] = bf16_lo(u.y); x[3] = bf16_hi(u.y);
+    } else if constexpr (N == 2) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+      x[0] = bf16_lo(u); x[1] = bf16_hi(u);
+    } else {
+      x[0] = __uint_as_float((uint32_t)*p << 16);
+    }
+  } else if constexpr (KIND == kU8) {
+    const uint8_t* p = row + d0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = dequant(p[i], rng, delta);
+  } else {
+    // element e is nibble (e & 1) of byte e / 2, low nibble first
+    if constexpr (N == 1) {
+      x[0] = dequant((row[d0 >> 1] >> (4 * (d0 & 1))) & 0xfu, rng, delta);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const uint32_t b = row[(d0 + i) >> 1];
+        x[i] = dequant(b & 0xfu, rng, delta);
+        x[i + 1] = dequant(b >> 4, rng, delta);
+      }
+    }
+  }
+}
+
+template <int KIND, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_online_kernel(const Args a) {
+  using GE = Geo<KIND, HD>;
+  constexpr int LPR = GE::kLanesPerRow;
+  constexpr int NC = GE::kCols;
+  constexpr int kCombStride = kMaxGroups * (HD + 2);
+  extern __shared__ __align__(16) uint8_t online_smem[];
+  uint8_t* ring = online_smem;
+  float* probs = reinterpret_cast<float*>(ring + kStages * GE::kStageBytes);
+  float* deltas = probs + kWarps * kMaxGroups * kRowsPerWarp;
+  float* comb = deltas + kWarps * 2 * kRowsPerWarp;
+  int* last_flag = reinterpret_cast<int*>(comb + kWarps * kCombStride);
+  float* table = reinterpret_cast<float*>(last_flag + 4);   // the combine's
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int groups = a.heads / a.num_kv;
+  const int slab_len = a.pages_per_seq * a.ps;
+  const int ctx = a.ctx_lens[b];
+  const int n_rows = ctx > 0
+      ? min((ctx + a.ps - 1) / a.ps * a.ps, slab_len) : 0;
+  const int live = (n_rows + a.split_rows - 1) / a.split_rows;
+  const size_t bh = (size_t)b * a.num_kv + kvh;
+  float* dst = a.out + ((size_t)b * a.heads + (size_t)kvh * groups) * HD;
+  if (live == 0) {                  // ctx = 0: attends to nothing
+    if (split == 0)
+      for (int o = threadIdx.x; o < groups * HD; o += kThreads) dst[o] = 0.0f;
+    return;
+  }
+  if (split >= live) return;
+  const int* bt_row = a.block_tables + (size_t)b * a.pages_per_seq;
+  const int row_begin = split * a.split_rows;
+  const int row_end = min(row_begin + a.split_rows, n_rows);
+  const int n_tiles = (row_end - row_begin + kTile - 1) / kTile;
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      const int r0 = row_begin + t * kTile;
+      issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
+                           ring + t * GE::kStageBytes);
+    }
+    async_copy::commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane % LPR;         // this lane's 8-element chunk of a row
+  float q[kMaxGroups][8];
+  const float* qsrc =
+      a.q + ((size_t)b * a.heads + (size_t)kvh * groups) * HD + c * 8;
+#pragma unroll
+  for (int g = 0; g < kMaxGroups; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      q[g][e] = g < groups ? __ldg(qsrc + g * HD + e) : 0.0f;
+  float m_run[kMaxGroups], l_run[kMaxGroups], acc[kMaxGroups][NC];
+#pragma unroll
+  for (int g = 0; g < kMaxGroups; ++g) {
+    m_run[g] = kNegInf;
+    l_run[g] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[g][j] = 0.0f;
+  }
+  float* wprobs = probs + warp * kMaxGroups * kRowsPerWarp;
+  float* wdelta = deltas + warp * 2 * kRowsPerWarp;
+  const int wr0 = warp * kRowsPerWarp;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    async_copy::wait<kStages - 2>();
+    __syncthreads();                // tile t landed; tile t - 1 is done
+    {
+      const int tn = t + kStages - 1;
+      if (tn < n_tiles) {
+        const int r0 = row_begin + tn * kTile;
+        issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
+                             ring + (tn % kStages) * GE::kStageBytes);
+      }
+      async_copy::commit();
+    }
+    const uint8_t* stage = ring + (t % kStages) * GE::kStageBytes;
+    const uint8_t* kraw = stage;
+    const uint8_t* vraw = stage + kTile * GE::kRowBytes;
+    const float* krng =
+        reinterpret_cast<const float*>(stage + 2 * kTile * GE::kRowBytes);
+    const float* vrng = krng + kTile;
+    const int row0 = row_begin + t * kTile;
+    const int wrows = max(0, min(kRowsPerWarp, row_end - row0 - wr0));
+    if (wrows == 0) continue;
+
+    if constexpr (KIND >= kU8) {    // step sizes of this warp's rows
+      if (lane < 2 * kRowsPerWarp) {
+        const int r = lane % kRowsPerWarp, which = lane / kRowsPerWarp;
+        if (r < wrows) {
+          const float rng = (which ? vrng : krng)[wr0 + r];
+          wdelta[lane] =
+              fmaxf(__fdiv_rn(__fmul_rn(2.0f, rng), a.levels), 1e-12f);
+        }
+      }
+      __syncwarp();
+    }
+
+    // q·K of the warp's rows: partial dots over each lane's 8 elements,
+    // summed over the row's lanes
+    float s[GE::kItems][kMaxGroups];
+#pragma unroll
+    for (int it = 0; it < GE::kItems; ++it) {
+      const int rr = (it * 32 + lane) / LPR;
+      float x[8];
+      if (rr < wrows) {
+        const int r = wr0 + rr;
+        float rng = 0.0f, delta = 0.0f;
+        if constexpr (KIND >= kU8) {
+          rng = krng[r];
+          delta = wdelta[rr];
+        }
+        load8<KIND>(kraw + r * GE::kRowBytes + c * GE::kChunkBytes, rng,
+                    delta, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = 0.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g) {
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], x[e], d);
+        s[it][g] = d;
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < GE::kItems; ++it)
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g)
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          s[it][g] = __fadd_rn(s[it][g], __shfl_xor_sync(kFull, s[it][g], o));
+
+    // masked, scaled logits; the new running max of each head
+    float m_new[kMaxGroups];
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) m_new[g] = kNegInf;
+#pragma unroll
+    for (int it = 0; it < GE::kItems; ++it) {
+      const int rr = (it * 32 + lane) / LPR;
+      const bool ok = rr < wrows && row0 + wr0 + rr < ctx;
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g) {
+        s[it][g] = ok ? __fmul_rn(s[it][g], a.scale) : kNegInf;
+        m_new[g] = fmaxf(m_new[g], s[it][g]);
+      }
+    }
+    float alpha[kMaxGroups];
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+#pragma unroll
+      for (int o = 16; o >= LPR; o >>= 1)
+        m_new[g] = fmaxf(m_new[g], __shfl_xor_sync(kFull, m_new[g], o));
+      m_new[g] = fmaxf(m_run[g], m_new[g]);
+      alpha[g] = expf(__fsub_rn(m_run[g], m_new[g]));
+      m_run[g] = m_new[g];
+    }
+    // probabilities (0 past ctx): lane c of a row writes the heads g with
+    // g % LPR == c
+#pragma unroll
+    for (int it = 0; it < GE::kItems; ++it) {
+      const int rr = (it * 32 + lane) / LPR;
+      const bool ok = rr < wrows && row0 + wr0 + rr < ctx;
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g)
+        if (g < groups && g % LPR == c)
+          wprobs[g * kRowsPerWarp + rr] =
+              ok ? expf(__fsub_rn(s[it][g], m_run[g])) : 0.0f;
+    }
+    __syncwarp();
+
+    // P·V over the warp's rows in order, into the rescaled accumulators
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      l_run[g] = __fmul_rn(alpha[g], l_run[g]);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[g][j] = __fmul_rn(alpha[g], acc[g][j]);
+    }
+    for (int rr = 0; rr < wrows; ++rr) {
+      const int r = wr0 + rr;
+      float rng = 0.0f, delta = 0.0f;
+      if constexpr (KIND >= kU8) {
+        rng = vrng[r];
+        delta = wdelta[kRowsPerWarp + rr];
+      }
+      float v[NC];
+      load_cols<KIND, NC>(vraw + r * GE::kRowBytes, lane * NC, rng, delta, v);
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g) {
+        if (g < groups) {
+          const float p = wprobs[g * kRowsPerWarp + rr];
+          l_run[g] = __fadd_rn(l_run[g], p);
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[g][j] = fmaf(p, v[j], acc[g][j]);
+        }
+      }
+    }
+    __syncwarp();                   // wprobs / wdelta are rewritten next tile
+  }
+  async_copy::wait<0>();
+
+  // merge the warps: (acc (G, hd), m (G), l (G)) per warp
+  {
+    float* cw = comb + warp * kCombStride;
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      if (g < groups) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) cw[g * HD + lane * NC + j] = acc[g][j];
+        if (lane == 0) {
+          cw[kMaxGroups * HD + g] = m_run[g];
+          cw[kMaxGroups * HD + kMaxGroups + g] = l_run[g];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const bool single = live == 1;
+  float* part = a.ws + (bh * a.splits + split) * (size_t)groups * (HD + 2);
+  for (int o = threadIdx.x; o < groups * HD; o += kThreads) {
+    const int g = o / HD, d = o - g * HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mx = fmaxf(mx, comb[w * kCombStride + kMaxGroups * HD + g]);
+    float l = 0.0f, sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* cw = comb + w * kCombStride;
+      const float e = expf(__fsub_rn(cw[kMaxGroups * HD + g], mx));
+      l = __fadd_rn(l, __fmul_rn(e, cw[kMaxGroups * HD + kMaxGroups + g]));
+      sum = __fadd_rn(sum, __fmul_rn(e, cw[g * HD + d]));
+    }
+    if (single) {
+      dst[o] = __fdiv_rn(sum, l > 0.0f ? l : 1.0f);
+    } else {
+      part[g * (HD + 2) + d] = sum;
+      if (d == 0) {
+        part[g * (HD + 2) + HD] = mx;
+        part[g * (HD + 2) + HD + 1] = l;
+      }
+    }
+  }
+  if (single) return;
+
+  // the last live split to arrive combines the partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int ticket = atomicAdd(a.tickets + bh, 1);
+    const int last = ticket == live - 1;
+    if (last) a.tickets[bh] = 0;    // every live split has arrived
+    *last_flag = last;
+  }
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  // stage the live splits' (m, l), turn m into weights e^(m_s - M) and
+  // sum the normalizer per head (a warp per head), then each output's
+  // weighted sum over the splits' accumulators
+  const float* parts = a.ws + bh * a.splits * (size_t)groups * (HD + 2);
+  const size_t pstride = (size_t)groups * (HD + 2);
+  float* wt = table;                          // (live, G): m, then weights
+  float* lt = table + a.splits * kMaxGroups;  // (live, G): l
+  float* norm = lt + a.splits * kMaxGroups;   // (G,)
+  for (int i = threadIdx.x; i < live * groups; i += kThreads) {
+    const int sp = i / groups, g = i - sp * groups;
+    const float* p = parts + sp * pstride + g * (HD + 2);
+    wt[i] = __ldcg(p + HD);
+    lt[i] = __ldcg(p + HD + 1);
+  }
+  __syncthreads();
+  for (int g = warp; g < groups; g += kWarps) {
+    float mx = kNegInf;
+    for (int sp = lane; sp < live; sp += 32)
+      mx = fmaxf(mx, wt[sp * groups + g]);
+    mx = warp_max(mx);
+    float l = 0.0f;
+    for (int sp = lane; sp < live; sp += 32) {
+      const float e = expf(__fsub_rn(wt[sp * groups + g], mx));
+      wt[sp * groups + g] = e;
+      l = __fadd_rn(l, __fmul_rn(e, lt[sp * groups + g]));
+    }
+    l = warp_sum(l);
+    if (lane == 0) norm[g] = l > 0.0f ? l : 1.0f;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < groups * HD; o += kThreads) {
+    const int g = o / HD, d = o - g * HD;
+    const float* pg = parts + g * (HD + 2) + d;
+    float sum = 0.0f;
+#pragma unroll 16
+    for (int sp = 0; sp < live; ++sp)
+      sum = __fadd_rn(sum, __fmul_rn(wt[sp * groups + g],
+                                     __ldcg(pg + sp * pstride)));
+    dst[o] = __fdiv_rn(sum, norm[g]);
+  }
+}
+
+using Kernel = void (*)(Args);
+
+template <int KIND>
+Kernel pick_online(int hd) {
+  switch (hd) {
+    case 32: return paged_online_kernel<KIND, 32>;
+    case 64: return paged_online_kernel<KIND, 64>;
+    default: return nullptr;
+  }
+}
+
+// raise a kernel's dynamic shared-memory limit once per (kernel, size)
+cudaError_t allow_smem(Kernel fn, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 }  // namespace
 
-// online: 0 = one-shot, 1 = online. kind: 0 float32, 1 bf16, 2 uint8
-// 8-bit codes, 3 uint8 4-bit codes. All pointers are device memory,
-// contiguous, 16-byte aligned (pools); the scale pointers may be null for
-// kinds 0 and 1. row_bytes = hd_store * element size (a multiple of 16);
-// smem_bytes is the dynamic shared memory of the chosen kernel's layout
-// (computed by the caller). Launches on `stream`, returns
-// cudaGetLastError() (or the error of setting the shared-memory limit);
-// does not synchronise.
-extern "C" int paged_attention_decode_f32(
-    int online, int kind, const void* q, const void* k_pages,
-    const void* v_pages, const void* k_scale, const void* v_scale,
-    const void* block_tables, const void* ctx_lens, void* out, int batch,
-    int heads, int num_kv, int hd, int ps, int pages_per_seq, int num_pages,
-    int row_bytes, int tile_rows, float levels, float scale, int smem_bytes,
-    void* stream) {
+// One-shot kernel (B7). kind: 0 float32, 1 bf16, 2 uint8 8-bit codes, 3
+// uint8 4-bit codes. All pointers are device memory, contiguous, 16-byte
+// aligned (pools); the scale pointers may be null for kinds 0 and 1.
+// row_bytes = hd_store * element size (a multiple of 16); smem_bytes is the
+// dynamic shared memory of its layout (computed by the caller). Launches on
+// `stream`, returns cudaGetLastError() (or the error of setting the
+// shared-memory limit); does not synchronise.
+extern "C" int paged_oneshot_f32(
+    int kind, const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* ctx_lens, void* out, int batch, int heads, int num_kv, int hd,
+    int ps, int pages_per_seq, int num_pages, int row_bytes, int tile_rows,
+    float levels, float scale, int smem_bytes, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
   Args a{(const float*)q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
          (const float*)k_scale, (const float*)v_scale,
          (const int*)block_tables, (const int*)ctx_lens, (float*)out,
          heads, num_kv, hd, ps, pages_per_seq, num_pages, row_bytes,
-         tile_rows, levels, scale};
-  void (*fn)(Args) = nullptr;
+         tile_rows, levels, scale, nullptr, nullptr, 0, 0};
+  Kernel fn = nullptr;
   switch (kind) {
-    case kF32: fn = pick<kF32>(online); break;
-    case kBF16: fn = pick<kBF16>(online); break;
-    case kU8: fn = pick<kU8>(online); break;
-    case kU4: fn = pick<kU4>(online); break;
+    case kF32: fn = paged_oneshot_kernel<kF32>; break;
+    case kBF16: fn = paged_oneshot_kernel<kBF16>; break;
+    case kU8: fn = paged_oneshot_kernel<kU8>; break;
+    case kU4: fn = paged_oneshot_kernel<kU4>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(fn, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(num_kv, batch);
+  fn<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Online kernel (B8): arguments as above, plus the float32 workspace
+// (batch, num_kv, splits, heads / num_kv, hd + 2) and the (batch, num_kv)
+// int32 ticket counters (0 before the first call; every call leaves them
+// at 0), split_rows (a multiple of 64) and splits = ceil(pages_per_seq·ps
+// / split_rows). hd must be 32 or 64 and heads / num_kv at most 8.
+// smem_bytes: the ring, the warps' probabilities, step sizes and merge
+// area, a 16-byte flag and the combine's 2 x splits x 8 + 8 floats.
+extern "C" int paged_online_f32(
+    int kind, const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* ctx_lens, void* out, void* workspace, void* tickets,
+    int batch, int heads, int num_kv, int hd, int ps, int pages_per_seq,
+    int num_pages, int split_rows, int splits, float levels, float scale,
+    int smem_bytes, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (split_rows % kTile || heads / num_kv > kMaxGroups || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{(const float*)q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
+         (const float*)k_scale, (const float*)v_scale,
+         (const int*)block_tables, (const int*)ctx_lens, (float*)out,
+         heads, num_kv, hd, ps, pages_per_seq, num_pages, 0, kTile, levels,
+         scale, (float*)workspace, (int*)tickets, split_rows, splits};
+  Kernel fn = nullptr;
+  switch (kind) {
+    case kF32: fn = pick_online<kF32>(hd); break;
+    case kBF16: fn = pick_online<kBF16>(hd); break;
+    case kU8: fn = pick_online<kU8>(hd); break;
+    case kU4: fn = pick_online<kU4>(hd); break;
+    default: break;
+  }
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  static int allowed[4][2] = {};    // shared memory already allowed, bytes
+  const int hi = hd == 32 ? 0 : 1;
+  if (smem_bytes > allowed[kind][hi]) {
+    cudaError_t err = allow_smem(fn, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed[kind][hi] = smem_bytes;
+  }
+  dim3 grid(splits, num_kv, batch);
   fn<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -59,7 +59,7 @@ def stoch_quantize(theta: torch.Tensor, q_hat_prev: torch.Tensor,
 def bipartite_mix(adjacency: torch.Tensor, values: torch.Tensor
                   ) -> torch.Tensor:
     """Neighbour sum ``A @ V`` (see ``ref``)."""
-    if values.device.type == "cpu":
+    if values.is_cpu:
         return ref.bipartite_mix_ref(adjacency, values)
     out = bipartite_mix_cuda(adjacency, values)
     launches["bipartite_mix"] += 1

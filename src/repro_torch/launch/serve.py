@@ -56,12 +56,14 @@ def make_prompts(cfg, prompt_lens, seed: int, prefix_len: int = 0):
 
 # ------------------------------------------------------------- lockstep --
 class LockstepEngine:
-    """Fixed-batch baseline: pad every prompt of a wave to the longest (by
-    repeating its last token), prefill the wave into a contiguous cache,
-    decode until the whole wave has its tokens. A wave of equal-length
-    prompts is the per-request contiguous reference of the paged path.
-    The cache holds bf16 K/V, as the JAX package's does; ``cache_dtype``
-    float32 makes it the reference of a float32 paged cache."""
+    """Fixed-batch baseline, as the JAX package's: pad every prompt to the
+    longest prompt of the whole stream (by repeating its last token),
+    prefill each wave into a contiguous cache of ``longest +
+    decode_tokens`` slots, decode until the whole wave has its tokens. A
+    stream of equal-length prompts carries no padding and is the
+    per-request contiguous reference of the paged path. The cache holds
+    bf16 K/V, as the JAX package's does; ``cache_dtype`` float32 makes it
+    the reference of a float32 paged cache."""
 
     def __init__(self, cfg, params, *, sample: str = "greedy",
                  temperature: float = 1.0, batch: int = 4, seed: int = 0,
@@ -87,11 +89,11 @@ class LockstepEngine:
         cfg, dev = self.cfg, self.device
         waves = [list(range(i, min(i + self.batch, len(prompts))))
                  for i in range(0, len(prompts), self.batch)]
+        plen = max(len(p) for p in prompts)
         outputs, top = {}, {}
         t0 = time.perf_counter()
         for wi, wave in enumerate(waves):
             wb = len(wave)
-            plen = max(len(prompts[i]) for i in wave)
             toks = np.zeros((wb, plen), np.int32)
             for j, i in enumerate(wave):
                 toks[j, :len(prompts[i])] = prompts[i]

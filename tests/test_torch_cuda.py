@@ -186,6 +186,57 @@ def test_bipartite_mix_kernel_matches_plain_on_card(cuda, shape):
     assert_mix_close(got.cpu().numpy(), adj @ vals, adj, vals)
 
 
+# B2's regimes (M, N, d, storage offset of V in floats): the streaming
+# design (M, N <= 8) with an odd d, an unaligned V and float4 columns past
+# 2^24; the register-tiled design ragged, at 1,024 workers, and at 2,048
+# (past the first design's 1,536-worker limit)
+MIX_REGIMES = {"wide-odd-d": (4, 4, 2 ** 24 + 1, 0),
+               "wide-unaligned": (4, 4, 2 ** 24 + 4, 1),
+               "wide-float4": (4, 4, 2 ** 24 + 4, 0),
+               "tiled-ragged": (12, 24, 513, 0),
+               "tiled-1024": (1024, 1024, 2000, 0),
+               "tiled-2048": (2048, 2048, 64, 0)}
+
+
+def mix_on_card(m, n, d, offset, seed, device):
+    """A 0/1 (M, N) adjacency and a contiguous (N, d) V starting
+    ``offset`` floats into its buffer, seeded on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    adj = (torch.rand((m, n), generator=gen, device=device) < 0.4).float()
+    buf = torch.randn(n * d + offset, generator=gen, device=device)
+    return adj, buf[offset:].view(n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MIX_REGIMES))
+def test_bipartite_mix_regimes_match_plain_on_card(cuda, case):
+    """Each entry within 1e-6 of the sum of its terms' magnitudes (the
+    plain ``A @ V`` sums in another order)."""
+    m, n, d, offset = MIX_REGIMES[case]
+    adj, vals = mix_on_card(m, n, d, offset, 13, cuda)
+    assert vals.is_contiguous() and bool(vals.data_ptr() % 16) == bool(offset)
+    before = ops.launches["bipartite_mix"]
+    got = ops.bipartite_mix(adj, vals)
+    torch.cuda.synchronize()
+    assert ops.launches["bipartite_mix"] == before + 1
+    want = ref.bipartite_mix_ref(adj, vals)
+    scale = adj.double().abs() @ vals.double().abs()
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-6 * scale + 1e-30).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_bipartite_mix_designs_agree_bitwise_on_card(cuda):
+    """Both designs compute each output as one fmaf chain over k in order:
+    the streaming design's (8, 8) mix equals the first 8 rows of the tiled
+    design's (9, 8) mix bit for bit, with float4 and with scalar columns."""
+    for d in (4096, 4097):
+        adj, vals = mix_on_card(9, 8, d, 0, 17, cuda)
+        wide = ops.bipartite_mix(adj[:8].contiguous(), vals)
+        tiled = ops.bipartite_mix(adj, vals)
+        assert torch.equal(wide, tiled[:8])
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros((4, 8), device=cuda, dtype=torch.float64)
@@ -407,6 +458,41 @@ def test_paged_attention_kernels_match_plain_on_card(cuda, monkeypatch,
         oneshot = paged_call(ops.paged_attention_decode, kw, cuda)
         err = float((got[1:] - oneshot[1:]).abs().max())
         assert err <= 1e-5 * vmax, (err, vmax)
+
+
+def split_edges(pages, page_size):
+    """ctx on and around the online kernel's split boundaries, every one
+    live, clipped to the table."""
+    from repro_torch.kernels import paged_attention
+    rows, full = paged_attention.SPLIT_ROWS, pages * page_size
+    ctx = [1, rows - 1, rows, rows + 1, 2 * rows, 2 * rows + 1, full - 1,
+           full]
+    return [min(c, full) for c in ctx]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", [64, 256])
+@pytest.mark.parametrize("kv_bits,pool_dtype", [
+    (32, torch.float32), (32, torch.bfloat16), (8, None), (4, None)])
+def test_online_kernel_at_split_boundaries_on_card(cuda, monkeypatch, pages,
+                                                   kv_bits, pool_dtype):
+    """B8 at tinyllama's heads with all eight sequences live, ctx on and
+    around split boundaries: within 1e-5 of max|V| of its plain version;
+    a second identical call gives the same output bit for bit (the last
+    split to arrive set its ticket counter back to 0)."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1")
+    kw, vmax = paged_inputs(8, 32, 4, 64, 16, pages, kv_bits, seed=9,
+                            pool_dtype=pool_dtype or torch.float32,
+                            ctx=split_edges(pages, 16))
+    before = ops.launches["paged_attention_decode_online"]
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    again = paged_call(ops.paged_attention_decode, kw, cuda)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_attention_decode_online"] == before + 2
+    want = paged_call(ref.paged_attention_online_ref, kw, cuda)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -114,7 +114,9 @@ def test_variant_threshold_is_the_one_shot_shared_memory():
     assert (paged_attention.oneshot_smem_bytes(8, 64, 190, 16)
             <= ops.ONESHOT_SMEM_LIMIT
             < paged_attention.oneshot_smem_bytes(8, 64, 191, 16))
-    assert (paged_attention.online_smem_bytes(8, 64, 16)
+    assert (paged_attention.online_smem_bytes(              # bf16 pools
+        64, 2 * 64,
+        paged_attention.split_count(256, 16, paged_attention.SPLIT_ROWS))
             < ops.ONESHOT_SMEM_LIMIT)
 
 
