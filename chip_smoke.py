@@ -65,14 +65,15 @@ with its time printed:
    ``--censor-mode group``: 2 tiled quantize launches per step;
 13. one packed quantize step at the smoke width through the two-pass path
    (``stoch_quantize_grouped``) and the fused one: value-identical;
-14. the two paged-attention decode kernels (one-shot and online softmax)
-   against their plain versions, and the online one against the one-shot
-   one, to 1e-5 of max|V|, at the smoke model's heads and at tinyllama's
-   (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages, ctx 0 to
-   4096, poisoned table slots, every sequence on or around a split
-   boundary of B8), with bf16, 8-bit and 4-bit pools; kernel, plain and
-   SDPA times at the shapes the serving path gives them; B8 at 64, 128,
-   256 and 512 slots per split;
+14. the paged-attention decode kernel under its two contracts (B7
+   one-shot, B8 online softmax) against their plain versions, and B8
+   against B7, to 1e-5 of max|V|, at the smoke model's heads and at
+   tinyllama's (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages,
+   ctx 0 to 4096, poisoned table slots, every sequence on or around a split
+   boundary), with bf16, 8-bit and 4-bit pools; B7 at ctx 0 against the
+   uniform average of V; every call repeated, equal bit for bit; kernel,
+   plain and SDPA times at the shapes the serving path gives them; B8 at
+   64, 128, 256 and 512 slots per split, B7 at 64, 128 and 256;
 15. serving tinyllama-1.1b at full width (random float32 weights from
    seed 0, bf16 activations) through the paged scheduler: 16 greedy
    requests (prompt lengths 17..700, 128 new tokens, max_seqs 8, pages of
@@ -84,10 +85,13 @@ with its time printed:
    pages in use after each; decode ms per tick, tokens/s, peak memory and
    the top device activities of one profiled tick;
 16. the sLSTM cell kernel (B9, ``slstm_cell``) against its plain version
-   at xlstm-125m's heads (H 4, dh 192): the lockstep prefill (8, 700) and
-   the paged bulk chunk (1, 64), bf16 and float32 wx, an odd (3, 129),
-   from m0 = -1e30, 0 and a carried state; hs and every final state within
-   1e-4 of max|hs|; device time, time per call, plain time and bound;
+   at xlstm-125m's heads (H 4, dh 192, clusters of 4): the lockstep
+   prefill (8, 700) and the paged bulk chunk (1, 64), bf16 and float32 wx,
+   an odd (3, 129), from m0 = -1e30, 0 and a carried state, and at dh 64
+   (a cluster of 1) and 256 (of 8); hs and every final state within 1e-4
+   of max|hs|, a second call equal bit for bit; device time, time per
+   call, plain time and bound; the (8, 700) prefill at 1, 2, 4 and 8 batch
+   rows per cluster;
 17. serving xlstm-125m at full width (random float32 weights from seed 0):
    a (8, 700) prefill forward through ``registry.apply_model`` with B9
    (exactly 6 launches) against the port's time loop, logits and every
@@ -1272,11 +1276,14 @@ PAGED_CHECKS = {
                        (0, 1, 81, 160, 319, 576, 764, 1024)),
     "tinyllama P=256": ((8, 32, 4, 64, 16, 256),
                         (0, 1, 700, 1500, 2500, 3300, 4000, 4096)),
-    # every sequence live, ctx on and around B8's split boundaries (at 128
-    # and 256 slots per split)
+    # every sequence live, ctx on and around the split boundaries (at 128
+    # and 256 slots per split), at both tables
     "tinyllama P=256 split edges": ((8, 32, 4, 64, 16, 256),
                                     (127, 128, 129, 255, 256, 257, 513,
                                      4095)),
+    "tinyllama P=64 split edges": ((8, 32, 4, 64, 16, 64),
+                                   (127, 128, 129, 255, 256, 257, 513,
+                                    1023)),
 }
 
 
@@ -1331,11 +1338,29 @@ def paged_plain(ref, q, kw, online):
               kw.pop("block_tables"), kw.pop("ctx_lens"), **kw)
 
 
+def uniform_average(ref, kw, shape):
+    """What the one-shot contract gives where ctx = 0: per KV head, the
+    mean of V over every slot of the clamped table, for each query head."""
+    bsz, heads, num_kv, hd, ps, pps = shape
+    v_pages = kw["v_pages"]
+    bt = torch.clamp(kw["block_tables"].long(), 0, v_pages.shape[0] - 1)
+    if kw["kv_bits"] == 32:
+        v = v_pages[bt].float()
+    else:
+        v = ref.kv_page_dequantize(v_pages[bt], kw["v_scale"][bt],
+                                   kv_bits=kw["kv_bits"], head_dim=hd)
+    mean = v.reshape(bsz, pps * ps, num_kv, hd).mean(1)
+    return mean.repeat_interleave(heads // num_kv, dim=1)
+
+
 def check_paged_parity(ref, dev):
-    """B7 (one-shot) and B8 (online) against their plain versions, and B8
-    against B7 where ctx > 0, to 1e-5 of max|V|, at every shape and
-    kv_bits 32 (bf16 pools), 8 and 4. The kernels get the poisoned table
-    as it is (they clamp it, as ``ops`` also does)."""
+    """B7 (the one-shot contract) and B8 (online) against their plain
+    versions, and B8 against B7 where ctx > 0, to 1e-5 of max|V|, at every
+    shape and kv_bits 32 (bf16 pools), 8 and 4; B7 where ctx = 0 against
+    the uniform average of V over the table (as ``uniform_average``
+    computes it, to the same tolerance); a second call of each equal bit
+    for bit (the ticket counters were reset). The kernels get the poisoned
+    table as it is (they clamp it)."""
     errs = {"paged_attention_decode": 0.0,
             "paged_attention_decode_online": 0.0}
     seed = 0
@@ -1344,7 +1369,9 @@ def check_paged_parity(ref, dev):
             seed += 1
             q, kw, vmax = paged_inputs(dev, shape, ctx, bits, seed)
             got = {o: paged_kernel(q, kw, o) for o in (False, True)}
+            again = {o: paged_kernel(q, kw, o) for o in (False, True)}
             torch.cuda.synchronize()
+            assert all(torch.equal(got[o], again[o]) for o in got), label
             line = []
             for online, name in ((False, "paged_attention_decode"),
                                  (True, "paged_attention_decode_online")):
@@ -1362,10 +1389,17 @@ def check_paged_parity(ref, dev):
                 raise AssertionError(f"B8 vs B7 {label} kv_bits {bits}: "
                                      f"{cross:.3e}")
             assert bool((got[True][~live] == 0).all()), "B8 ctx 0 not zero"
+            if bool((~live).any()):
+                uni = float((got[False][~live] - uniform_average(
+                    ref, kw, shape)[~live]).abs().max())
+                if not uni <= 1e-5 * vmax:
+                    raise AssertionError(f"B7 ctx 0 {label} kv_bits {bits}: "
+                                         f"{uni:.3e} from the average")
+                line.append(f"B7 at ctx 0 vs the uniform average {uni:.3e}")
             log(f"parity paged {label} kv_bits {bits}: max |err| "
                 f"{', '.join(line)}, B8 vs B7 {cross:.3e} (max|V| "
-                f"{vmax:.3f})")
-            del q, kw, got
+                f"{vmax:.3f}); second calls equal bit for bit")
+            del q, kw, got, again
     return errs
 
 
@@ -1447,30 +1481,37 @@ def time_paged(ref, dev):
 
 
 def time_split_rows(dev):
-    """B8's slots per block, the one setting of its split design: device
-    time and time per call at each of 64, 128, 256 and 512 slots, at B8's
-    shape (one sequence at ~4000 tokens) and with all eight sequences at
-    ~4000 (bf16 pools); the wrapper's ``SPLIT_ROWS`` is the one chosen
-    from these."""
+    """Slots per block, the one setting of the split design (both
+    contracts): device time and time per call at each of 64, 128, 256 and
+    512 slots for B8 at its shape (one sequence at ~4000 tokens) and with
+    all eight sequences at ~4000, and at each of 64, 128 and 256 for B7 at
+    the main stream's shape (bf16 pools); the wrapper's ``SPLIT_ROWS`` is
+    the one chosen from these."""
     # ops first: importing paged_attention alone runs into the kernels
     # package's import cycle (ref -> core -> topology -> ops)
     from repro_torch.kernels import ops  # noqa: F401
     from repro_torch.kernels import paged_attention as pa
 
-    shapes = {"B8's shape": (LONG_PROMPT + LONG_NEW // 2,) + (0,) * 7,
-              "8 x ~4000": (4000,) * 8}
-    shape = (8, 32, 4, 64, 16, LONG_PAGES)
+    long = (8, 32, 4, 64, 16, LONG_PAGES)
+    cases = {
+        "B8 at its shape": (long, (LONG_PROMPT + LONG_NEW // 2,) + (0,) * 7,
+                            True, (64, 128, 256, 512)),
+        "B8 at 8 x ~4000": (long, (4000,) * 8, True, (64, 128, 256, 512)),
+        "B7 at its shape": ((8, 32, 4, 64, 16, SERVE_GEOM["pages_per_seq"]),
+                            tuple(n + SERVE_NEW // 2 for n in SERVE_LENS),
+                            False, (64, 128, 256)),
+    }
     chosen = pa.SPLIT_ROWS
     try:
-        for label, ctx in shapes.items():
+        for label, (shape, ctx, online, choices) in cases.items():
             q, kw, _ = paged_inputs(dev, shape, ctx, 32, 50)
             line = []
-            for rows in (64, 128, 256, 512):
+            for rows in choices:
                 pa.SPLIT_ROWS = rows
-                fn = lambda: paged_kernel(q, kw, True)
+                fn = lambda: paged_kernel(q, kw, online)
                 line.append(f"{rows}: {device_ms(fn)} / "
                             f"{time_ms(fn, 50, 5):.5f}")
-            log(f"time B8 split_rows at {label} (device / per call ms; "
+            log(f"time split_rows, {label} (device / per call ms; "
                 f"SPLIT_ROWS {chosen}): " + ", ".join(line))
             del q, kw
     finally:
@@ -1748,6 +1789,11 @@ SLSTM_CHECKS = {
                                                "carried"),
     "odd (3, 129) f32, m0 -1e30": ((3, 129), torch.float32, "fresh"),
     "odd (3, 129) bf16, m0 0": ((3, 129), torch.bfloat16, "admitted"),
+    # other head widths: C follows dh (1 CTA at 64, 8 at 256)
+    "dh 64, a cluster of 1: (9, 33) x 4 heads bf16, carried state": (
+        (9, 33, 4, 64), torch.bfloat16, "carried"),
+    "dh 256, a cluster of 8: (2, 9) x 1 head f32, carried state": (
+        (2, 9, 1, 256), torch.float32, "carried"),
 }
 SLSTM_MAIN = "paged chunk (1, 64) bf16, m0 0"
 SLSTM_TOL = 1e-4         # of max|hs|: fmaf in k order against cuBLAS sums
@@ -1761,11 +1807,18 @@ XLSTM_ALONE = (0, 2, 4, 6)    # prompts 17, 255, 700, 384: the shortest and
                               # the longest of the stream among them
 
 
+def slstm_dims(shape):
+    """(B, S, H, dh) of a (B, S) shape at xlstm-125m's heads, or of a
+    (B, S, H, dh) one."""
+    return tuple(shape) if len(shape) == 4 else (*shape, SLSTM_H, SLSTM_DH)
+
+
 def slstm_inputs(dev, shape, wx_dtype, state, seed):
-    """B9's inputs on the card from a seeded generator at xlstm-125m's
-    heads: wx (B, S, 4, 768), R (4, 192, 768) / sqrt(192), fbias 3.0 (the
-    init's), and a fresh (m -1e30), admitted (all 0) or carried state."""
-    (b, s), h, dh = shape, SLSTM_H, SLSTM_DH
+    """B9's inputs on the card from a seeded generator, at xlstm-125m's
+    heads unless ``shape`` names them: wx (B, S, 4, 768), R (4, 192, 768) /
+    sqrt(192), fbias 3.0 (the init's), and a fresh (m -1e30), admitted (all
+    0) or carried state."""
+    b, s, h, dh = slstm_dims(shape)
     gen = torch.Generator(device=dev).manual_seed(seed)
     wx = (0.5 * torch.randn((b, s, h, 4 * dh), generator=gen, device=dev)
           ).to(wx_dtype)
@@ -1789,7 +1842,7 @@ def slstm_bound(shape, wx_dtype):
     the state written once, at the memory rate; against the product's
     2 B S H dh 4dh and SLSTM_GATE_OPS per (row, step, unit) at the float32
     rate."""
-    (b, s), h, dh = shape, SLSTM_H, SLSTM_DH
+    b, s, h, dh = slstm_dims(shape)
     wx_bytes = 2 if wx_dtype == torch.bfloat16 else 4
     n_bytes = (b * s * h * 4 * dh * wx_bytes + 4 * b * s * h * dh
                + 4 * h * dh * 4 * dh + 4 * h * dh + 8 * 4 * b * h * dh)
@@ -1800,16 +1853,20 @@ def slstm_bound(shape, wx_dtype):
 def check_slstm_parity(ref, dev):
     """B9 against its plain version on the same card tensors at every
     SLSTM_CHECKS shape: max |err| of hs and of each final state, each
-    within SLSTM_TOL of max|hs|. Returns the largest max |err|."""
-    from repro_torch.kernels.slstm_cell import slstm_cell_cuda
+    within SLSTM_TOL of max|hs|; a second call equal bit for bit. Returns
+    the largest max |err|."""
+    from repro_torch.kernels.slstm_cell import cluster_size, slstm_cell_cuda
 
     worst = 0.0
     for seed, (label, (shape, wx_dtype, state)) in enumerate(
             SLSTM_CHECKS.items()):
         args = slstm_inputs(dev, shape, wx_dtype, state, seed)
         got = slstm_cell_cuda(*args)
+        again = slstm_cell_cuda(*args)
         want = ref.slstm_cell_ref(*args)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(
+            (got[0],) + got[1], (again[0],) + again[1])), f"{label}: repeat"
         hmax = float(want[0].abs().max())
         errs = [float((got[0] - want[0]).abs().max())] + [
             float((a - b).abs().max()) for a, b in zip(got[1], want[1])]
@@ -1820,17 +1877,22 @@ def check_slstm_parity(ref, dev):
             raise AssertionError(f"slstm_cell {label}: max |err| / max|hs| "
                                  f"{rel} > {SLSTM_TOL}")
         worst = max(worst, max(errs))
-        log(f"parity slstm_cell {label}: max |err| / max|hs| ({hmax:.4f}): "
-            f"hs {rel[0]:.3e}, c {rel[1]:.3e}, n {rel[2]:.3e}, m "
-            f"{rel[3]:.3e}, h {rel[4]:.3e}")
-        del args, got, want
+        log(f"parity slstm_cell {label} (cluster of "
+            f"{cluster_size(slstm_dims(shape)[3])}): max |err| / max|hs| "
+            f"({hmax:.4f}): hs {rel[0]:.3e}, c {rel[1]:.3e}, n {rel[2]:.3e}, "
+            f"m {rel[3]:.3e}, h {rel[4]:.3e}; a second call equal bit for "
+            f"bit")
+        del args, got, again, want
     return worst
 
 
 def time_slstm(ref, dev):
     """Device time (profiler), time per call (CUDA events), plain time and
     bound of B9 at the lockstep prefill and paged chunk shapes; the main
-    path's (the bf16 paged chunk) is returned for the kernels line."""
+    path's (the bf16 paged chunk) is returned for the kernels line. Then
+    the (8, 700) prefill with each number of batch rows per cluster, beside
+    the wrapper's choice."""
+    from repro_torch.kernels import slstm_cell as sc
     from repro_torch.kernels.slstm_cell import slstm_cell_cuda
 
     out = {}
@@ -1845,7 +1907,7 @@ def time_slstm(ref, dev):
              "bound": slstm_bound(shape, wx_dtype), "library_ms": None}
         _, acts = device_times(lambda: slstm_cell_cuda(*args), 5)
         hits = [(c, ms) for k, (c, ms) in acts.items()
-                if "slstm_cell_kernel" in k]
+                if "slstm_cluster_kernel" in k]
         t["device_ms"] = (sum(ms for _, ms in hits)
                           / sum(c for c, _ in hits)) if hits else None
         steps = shape[1]
@@ -1856,6 +1918,19 @@ def time_slstm(ref, dev):
             f"call computes this cell")
         out[label] = t
         del args
+    label = "lockstep prefill (8, 700) bf16, m0 -1e30"
+    shape, wx_dtype, state = SLSTM_CHECKS[label]
+    b, s, h, dh = slstm_dims(shape)
+    args = slstm_inputs(dev, shape, wx_dtype, state, 99)
+    fit = sc.max_clusters(dev, h, dh, sc.cluster_size(dh), True)
+    line = []
+    for rows in sc.ROW_CHOICES:
+        fn = lambda: slstm_cell_cuda(*args, rows=rows)
+        line.append(f"{rows}: {device_ms(fn, 5)} / {time_ms(fn, 5, 3):.4f}")
+    log(f"time slstm_cell {label} by batch rows per cluster (device / per "
+        f"call ms; {fit} clusters of {sc.cluster_size(dh)} fit the card at "
+        f"once, the wrapper takes {sc.rows_per_cluster(b, h, fit)}): "
+        + ", ".join(line))
     return out[SLSTM_MAIN]
 
 

@@ -1,50 +1,43 @@
 // Single-token decode attention through a paged KV cache, for Hopper
-// (sm_90a). Two kernels:
+// (sm_90a). One split-decode body, two contracts, chosen at compile time:
 //
-//   paged_oneshot_kernel  replaces src/repro/kernels/paged_attention.py::
-//                         paged_attention_decode (_paged_attn_kernel): one
-//                         softmax over the whole logits slab;
-//   paged_online_kernel   replaces paged_attention_decode_online
-//                         (_paged_attn_online_kernel): flash-decoding with a
-//                         running max and normalizer.
+//   paged_decode_kernel<KIND, HD, true>   replaces src/repro/kernels/
+//                         paged_attention.py::paged_attention_decode
+//                         (_paged_attn_kernel, B7): at ctx = 0 the uniform
+//                         average of V over all P·ps slots of the (clamped)
+//                         table, the result of the JAX kernel's one softmax
+//                         over a fully masked slab;
+//   paged_decode_kernel<KIND, HD, false>  replaces paged_attention_decode_
+//                         online (_paged_attn_online_kernel, B8): zeros at
+//                         ctx = 0 (an inactive slot attends to nothing).
+//
+// Where ctx > 0 both are the softmax over the slots below ctx.
 //
 // Inputs: q (B, H, hd) float32; pools (num_pages, ps, KV, hd_store) as
 // float32, bf16 or uint8 codes (8-bit, or 4-bit with two codes per byte
 // along hd, low nibble first); k_scale / v_scale (num_pages, ps, KV)
-// float32 ranges for code pools; block_tables (B, P) int32 (clamped into
-// the pool here as well); ctx_lens (B,) int32. Output (B, H, hd) float32.
+// float32 ranges for code pools; block_tables (B, P) int32 (ids clamped
+// into the pool here); ctx_lens (B,) int32. Output (B, H, hd) float32.
 // Slot s of logical page p holds position p*ps + s and is attended iff
 // p*ps + s < ctx. Codes dequantize as x = Δ·q - R with Δ = max(2R / (2^b
 // - 1), 1e-12), each rounding pinned with __f*_rn, as the plain version
 // evaluates it.
 //
-// One-shot (B7). One block per (sequence, KV head): it covers the G = H /
-// KV query heads of that KV head (G = 8 for tinyllama), so each K/V entry
-// is read from device memory once per decode step. The block reads its own
-// block-table row and walks its pages in logical order in tiles of whole
-// pages (64 rows at ps = 16), loaded with 16-byte vector loads and
-// dequantized in registers into a float32 tile in shared memory, rows
-// padded to hd + 1 floats. The (G, P·ps) float32 logits slab sits in
-// shared memory: pass 1 writes the masked logits (-1e30 past ctx) tile by
-// tile; one softmax per head runs over the slab; pass 2 reloads V and
-// accumulates, per output (g, d), each page's sum into the float32 result
-// in logical page order. Pages past ctx have probability exactly 0 and are
-// not read; ctx = 0 masks every slot, so the softmax is uniform over all
-// P·ps slots of the (clamped) table, the JAX kernel's result. Its shared
-// memory grows with P·ps; kernels/ops.py picks the online kernel once the
-// footprint passes half of the 227 KB a block may use.
+// What bounds it on this card: bytes (the K/V entries and ranges of the
+// pages up to ctx, read once; about 2 flops per byte of bf16 K/V). The
+// first designs (one block per (sequence, KV head): 32 blocks at B = 8,
+// KV = 4, each walking its tiles in series; B7 with a (G, P·ps) logits slab
+// in shared memory and a second pass over V) were bound by the latency of
+// their loads instead: B7 84x and B8 341x their bounds. This design splits
+// each sequence's slots over blocks (flash-decoding):
 //
-// Online (B8). What bounds it on this card: bytes (the K/V entries and
-// ranges of the pages up to ctx, read once; about 2 flops per byte of bf16
-// K/V). The first design (one block per (sequence, KV head), 32 blocks at
-// B = 8, KV = 4, each walking its tiles in series with four barriers a
-// tile) was bound by the latency of its loads instead: 341x its bound. This
-// design splits each sequence's slots over blocks (flash-decoding):
-//
-// * Grid (splits, KV, B). A split is split_rows slots (a whole number of
-//   64-row tiles); splits = ceil(P·ps / split_rows) comes from the table
-//   width alone, so the host never reads ctx_lens. A split whose first slot
-//   lies at or past n_rows = ceil(ctx / ps)·ps exits at once.
+// * Grid (splits, KV·chunks, B). Chunk c of a KV head takes its query heads
+//   [8c, 8c + 8): one chunk while G <= 8 (each K/V entry read once a call),
+//   more where a KV head serves more query heads. A split is split_rows
+//   slots (a whole number of 64-row tiles); splits = ceil(P·ps /
+//   split_rows) comes from the table width alone, so the host never reads
+//   ctx_lens. A split whose first slot lies at or past n_rows = ceil(ctx /
+//   ps)·ps exits at once: pages past ctx are not read.
 // * A block keeps its tiles' raw K/V bytes (and the code pools' ranges) in
 //   a 3-stage shared-memory ring filled by 16-byte cp.async, two tiles in
 //   flight while one is reduced, one barrier a tile. Codes are dequantized
@@ -59,13 +52,18 @@
 // * At the end of its tiles a block merges its warps' (m, l, acc) through
 //   shared memory and writes the merged partial (m, l per head, the
 //   unnormalized (G, hd) accumulator) to a float32 workspace. The last
-//   live split to arrive at the (sequence, KV head) — a ticket counter
-//   taken after __threadfence — combines the live partials:
+//   live split to arrive at the (sequence, KV head, chunk) — a ticket
+//   counter taken after __threadfence — combines the live partials:
 //   M = max m_s, out = Σ e^(m_s - M)·acc_s / Σ e^(m_s - M)·l_s (the (m, l)
 //   table staged in shared memory, a warp per head for M and the
 //   weights, the accumulators' loads over splits unrolled), and sets the
 //   counter back to 0 for the next call. One live split writes its result
-//   directly; ctx = 0 has no live split, and split 0 writes zeros.
+//   directly.
+// * ctx = 0. Online: no split is live, and split 0 writes zeros. One-shot:
+//   every slot of the table counts, each with logit 0, so every split is
+//   live and reads V only (no K, no q·K); each probability is e^0 = 1, m is
+//   0 in every split, and the combine divides the sum of V by Σ l = P·ps.
+//   No -1e30 reaches an exponent as a maximum.
 //
 // The workspace and the counters are the wrapper's, kept across calls on
 // one device; calls that share them must run in stream order.
@@ -79,23 +77,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxOut = 4;          // outputs (g, d) per thread: G*hd <= 1024
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// online kernel
 constexpr int kTile = 64;                       // slots per tile
 constexpr int kRowsPerWarp = kTile / kWarps;    // 8
 constexpr int kStages = 3;                      // cp.async ring depth
-constexpr int kMaxGroups = 8;                   // query heads per KV head
+constexpr int kMaxGroups = 8;                   // query heads per block
 
 enum Kind { kF32 = 0, kBF16 = 1, kU8 = 2, kU4 = 3 };
-
-template <int KIND>
-struct Elems {                      // elements per 16-byte vector
-  static constexpr int n = KIND == kF32 ? 4 : KIND == kBF16 ? 8
-                           : KIND == kU8 ? 16 : 32;
-};
 
 struct Args {
   const float* q;
@@ -106,13 +95,10 @@ struct Args {
   const int* block_tables;
   const int* ctx_lens;
   float* out;
-  int heads, num_kv, hd, ps, pages_per_seq, num_pages, row_bytes;
-  int tile_rows;
-  float levels, scale;
-  // online only
   float* ws;                        // (B, KV, splits, G, hd + 2) float32
-  int* tickets;                     // (B, KV) int32, 0 between calls
-  int split_rows, splits;
+  int* tickets;                     // (B, KV·chunks) int32, 0 between calls
+  int heads, num_kv, ps, pages_per_seq, num_pages, split_rows, splits;
+  float levels, scale;
 };
 
 __device__ __forceinline__ float dequant(uint32_t code, float rng,
@@ -120,183 +106,20 @@ __device__ __forceinline__ float dequant(uint32_t code, float rng,
   return __fsub_rn(__fmul_rn(delta, (float)code), rng);
 }
 
-template <int KIND>
-__device__ __forceinline__ void unpack(uint4 raw, float rng, float levels,
-                                       float* out) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  if constexpr (KIND == kF32) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = __uint_as_float(w[i]);
-  } else if constexpr (KIND == kBF16) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-    const float delta =
-        fmaxf(__fdiv_rn(__fmul_rn(2.0f, rng), levels), 1e-12f);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t b = (w[i >> 2] >> (8 * (i & 3))) & 0xffu;
-      if constexpr (KIND == kU8) {
-        out[i] = dequant(b, rng, delta);
-      } else {
-        out[2 * i] = dequant(b & 0xfu, rng, delta);
-        out[2 * i + 1] = dequant(b >> 4, rng, delta);
-      }
-    }
-  }
-}
-
-// rows [row0, row0 + rows) of this block's logical sequence of slots,
-// dequantized into tile (rows x (hd + 1) floats)
-template <int KIND>
-__device__ void load_tile(const Args& a, const uint8_t* pool,
-                          const float* scales, const int* bt_row, int kvh,
-                          int row0, int rows, float* tile) {
-  constexpr int EPV = Elems<KIND>::n;
-  const int vpr = a.row_bytes >> 4;
-  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
-    const int r = v / vpr;
-    const int c = v - r * vpr;
-    const int i = row0 + r;
-    const int lp = i / a.ps;
-    const int page = min(max(bt_row[lp], 0), a.num_pages - 1);
-    const size_t entry =
-        ((size_t)page * a.ps + (i - lp * a.ps)) * a.num_kv + kvh;
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-        pool + entry * a.row_bytes + (size_t)c * 16));
-    const float rng = KIND >= kU8 ? __ldg(scales + entry) : 0.0f;
-    float vals[EPV];
-    unpack<KIND>(raw, rng, a.levels, vals);
-    float* dst = tile + r * (a.hd + 1) + c * EPV;
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) dst[e] = vals[e];
-  }
-}
-
-// masked, scaled logits of a K tile: dst[g * stride + r]
-__device__ void tile_logits(const Args& a, const float* qs, const float* tile,
-                            int groups, int row0, int rows, int ctx,
-                            float* dst, int stride) {
-  const int hd = a.hd;
-  for (int pr = threadIdx.x; pr < groups * rows; pr += blockDim.x) {
-    const int g = pr / rows;
-    const int r = pr - g * rows;
-    const float* qg = qs + g * hd;
-    const float* kr = tile + r * (hd + 1);
-    float acc = 0.0f;
-    for (int d = 0; d < hd; ++d) acc = fmaf(qg[d], kr[d], acc);
-    dst[g * stride + r] = row0 + r < ctx ? __fmul_rn(acc, a.scale) : kNegInf;
-  }
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+    x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 
-__device__ __forceinline__ void load_q(const Args& a, int b, int kvh,
-                                       int groups, float* qs) {
-  const float* src = a.q + ((size_t)b * a.heads + (size_t)kvh * groups) * a.hd;
-  for (int i = threadIdx.x; i < groups * a.hd; i += blockDim.x) qs[i] = src[i];
-}
-
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-paged_oneshot_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int groups = a.heads / a.num_kv, hd = a.hd;
-  const int slab_len = a.pages_per_seq * a.ps;
-  float* qs = smem;
-  float* slab = qs + groups * hd;
-  float* tile = slab + groups * slab_len;
-  const int ctx = a.ctx_lens[b];
-  const int* bt_row = a.block_tables + (size_t)b * a.pages_per_seq;
-  const int n_rows = ctx > 0
-      ? min((ctx + a.ps - 1) / a.ps * a.ps, slab_len) : slab_len;
-  load_q(a, b, kvh, groups, qs);
-  __syncthreads();
-
-  // pass 1: logits
-  if (ctx > 0) {
-    for (int row0 = 0; row0 < n_rows; row0 += a.tile_rows) {
-      const int rows = min(a.tile_rows, n_rows - row0);
-      load_tile<KIND>(a, a.k_pages, a.k_scale, bt_row, kvh, row0, rows, tile);
-      __syncthreads();
-      tile_logits(a, qs, tile, groups, row0, rows, ctx, slab + row0,
-                  slab_len);
-      __syncthreads();
-    }
-  } else {
-    for (int i = threadIdx.x; i < groups * slab_len; i += blockDim.x)
-      slab[i] = kNegInf;
-    __syncthreads();
-  }
-
-  // one softmax per head over the slab (slots past n_rows are -1e30 and
-  // would add exactly 0 to the sum)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int g = warp; g < groups; g += blockDim.x >> 5) {
-    float* row = slab + g * slab_len;
-    float m = kNegInf;
-    for (int i = lane; i < n_rows; i += 32) m = fmaxf(m, row[i]);
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int i = lane; i < n_rows; i += 32) {
-      const float e = expf(__fsub_rn(row[i], m));
-      row[i] = e;
-      s = __fadd_rn(s, e);
-    }
-    s = warp_sum(s);
-    for (int i = lane; i < n_rows; i += 32) row[i] = __fdiv_rn(row[i], s);
-  }
-  __syncthreads();
-
-  // pass 2: probs x V, each page's sum added in logical page order
-  float acc[kMaxOut];
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.0f;
-  for (int row0 = 0; row0 < n_rows; row0 += a.tile_rows) {
-    const int rows = min(a.tile_rows, n_rows - row0);
-    load_tile<KIND>(a, a.v_pages, a.v_scale, bt_row, kvh, row0, rows, tile);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int o = threadIdx.x + k * blockDim.x;
-      if (o >= groups * hd) break;
-      const int g = o / hd, d = o - g * hd;
-      const float* p = slab + g * slab_len + row0;
-      for (int r0 = 0; r0 < rows; r0 += a.ps) {
-        float page_sum = 0.0f;
-        for (int r = r0; r < r0 + a.ps; ++r)
-          page_sum = fmaf(p[r], tile[r * (hd + 1) + d], page_sum);
-        acc[k] = __fadd_rn(acc[k], page_sum);
-      }
-    }
-    __syncthreads();
-  }
-  float* dst = a.out + ((size_t)b * a.heads + (size_t)kvh * groups) * hd;
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) {
-    const int o = threadIdx.x + k * blockDim.x;
-    if (o < groups * hd) dst[o] = acc[k];
-  }
-}
-
-
-// ------------------------------------------------------------- online --
 template <int KIND, int HD>
 struct Geo {
   static constexpr int kRowBytes = KIND == kF32 ? 4 * HD
@@ -318,14 +141,15 @@ __device__ __forceinline__ size_t slot_entry(const Args& a, const int* bt_row,
   return ((size_t)page * a.ps + (i - lp * a.ps)) * a.num_kv + kvh;
 }
 
-// issue the copies of slots [row0, row0 + rows) into one ring stage
+// issue the copies of slots [row0, row0 + rows) into one ring stage: K and
+// V, or V alone
 template <int KIND, int HD>
 __device__ __forceinline__ void issue_tile(const Args& a, const int* bt_row,
                                            int kvh, int row0, int rows,
-                                           uint8_t* stage) {
+                                           bool with_k, uint8_t* stage) {
   using G = Geo<KIND, HD>;
   const int n = rows * G::kVecPerRow;
-  for (int v = threadIdx.x; v < 2 * n; v += kThreads) {
+  for (int v = threadIdx.x + (with_k ? 0 : n); v < 2 * n; v += kThreads) {
     const int which = v >= n;                     // 0: K, 1: V
     const int u = v - which * n;
     const int r = u / G::kVecPerRow;
@@ -338,7 +162,8 @@ __device__ __forceinline__ void issue_tile(const Args& a, const int* bt_row,
   }
   if constexpr (KIND >= kU8) {
     float* rng = reinterpret_cast<float*>(stage + 2 * kTile * G::kRowBytes);
-    for (int v = threadIdx.x; v < 2 * rows; v += kThreads) {
+    for (int v = threadIdx.x + (with_k ? 0 : rows); v < 2 * rows;
+         v += kThreads) {
       const int which = v >= rows;
       const int r = v - which * rows;
       const size_t entry = slot_entry(a, bt_row, kvh, row0 + r);
@@ -391,10 +216,7 @@ __device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
                                           float rng, float delta, float* x) {
   if constexpr (KIND == kF32) {
     const float* p = reinterpret_cast<const float*>(row) + d0;
-    if constexpr (N == 4) {
-      const float4 u = *reinterpret_cast<const float4*>(p);
-      x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-    } else if constexpr (N == 2) {
+    if constexpr (N == 2) {
       const float2 u = *reinterpret_cast<const float2*>(p);
       x[0] = u.x; x[1] = u.y;
     } else {
@@ -402,11 +224,7 @@ __device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
     }
   } else if constexpr (KIND == kBF16) {
     const uint16_t* p = reinterpret_cast<const uint16_t*>(row) + d0;
-    if constexpr (N == 4) {
-      const uint2 u = *reinterpret_cast<const uint2*>(p);
-      x[0] = bf16_lo(u.x); x[1] = bf16_hi(u.x);
-      x[2] = bf16_lo(u.y); x[3] = bf16_hi(u.y);
-    } else if constexpr (N == 2) {
+    if constexpr (N == 2) {
       const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
       x[0] = bf16_lo(u); x[1] = bf16_hi(u);
     } else {
@@ -431,33 +249,38 @@ __device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
   }
 }
 
-template <int KIND, int HD>
+template <int KIND, int HD, bool ONESHOT>
 __global__ void __launch_bounds__(kThreads)
-paged_online_kernel(const Args a) {
+paged_decode_kernel(const Args a) {
   using GE = Geo<KIND, HD>;
   constexpr int LPR = GE::kLanesPerRow;
   constexpr int NC = GE::kCols;
   constexpr int kCombStride = kMaxGroups * (HD + 2);
-  extern __shared__ __align__(16) uint8_t online_smem[];
-  uint8_t* ring = online_smem;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ring = smem;
   float* probs = reinterpret_cast<float*>(ring + kStages * GE::kStageBytes);
   float* deltas = probs + kWarps * kMaxGroups * kRowsPerWarp;
   float* comb = deltas + kWarps * 2 * kRowsPerWarp;
   int* last_flag = reinterpret_cast<int*>(comb + kWarps * kCombStride);
   float* table = reinterpret_cast<float*>(last_flag + 4);   // the combine's
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int groups = a.heads / a.num_kv;
+  const int chunks = (groups + kMaxGroups - 1) / kMaxGroups;
+  const int kvh = blockIdx.y / chunks;
+  const int g0 = (blockIdx.y - kvh * chunks) * kMaxGroups;
+  const int gn = min(kMaxGroups, groups - g0);    // this block's query heads
   const int slab_len = a.pages_per_seq * a.ps;
   const int ctx = a.ctx_lens[b];
-  const int n_rows = ctx > 0
-      ? min((ctx + a.ps - 1) / a.ps * a.ps, slab_len) : 0;
+  const bool uniform = ONESHOT && ctx <= 0;       // every slot, logit 0
+  const int n_rows = uniform ? slab_len
+      : ctx > 0 ? min((ctx + a.ps - 1) / a.ps * a.ps, slab_len) : 0;
   const int live = (n_rows + a.split_rows - 1) / a.split_rows;
-  const size_t bh = (size_t)b * a.num_kv + kvh;
-  float* dst = a.out + ((size_t)b * a.heads + (size_t)kvh * groups) * HD;
-  if (live == 0) {                  // ctx = 0: attends to nothing
+  const size_t head0 = (size_t)b * a.heads + (size_t)kvh * groups + g0;
+  float* dst = a.out + head0 * HD;
+  if (live == 0) {                  // online, ctx = 0: attends to nothing
     if (split == 0)
-      for (int o = threadIdx.x; o < groups * HD; o += kThreads) dst[o] = 0.0f;
+      for (int o = threadIdx.x; o < gn * HD; o += kThreads) dst[o] = 0.0f;
     return;
   }
   if (split >= live) return;
@@ -471,7 +294,7 @@ paged_online_kernel(const Args a) {
     if (t < n_tiles) {
       const int r0 = row_begin + t * kTile;
       issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
-                           ring + t * GE::kStageBytes);
+                           !uniform, ring + t * GE::kStageBytes);
     }
     async_copy::commit();
   }
@@ -479,13 +302,12 @@ paged_online_kernel(const Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = lane % LPR;         // this lane's 8-element chunk of a row
   float q[kMaxGroups][8];
-  const float* qsrc =
-      a.q + ((size_t)b * a.heads + (size_t)kvh * groups) * HD + c * 8;
+  const float* qsrc = a.q + head0 * HD + c * 8;
 #pragma unroll
   for (int g = 0; g < kMaxGroups; ++g)
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      q[g][e] = g < groups ? __ldg(qsrc + g * HD + e) : 0.0f;
+      q[g][e] = g < gn ? __ldg(qsrc + g * HD + e) : 0.0f;
   float m_run[kMaxGroups], l_run[kMaxGroups], acc[kMaxGroups][NC];
 #pragma unroll
   for (int g = 0; g < kMaxGroups; ++g) {
@@ -506,7 +328,7 @@ paged_online_kernel(const Args a) {
       if (tn < n_tiles) {
         const int r0 = row_begin + tn * kTile;
         issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
-                             ring + (tn % kStages) * GE::kStageBytes);
+                             !uniform, ring + (tn % kStages) * GE::kStageBytes);
       }
       async_copy::commit();
     }
@@ -523,7 +345,7 @@ paged_online_kernel(const Args a) {
     if constexpr (KIND >= kU8) {    // step sizes of this warp's rows
       if (lane < 2 * kRowsPerWarp) {
         const int r = lane % kRowsPerWarp, which = lane / kRowsPerWarp;
-        if (r < wrows) {
+        if (r < wrows && (which || !uniform)) {
           const float rng = (which ? vrng : krng)[wr0 + r];
           wdelta[lane] =
               fmaxf(__fdiv_rn(__fmul_rn(2.0f, rng), a.levels), 1e-12f);
@@ -533,40 +355,48 @@ paged_online_kernel(const Args a) {
     }
 
     // q·K of the warp's rows: partial dots over each lane's 8 elements,
-    // summed over the row's lanes
+    // summed over the row's lanes (all 0 for the one-shot ctx = 0 row)
     float s[GE::kItems][kMaxGroups];
+    if (uniform) {
 #pragma unroll
-    for (int it = 0; it < GE::kItems; ++it) {
-      const int rr = (it * 32 + lane) / LPR;
-      float x[8];
-      if (rr < wrows) {
-        const int r = wr0 + rr;
-        float rng = 0.0f, delta = 0.0f;
-        if constexpr (KIND >= kU8) {
-          rng = krng[r];
-          delta = wdelta[rr];
+      for (int it = 0; it < GE::kItems; ++it)
+#pragma unroll
+        for (int g = 0; g < kMaxGroups; ++g) s[it][g] = 0.0f;
+    } else {
+#pragma unroll
+      for (int it = 0; it < GE::kItems; ++it) {
+        const int rr = (it * 32 + lane) / LPR;
+        float x[8];
+        if (rr < wrows) {
+          const int r = wr0 + rr;
+          float rng = 0.0f, delta = 0.0f;
+          if constexpr (KIND >= kU8) {
+            rng = krng[r];
+            delta = wdelta[rr];
+          }
+          load8<KIND>(kraw + r * GE::kRowBytes + c * GE::kChunkBytes, rng,
+                      delta, x);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[e] = 0.0f;
         }
-        load8<KIND>(kraw + r * GE::kRowBytes + c * GE::kChunkBytes, rng,
-                    delta, x);
-      } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) x[e] = 0.0f;
+        for (int g = 0; g < kMaxGroups; ++g) {
+          float d = 0.0f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], x[e], d);
+          s[it][g] = d;
+        }
       }
 #pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-        float d = 0.0f;
+      for (int it = 0; it < GE::kItems; ++it)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], x[e], d);
-        s[it][g] = d;
-      }
+        for (int g = 0; g < kMaxGroups; ++g)
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1)
+            s[it][g] = __fadd_rn(s[it][g],
+                                 __shfl_xor_sync(kFull, s[it][g], o));
     }
-#pragma unroll
-    for (int it = 0; it < GE::kItems; ++it)
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g)
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1)
-          s[it][g] = __fadd_rn(s[it][g], __shfl_xor_sync(kFull, s[it][g], o));
 
     // masked, scaled logits; the new running max of each head
     float m_new[kMaxGroups];
@@ -575,7 +405,7 @@ paged_online_kernel(const Args a) {
 #pragma unroll
     for (int it = 0; it < GE::kItems; ++it) {
       const int rr = (it * 32 + lane) / LPR;
-      const bool ok = rr < wrows && row0 + wr0 + rr < ctx;
+      const bool ok = rr < wrows && (uniform || row0 + wr0 + rr < ctx);
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
         s[it][g] = ok ? __fmul_rn(s[it][g], a.scale) : kNegInf;
@@ -597,10 +427,10 @@ paged_online_kernel(const Args a) {
 #pragma unroll
     for (int it = 0; it < GE::kItems; ++it) {
       const int rr = (it * 32 + lane) / LPR;
-      const bool ok = rr < wrows && row0 + wr0 + rr < ctx;
+      const bool ok = rr < wrows && (uniform || row0 + wr0 + rr < ctx);
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g)
-        if (g < groups && g % LPR == c)
+        if (g < gn && g % LPR == c)
           wprobs[g * kRowsPerWarp + rr] =
               ok ? expf(__fsub_rn(s[it][g], m_run[g])) : 0.0f;
     }
@@ -624,7 +454,7 @@ paged_online_kernel(const Args a) {
       load_cols<KIND, NC>(vraw + r * GE::kRowBytes, lane * NC, rng, delta, v);
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < groups) {
+        if (g < gn) {
           const float p = wprobs[g * kRowsPerWarp + rr];
           l_run[g] = __fadd_rn(l_run[g], p);
 #pragma unroll
@@ -641,7 +471,7 @@ paged_online_kernel(const Args a) {
     float* cw = comb + warp * kCombStride;
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
-      if (g < groups) {
+      if (g < gn) {
 #pragma unroll
         for (int j = 0; j < NC; ++j) cw[g * HD + lane * NC + j] = acc[g][j];
         if (lane == 0) {
@@ -653,8 +483,13 @@ paged_online_kernel(const Args a) {
   }
   __syncthreads();
   const bool single = live == 1;
-  float* part = a.ws + (bh * a.splits + split) * (size_t)groups * (HD + 2);
-  for (int o = threadIdx.x; o < groups * HD; o += kThreads) {
+  // this (sequence, KV head)'s partials: (splits, G, hd + 2), this block's
+  // heads from g0
+  const size_t pstride = (size_t)groups * (HD + 2);
+  float* parts = a.ws + ((size_t)b * a.num_kv + kvh) * a.splits * pstride
+                 + (size_t)g0 * (HD + 2);
+  float* part = parts + split * pstride;
+  for (int o = threadIdx.x; o < gn * HD; o += kThreads) {
     const int g = o / HD, d = o - g * HD;
     float mx = kNegInf;
 #pragma unroll
@@ -683,10 +518,10 @@ paged_online_kernel(const Args a) {
   // the last live split to arrive combines the partials
   __threadfence();
   __syncthreads();
+  int* ticket = a.tickets + (size_t)b * gridDim.y + blockIdx.y;
   if (threadIdx.x == 0) {
-    const int ticket = atomicAdd(a.tickets + bh, 1);
-    const int last = ticket == live - 1;
-    if (last) a.tickets[bh] = 0;    // every live split has arrived
+    const int last = atomicAdd(ticket, 1) == live - 1;
+    if (last) *ticket = 0;          // every live split has arrived
     *last_flag = last;
   }
   __syncthreads();
@@ -695,40 +530,37 @@ paged_online_kernel(const Args a) {
   // stage the live splits' (m, l), turn m into weights e^(m_s - M) and
   // sum the normalizer per head (a warp per head), then each output's
   // weighted sum over the splits' accumulators
-  const float* parts = a.ws + bh * a.splits * (size_t)groups * (HD + 2);
-  const size_t pstride = (size_t)groups * (HD + 2);
-  float* wt = table;                          // (live, G): m, then weights
-  float* lt = table + a.splits * kMaxGroups;  // (live, G): l
-  float* norm = lt + a.splits * kMaxGroups;   // (G,)
-  for (int i = threadIdx.x; i < live * groups; i += kThreads) {
-    const int sp = i / groups, g = i - sp * groups;
+  float* wt = table;                          // (live, gn): m, then weights
+  float* lt = table + a.splits * kMaxGroups;  // (live, gn): l
+  float* norm = lt + a.splits * kMaxGroups;   // (gn,)
+  for (int i = threadIdx.x; i < live * gn; i += kThreads) {
+    const int sp = i / gn, g = i - sp * gn;
     const float* p = parts + sp * pstride + g * (HD + 2);
     wt[i] = __ldcg(p + HD);
     lt[i] = __ldcg(p + HD + 1);
   }
   __syncthreads();
-  for (int g = warp; g < groups; g += kWarps) {
+  for (int g = warp; g < gn; g += kWarps) {
     float mx = kNegInf;
-    for (int sp = lane; sp < live; sp += 32)
-      mx = fmaxf(mx, wt[sp * groups + g]);
+    for (int sp = lane; sp < live; sp += 32) mx = fmaxf(mx, wt[sp * gn + g]);
     mx = warp_max(mx);
     float l = 0.0f;
     for (int sp = lane; sp < live; sp += 32) {
-      const float e = expf(__fsub_rn(wt[sp * groups + g], mx));
-      wt[sp * groups + g] = e;
-      l = __fadd_rn(l, __fmul_rn(e, lt[sp * groups + g]));
+      const float e = expf(__fsub_rn(wt[sp * gn + g], mx));
+      wt[sp * gn + g] = e;
+      l = __fadd_rn(l, __fmul_rn(e, lt[sp * gn + g]));
     }
     l = warp_sum(l);
     if (lane == 0) norm[g] = l > 0.0f ? l : 1.0f;
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < groups * HD; o += kThreads) {
+  for (int o = threadIdx.x; o < gn * HD; o += kThreads) {
     const int g = o / HD, d = o - g * HD;
     const float* pg = parts + g * (HD + 2) + d;
     float sum = 0.0f;
 #pragma unroll 16
     for (int sp = 0; sp < live; ++sp)
-      sum = __fadd_rn(sum, __fmul_rn(wt[sp * groups + g],
+      sum = __fadd_rn(sum, __fmul_rn(wt[sp * gn + g],
                                      __ldcg(pg + sp * pstride)));
     dst[o] = __fdiv_rn(sum, norm[g]);
   }
@@ -736,97 +568,72 @@ paged_online_kernel(const Args a) {
 
 using Kernel = void (*)(Args);
 
-template <int KIND>
-Kernel pick_online(int hd) {
-  switch (hd) {
-    case 32: return paged_online_kernel<KIND, 32>;
-    case 64: return paged_online_kernel<KIND, 64>;
+template <bool ONESHOT, int HD>
+Kernel pick_kind(int kind) {
+  switch (kind) {
+    case kF32: return paged_decode_kernel<kF32, HD, ONESHOT>;
+    case kBF16: return paged_decode_kernel<kBF16, HD, ONESHOT>;
+    case kU8: return paged_decode_kernel<kU8, HD, ONESHOT>;
+    case kU4: return paged_decode_kernel<kU4, HD, ONESHOT>;
     default: return nullptr;
   }
 }
 
-// raise a kernel's dynamic shared-memory limit once per (kernel, size)
-cudaError_t allow_smem(Kernel fn, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+template <bool ONESHOT>
+Kernel pick(int kind, int hd) {
+  switch (hd) {
+    case 32: return pick_kind<ONESHOT, 32>(kind);
+    case 64: return pick_kind<ONESHOT, 64>(kind);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// One-shot kernel (B7). kind: 0 float32, 1 bf16, 2 uint8 8-bit codes, 3
-// uint8 4-bit codes. All pointers are device memory, contiguous, 16-byte
-// aligned (pools); the scale pointers may be null for kinds 0 and 1.
-// row_bytes = hd_store * element size (a multiple of 16); smem_bytes is the
-// dynamic shared memory of its layout (computed by the caller). Launches on
-// `stream`, returns cudaGetLastError() (or the error of setting the
-// shared-memory limit); does not synchronise.
-extern "C" int paged_oneshot_f32(
-    int kind, const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* ctx_lens, void* out, int batch, int heads, int num_kv, int hd,
-    int ps, int pages_per_seq, int num_pages, int row_bytes, int tile_rows,
+// One decode call: the one-shot contract (B7) when `oneshot`, else the
+// online one (B8). kind: 0 float32, 1 bf16, 2 uint8 8-bit codes, 3 uint8
+// 4-bit codes; hd 32 or 64. All pointers are device memory, contiguous,
+// pools 16-byte aligned; the scale pointers may be null for kinds 0 and 1.
+// workspace: float32 (batch, num_kv, splits, heads / num_kv, hd + 2);
+// tickets: int32 (batch, num_kv, ceil(heads / num_kv / 8)), 0 before the
+// first call (every call leaves them at 0). split_rows is a multiple of 64
+// and splits = ceil(pages_per_seq·ps / split_rows). smem_bytes: the ring,
+// the warps' probabilities, step sizes and merge area, a 16-byte flag and
+// the combine's 2 x splits x 8 + 8 floats (computed by the caller).
+// Launches on `stream`, returns cudaGetLastError() (or the error of setting
+// the shared-memory limit); does not synchronise.
+extern "C" int paged_decode_f32(
+    int oneshot, int kind, const void* q, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale,
+    const void* block_tables, const void* ctx_lens, void* out,
+    void* workspace, void* tickets, int batch, int heads, int num_kv, int hd,
+    int ps, int pages_per_seq, int num_pages, int split_rows, int splits,
     float levels, float scale, int smem_bytes, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  Args a{(const float*)q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
-         (const float*)k_scale, (const float*)v_scale,
-         (const int*)block_tables, (const int*)ctx_lens, (float*)out,
-         heads, num_kv, hd, ps, pages_per_seq, num_pages, row_bytes,
-         tile_rows, levels, scale, nullptr, nullptr, 0, 0};
-  Kernel fn = nullptr;
-  switch (kind) {
-    case kF32: fn = paged_oneshot_kernel<kF32>; break;
-    case kBF16: fn = paged_oneshot_kernel<kBF16>; break;
-    case kU8: fn = paged_oneshot_kernel<kU8>; break;
-    case kU4: fn = paged_oneshot_kernel<kU4>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = allow_smem(fn, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(num_kv, batch);
-  fn<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Online kernel (B8): arguments as above, plus the float32 workspace
-// (batch, num_kv, splits, heads / num_kv, hd + 2) and the (batch, num_kv)
-// int32 ticket counters (0 before the first call; every call leaves them
-// at 0), split_rows (a multiple of 64) and splits = ceil(pages_per_seq·ps
-// / split_rows). hd must be 32 or 64 and heads / num_kv at most 8.
-// smem_bytes: the ring, the warps' probabilities, step sizes and merge
-// area, a 16-byte flag and the combine's 2 x splits x 8 + 8 floats.
-extern "C" int paged_online_f32(
-    int kind, const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* ctx_lens, void* out, void* workspace, void* tickets,
-    int batch, int heads, int num_kv, int hd, int ps, int pages_per_seq,
-    int num_pages, int split_rows, int splits, float levels, float scale,
-    int smem_bytes, void* stream) {
-  if (batch <= 0) return (int)cudaSuccess;
-  if (split_rows % kTile || heads / num_kv > kMaxGroups || splits <= 0)
+  if (split_rows % kTile || splits <= 0 || num_kv <= 0 || heads % num_kv)
     return (int)cudaErrorInvalidValue;
+  const int chunks = (heads / num_kv + kMaxGroups - 1) / kMaxGroups;
+  if ((long long)num_kv * chunks > 65535 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  Kernel fn = oneshot ? pick<true>(kind, hd) : pick<false>(kind, hd);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Args a{(const float*)q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
          (const float*)k_scale, (const float*)v_scale,
          (const int*)block_tables, (const int*)ctx_lens, (float*)out,
-         heads, num_kv, hd, ps, pages_per_seq, num_pages, 0, kTile, levels,
-         scale, (float*)workspace, (int*)tickets, split_rows, splits};
-  Kernel fn = nullptr;
-  switch (kind) {
-    case kF32: fn = pick_online<kF32>(hd); break;
-    case kBF16: fn = pick_online<kBF16>(hd); break;
-    case kU8: fn = pick_online<kU8>(hd); break;
-    case kU4: fn = pick_online<kU4>(hd); break;
-    default: break;
+         (float*)workspace, (int*)tickets, heads, num_kv, ps, pages_per_seq,
+         num_pages, split_rows, splits, levels, scale};
+  // dynamic shared memory already allowed, bytes, per kernel
+  static int allowed[2][4][2] = {};
+  int& have = allowed[oneshot ? 1 : 0][kind][hd == 32 ? 0 : 1];
+  if (smem_bytes > have) {
+    if (smem_bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    have = smem_bytes;
   }
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  static int allowed[4][2] = {};    // shared memory already allowed, bytes
-  const int hi = hd == 32 ? 0 : 1;
-  if (smem_bytes > allowed[kind][hi]) {
-    cudaError_t err = allow_smem(fn, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    allowed[kind][hi] = smem_bytes;
-  }
-  dim3 grid(splits, num_kv, batch);
+  dim3 grid(splits, num_kv * chunks, batch);
   fn<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -164,16 +164,16 @@ def stoch_quantize_grouped_fused_tiled(theta, q_hat_prev, uniforms,
     return out
 
 
-# The one-shot kernel keeps its (G, P·ps) float32 logits slab in shared
-# memory, next to q and one K/V tile (``oneshot_smem_bytes``); the online
-# kernel's footprint does not grow with the table. A Hopper block may use at
-# most 227 KB. The one-shot kernel runs while its footprint fits in half of
-# that, so that two blocks still fit on one SM when the batch has more
-# (sequence, KV head) blocks than the card has SMs; past it the online
-# kernel takes over. At tinyllama's G = 8, hd = 64, ps = 16 the switch falls
+# The one-shot contract's first kernel kept its (G, P·ps) float32 logits
+# slab in shared memory, next to q and one K/V tile (``oneshot_smem_bytes``).
+# A Hopper block may use at most 227 KB. The one-shot contract runs while
+# that footprint fits in half of it; past it the online contract takes over.
+# Both now run in one split kernel whose footprint does not grow with the
+# table, but the switch keeps the first design's measure so that the routes
+# stay where they were. At tinyllama's G = 8, hd = 64, ps = 16 it falls
 # between 190 and 191 pages per sequence (3,040 and 3,056 table slots): a
-# 1,024-slot table takes the one-shot kernel (51,456 bytes), a 4,096-slot
-# table the online one (the one-shot kernel would need 149,760).
+# 1,024-slot table takes the one-shot contract (51,456 bytes), a 4,096-slot
+# table the online one (149,760).
 ONESHOT_SMEM_LIMIT = SMEM_PER_BLOCK // 2
 
 
@@ -194,17 +194,19 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
                            k_scale=None, v_scale=None, kv_bits: int = 32):
     """Single-token decode attention through the block table (see
     ``ref.paged_attention_ref``). Unmapped (-1) and out-of-range page ids
-    are clamped into the pool here, as the JAX package's wrapper does;
-    their slots are masked by ``ctx_lens``. q (B, H, hd) -> (B, H, hd)
-    float32; ``kv_bits`` 8 or 4 reads code pools with their scales."""
-    num_pages = k_pages.shape[0]
-    bt = torch.clamp(block_tables.to(torch.int32), 0, num_pages - 1)
+    are clamped into the pool, as the JAX package's wrapper does: here for
+    the plain versions on the CPU, inside the kernel on the card (no extra
+    launch); their slots are masked by ``ctx_lens``. q (B, H, hd) ->
+    (B, H, hd) float32; ``kv_bits`` 8 or 4 reads code pools with their
+    scales."""
     online = paged_attention_online_selected(
-        q.shape[1], k_pages.shape[2], q.shape[2], bt.shape[1],
+        q.shape[1], k_pages.shape[2], q.shape[2], block_tables.shape[1],
         k_pages.shape[1])
+    bt = block_tables.to(torch.int32)
     if q.device.type == "cpu":
         plain = (ref.paged_attention_online_ref if online
                  else ref.paged_attention_ref)
+        bt = torch.clamp(bt, 0, k_pages.shape[0] - 1)
         return plain(q, k_pages, v_pages, bt, ctx_lens, k_scale=k_scale,
                      v_scale=v_scale, kv_bits=kv_bits)
     out = paged_attention_cuda(

@@ -1,18 +1,19 @@
-"""Launch wrappers of the CUDA paged-attention decode kernels
-(csrc/paged_attention.cu): the one-shot softmax kernel (the port of
-``repro.kernels.paged_attention.paged_attention_decode``) and the online
-softmax kernel (``paged_attention_decode_online``), which splits each
-sequence's slots over blocks of ``SPLIT_ROWS`` slots and combines their
-partial softmax results in the same launch.
+"""Launch wrapper of the CUDA paged-attention decode kernel
+(csrc/paged_attention.cu): one split decode with two contracts, the
+one-shot one (the port of ``repro.kernels.paged_attention.
+paged_attention_decode``: the uniform average of V where ctx = 0) and the
+online one (``paged_attention_decode_online``: zeros where ctx = 0). Both
+split a sequence's slots over blocks of ``SPLIT_ROWS`` slots and combine
+their partial softmax results in the same launch.
 
-They take CUDA tensors only; ``kernels.ops.paged_attention_decode`` is the
-entry point the attention layer calls (it clamps the block table, picks
-the variant, counts launches and sends CPU tensors to the plain version in
-``kernels.ref``). The shared-memory layouts of both kernels are computed
-here, and :func:`oneshot_smem_bytes` is what ``ops`` compares with its
-threshold. The online kernel's float32 workspace and ticket counters are
-kept per device across calls (the kernel leaves the counters at 0), so
-calls on one device run in stream order.
+It takes CUDA tensors only; ``kernels.ops.paged_attention_decode`` is the
+entry point the attention layer calls (it picks the contract, counts
+launches and sends CPU tensors to the plain versions in ``kernels.ref``).
+The kernel's shared memory is :func:`online_smem_bytes`;
+:func:`oneshot_smem_bytes`, the first one-shot design's footprint, is what
+``ops`` still compares with its threshold to pick the contract. The float32
+workspace and ticket counters are kept per device across calls (the kernel
+leaves the counters at 0), so calls on one device run in stream order.
 """
 from __future__ import annotations
 
@@ -28,62 +29,59 @@ from repro_torch.kernels import build, ref
 # shared memory one block may use on Hopper (sm_90): 227 KB
 SMEM_PER_BLOCK = 232448
 THREADS = 256
-MAX_OUT_PER_THREAD = 4
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_ELEMS_PER_VEC = (4, 8, 16, 32)          # float32, bf16, 8-bit, 4-bit codes
-# online kernel: 64-slot tiles, 8 rows of each per warp of 8, a 3-stage
-# cp.async ring; at most 8 query heads per KV head; the head dims it is
-# built for. SPLIT_ROWS slots per block (a multiple of TILE), chosen on the
-# card from 64, 128, 256 and 512 (PERF.md, chip_smoke.time_split_rows).
+# 64-slot tiles, 8 rows of each per warp of 8, a 3-stage cp.async ring; at
+# most 8 query heads per block (a KV head with more takes several blocks);
+# the head dims it is built for. SPLIT_ROWS slots per block (a multiple of
+# TILE), chosen on the card (PERF.md, chip_smoke.time_split_rows): from 64,
+# 128, 256 and 512 at the long request's table (online) and from 64, 128 and
+# 256 at the main stream's (one-shot); 128 was fastest at both.
 TILE = 64
 WARPS = THREADS // 32
 STAGES = 3
 MAX_GROUPS = 8
-ONLINE_HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64)
 SPLIT_ROWS = 128
 _levels: Dict[Tuple[int, torch.device], float] = {}
 _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 _SCALES: Dict[int, float] = {}           # 1 / sqrt(hd) in float32, per hd
-_fns: Dict[str, object] = {}
+_decode = None
 
 
-def _fn(name: str):
-    """The C entry ``name`` of the library, with its argument types set
-    (resolved once)."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(build.load("paged_attention"), name)
+def _fn():
+    """The library's C entry, with its argument types set (resolved
+    once)."""
+    global _decode
+    if _decode is None:
+        fn = build.load("paged_attention").paged_decode_f32
         fn.restype = ctypes.c_int
-        ptrs = 10 if name == "paged_online_f32" else 8
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * ptrs
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
-        _fns[name] = fn
-    return fn
-
-
-def tile_rows(page_size: int) -> int:
-    """Rows (token slots) per one-shot tile: whole pages, 64 rows at ps
-    <= 64."""
-    return page_size * max(1, 64 // page_size)
+        _decode = fn
+    return _decode
 
 
 def oneshot_smem_bytes(groups: int, head_dim: int, pages_per_seq: int,
                        page_size: int) -> int:
-    """Dynamic shared memory of the one-shot kernel: q (G, hd), the logits
-    slab (G, P·ps) and one padded K/V tile, all float32."""
-    tr = tile_rows(page_size)
+    """Shared memory of the first one-shot design (one block per (sequence,
+    KV head)): q (G, hd), the logits slab (G, P·ps) and one tile of whole
+    pages (64 rows at ps <= 64) padded to hd + 1, all float32. The kernel
+    now runs in :func:`online_smem_bytes`; ``ops`` keeps this measure for
+    its one-shot/online switch, so that the routes do not move."""
+    tile = page_size * max(1, 64 // page_size)
     return 4 * (groups * head_dim + groups * pages_per_seq * page_size
-                + tr * (head_dim + 1))
+                + tile * (head_dim + 1))
 
 
 def online_smem_bytes(head_dim: int, row_bytes: int, splits: int) -> int:
-    """Dynamic shared memory of the online kernel: the ring of ``STAGES``
-    stages (a tile of raw K and V rows of ``row_bytes`` each and their
-    float32 ranges), each warp's (G, 8) probabilities and 2 x 8 step
-    sizes, the warps' (acc, m, l) for the merge, a 16-byte flag and the
+    """Dynamic shared memory of the split kernel (both contracts): the ring
+    of ``STAGES`` stages (a tile of raw K and V rows of ``row_bytes`` each
+    and their float32 ranges), each warp's (G, 8) probabilities and 2 x 8
+    step sizes, the warps' (acc, m, l) for the merge, a 16-byte flag and the
     combine's (m, l) table of ``splits`` x G entries. Only the table grows
-    with the table width (64 bytes a split)."""
+    with the table width (64 bytes a split). ``ops`` picks the contract
+    with :func:`oneshot_smem_bytes`, not with this."""
     ring = STAGES * (2 * TILE * row_bytes + 2 * TILE * 4)
     rows = TILE // WARPS
     floats = (WARPS * MAX_GROUPS * rows + WARPS * 2 * rows
@@ -93,20 +91,20 @@ def online_smem_bytes(head_dim: int, row_bytes: int, splits: int) -> int:
 
 
 def split_count(pages_per_seq: int, page_size: int, split_rows: int) -> int:
-    """Blocks per (sequence, KV head) of the online kernel: the table's
+    """Blocks per (sequence, KV head) of the split kernel: the table's
     slots in splits of ``split_rows``, from the table width alone."""
     return -(-pages_per_seq * page_size // split_rows)
 
 
 def online_workspace_shape(batch: int, num_kv: int, splits: int,
                            groups: int, head_dim: int) -> Tuple[int, ...]:
-    """The online kernel's float32 partials: per (sequence, KV head,
+    """The split kernel's float32 partials: per (sequence, KV head,
     split, query head) the unnormalized accumulator (hd), the max m and
     the normalizer l."""
     return (batch, num_kv, splits, groups, head_dim + 2)
 
 
-def _online_scratch(device: torch.device, ws_elems: int, tickets: int):
+def _scratch_on(device: torch.device, ws_elems: int, tickets: int):
     """This device's workspace and ticket counters, grown (counters
     zeroed) when a call needs more."""
     have = _scratch.get(device)
@@ -148,11 +146,12 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          k_scale: Optional[torch.Tensor] = None,
                          v_scale: Optional[torch.Tensor] = None,
                          kv_bits: int = 32) -> torch.Tensor:
-    """Launch the one-shot (``online=False``) or online kernel on the
-    current stream; returns the (B, H, hd) float32 output. Same contract
-    as ``ref.paged_attention_ref`` (online: zeros where ctx = 0). The
-    online kernel is one launch of ``split_count`` blocks per (sequence,
-    KV head) of ``SPLIT_ROWS`` slots each."""
+    """Launch the split kernel on the current stream under the one-shot
+    (``online=False``, the contract of ``ref.paged_attention_ref``) or
+    online contract (``ref.paged_attention_online_ref``: zeros where
+    ctx = 0); returns the (B, H, hd) float32 output. One launch of
+    ``split_count`` blocks per (sequence, KV head, 8 query heads). The
+    kernel clamps the table's ids into the pool."""
     if q.dim() != 3 or not q.is_cuda:
         raise ValueError(f"paged_attention: q must be a CUDA (B, H, hd) "
                          f"tensor, got {tuple(q.shape)} on {q.device}")
@@ -193,14 +192,14 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     _check("block_tables", block_tables, (bsz, pages_per_seq), torch.int32,
            index)
     _check("ctx_lens", ctx_lens, (bsz,), torch.int32, index)
-    row_bytes = want_store * k_pages.element_size()
-    epv = _ELEMS_PER_VEC[kind]
-    if row_bytes % 16 or hd % epv or (hd // epv) > 32:
-        raise ValueError(f"paged_attention: head_dim {hd} does not split "
-                         f"into 16-byte vectors of this pool type")
-    if bsz > 65535:
-        raise ValueError(f"paged_attention: at most 65535 sequences, got "
-                         f"{bsz}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: the kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    chunks = -(-groups // MAX_GROUPS)
+    if bsz > 65535 or num_kv * chunks > 65535:
+        raise ValueError(f"paged_attention: at most 65535 sequences and "
+                         f"65535 (KV head, 8 query heads) blocks, got {bsz} "
+                         f"and {num_kv * chunks}")
     if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
         raise ValueError("paged_attention: pools must start on 16-byte "
                          "boundaries")
@@ -208,42 +207,26 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     scale = _SCALES.get(hd)
     if scale is None:
         scale = _SCALES[hd] = 1.0 / float(np.sqrt(np.float32(hd)))
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    out = q.new_empty((bsz, heads, hd))
-    if online:
-        split_rows = SPLIT_ROWS
-        if hd not in ONLINE_HEAD_DIMS or groups > MAX_GROUPS:
-            raise ValueError(
-                f"paged_attention: the online kernel takes head_dim in "
-                f"{ONLINE_HEAD_DIMS} and at most {MAX_GROUPS} query heads "
-                f"per KV head; got {hd} and {groups}")
-        splits = split_count(pages_per_seq, ps, split_rows)
-        smem = online_smem_bytes(hd, row_bytes, splits)
-        ws, tickets = _online_scratch(
-            dev, math.prod(online_workspace_shape(bsz, num_kv, splits,
-                                                  groups, hd)),
-            bsz * num_kv)
-    else:
-        if groups * hd > THREADS * MAX_OUT_PER_THREAD:
-            raise ValueError(f"paged_attention: G*hd = {groups * hd} exceeds"
-                             f" {THREADS * MAX_OUT_PER_THREAD}")
-        smem = oneshot_smem_bytes(groups, hd, pages_per_seq, ps)
+    splits = split_count(pages_per_seq, ps, SPLIT_ROWS)
+    smem = online_smem_bytes(hd, want_store * k_pages.element_size(), splits)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"paged_attention: {smem} bytes of shared memory "
                          f"exceed the {SMEM_PER_BLOCK} a block may use")
-    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if k_scale is not None else None,
-            v_scale.data_ptr() if v_scale is not None else None,
-            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr())
-    if online:
-        err = _fn("paged_online_f32")(
-            kind, *ptrs, ws.data_ptr(), tickets.data_ptr(), bsz, heads,
-            num_kv, hd, ps, pages_per_seq, num_pages, split_rows, splits,
-            levels, scale, smem, stream)
-    else:
-        err = _fn("paged_oneshot_f32")(
-            kind, *ptrs, bsz, heads, num_kv, hd, ps, pages_per_seq,
-            num_pages, row_bytes, tile_rows(ps), levels, scale, smem, stream)
+    ws, tickets = _scratch_on(
+        dev, math.prod(online_workspace_shape(bsz, num_kv, splits, groups,
+                                              hd)),
+        bsz * num_kv * chunks)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    out = q.new_empty((bsz, heads, hd))
+    err = _fn()(
+        int(not online), kind, q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(), bsz, heads, num_kv, hd, ps,
+        pages_per_seq, num_pages, SPLIT_ROWS, splits, levels, scale, smem,
+        stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     return out

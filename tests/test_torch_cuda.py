@@ -461,7 +461,7 @@ def test_paged_attention_kernels_match_plain_on_card(cuda, monkeypatch,
 
 
 def split_edges(pages, page_size):
-    """ctx on and around the online kernel's split boundaries, every one
+    """ctx on and around the split kernel's split boundaries, every one
     live, clipped to the table."""
     from repro_torch.kernels import paged_attention
     rows, full = paged_attention.SPLIT_ROWS, pages * page_size
@@ -474,25 +474,91 @@ def split_edges(pages, page_size):
 @pytest.mark.parametrize("pages", [64, 256])
 @pytest.mark.parametrize("kv_bits,pool_dtype", [
     (32, torch.float32), (32, torch.bfloat16), (8, None), (4, None)])
-def test_online_kernel_at_split_boundaries_on_card(cuda, monkeypatch, pages,
-                                                   kv_bits, pool_dtype):
-    """B8 at tinyllama's heads with all eight sequences live, ctx on and
-    around split boundaries: within 1e-5 of max|V| of its plain version;
-    a second identical call gives the same output bit for bit (the last
-    split to arrive set its ticket counter back to 0)."""
-    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1")
+@pytest.mark.parametrize("online", [True, False])
+def test_online_kernel_at_split_boundaries_on_card(cuda, monkeypatch, online,
+                                                   pages, kv_bits,
+                                                   pool_dtype):
+    """B8 (online) and B7 (one-shot) at tinyllama's heads with all eight
+    sequences live, ctx on and around split boundaries: within 1e-5 of
+    max|V| of their plain versions; a second identical call gives the same
+    output bit for bit (the last split to arrive set its ticket counter
+    back to 0)."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    name = ("paged_attention_decode_online" if online
+            else "paged_attention_decode")
     kw, vmax = paged_inputs(8, 32, 4, 64, 16, pages, kv_bits, seed=9,
                             pool_dtype=pool_dtype or torch.float32,
                             ctx=split_edges(pages, 16))
-    before = ops.launches["paged_attention_decode_online"]
+    before = ops.launches[name]
     got = paged_call(ops.paged_attention_decode, kw, cuda)
     again = paged_call(ops.paged_attention_decode, kw, cuda)
     torch.cuda.synchronize()
-    assert ops.launches["paged_attention_decode_online"] == before + 2
-    want = paged_call(ref.paged_attention_online_ref, kw, cuda)
+    assert ops.launches[name] == before + 2
+    plain = (ref.paged_attention_online_ref if online
+             else ref.paged_attention_ref)
+    want = paged_call(plain, kw, cuda)
     err = float((got - want).abs().max())
     assert err <= 1e-5 * vmax, (err, vmax)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,pool_dtype", [
+    (32, torch.float32), (32, torch.bfloat16), (8, None), (4, None)])
+@pytest.mark.parametrize("shape", ["smoke", "tinyllama"])
+def test_oneshot_kernel_at_ctx_zero_is_the_uniform_average_on_card(
+        cuda, monkeypatch, shape, kv_bits, pool_dtype):
+    """B7 where ctx = 0: the mean of V over every slot of the clamped
+    table (poisoned ids and all), within 1e-5 of max|V|, finite; its
+    neighbours (ctx 1 and the full table) still match the plain version;
+    a repeated call is equal bit for bit."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "0")
+    bsz, heads, num_kv, hd, ps, pps = PAGED_SHAPES[shape]
+    ctx = ([0, 1, 0, pps * ps] + [0] * bsz)[:bsz]
+    kw, vmax = paged_inputs(bsz, heads, num_kv, hd, ps, pps, kv_bits,
+                            seed=11, pool_dtype=pool_dtype or torch.float32,
+                            ctx=ctx)
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    again = paged_call(ops.paged_attention_decode, kw, cuda)
+    want = paged_call(ref.paged_attention_ref, kw, cuda)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-5 * vmax
+    num_pages = kw["k_pages"].shape[0]
+    bt = torch.clamp(kw["block_tables"].long(), 0, num_pages - 1)
+    if kv_bits == 32:
+        v = kw["v_pages"][bt].float()
+    else:
+        v = ref.kv_page_dequantize(kw["v_pages"][bt], kw["v_scale"][bt],
+                                   kv_bits=kv_bits, head_dim=hd)
+    # (B, P, ps, KV, hd) -> per KV head, the mean over all P·ps slots
+    mean = v.reshape(bsz, pps * ps, num_kv, hd).mean(1)
+    uniform = mean.repeat_interleave(heads // num_kv, dim=1)
+    zero = torch.tensor(ctx) == 0
+    err = float((got.cpu()[zero] - uniform[zero]).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,num_kv,hd", [(32, 2, 64), (32, 1, 32),
+                                             (24, 2, 32)])
+@pytest.mark.parametrize("online", [False, True])
+def test_paged_attention_more_query_heads_than_a_block_on_card(
+        cuda, monkeypatch, online, heads, num_kv, hd):
+    """16, 32 and 12 query heads per KV head: each KV head takes several
+    blocks of at most 8 query heads; both contracts match their plain
+    versions to 1e-5 of max|V|, with ctx 0, 1 and the full table."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    kw, vmax = paged_inputs(3, heads, num_kv, hd, 16, 8, 32, seed=13,
+                            pool_dtype=torch.bfloat16)
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    plain = (ref.paged_attention_online_ref if online
+             else ref.paged_attention_ref)
+    want = paged_call(plain, kw, cuda)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
 
 
 @pytest.mark.cuda
@@ -667,7 +733,8 @@ def cell_errors(got, want):
 SLSTM_CASES = [((3, 129, 2, 16), "admitted", torch.float32),
                ((8, 96, 4, 192), "fresh", torch.bfloat16),
                ((1, 64, 4, 192), "admitted", torch.float32),
-               ((9, 33, 4, 64), "carried", torch.bfloat16)]
+               ((9, 33, 4, 64), "carried", torch.bfloat16),
+               ((2, 9, 1, 256), "carried", torch.float32)]
 
 
 @pytest.mark.cuda
@@ -679,12 +746,33 @@ def test_slstm_cell_kernel_matches_plain_on_card(cuda, shape, m0, wx_dtype):
     args = cell_tensors(cell_inputs(shape, m0, sum(shape)), cuda, wx_dtype)
     before = ops.launches["slstm_cell"]
     got = ops.slstm_cell(*args)
-    assert ops.launches["slstm_cell"] == before + 1
+    again = ops.slstm_cell(*args)
+    assert ops.launches["slstm_cell"] == before + 2
     want = ref.slstm_cell_ref(*args)
     torch.cuda.synchronize()
     errs, hmax = cell_errors(got, want)
     assert max(errs) <= 1e-4 * hmax, (errs, hmax)
     assert tuple(got[0].shape) == shape[:2] + (shape[2], shape[3])
+    # a repeated call is equal bit for bit
+    assert all(torch.equal(a, b) for a, b in zip((got[0],) + got[1],
+                                                 (again[0],) + again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 40, 4, 192), (3, 17, 2, 256),
+                                   (5, 21, 3, 64)])
+def test_slstm_cell_row_tiles_agree_bitwise_on_card(cuda, shape):
+    """B9 with 1, 2, 4 and 8 batch rows per cluster (each cluster's rows
+    run the same arithmetic): every output equal bit for bit."""
+    from repro_torch.kernels.slstm_cell import ROW_CHOICES, slstm_cell_cuda
+
+    args = cell_tensors(cell_inputs(shape, "carried", 4), cuda,
+                        torch.bfloat16)
+    outs = [slstm_cell_cuda(*args, rows=rows) for rows in ROW_CHOICES]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(
+            (outs[0][0],) + outs[0][1], (o[0],) + o[1]))
 
 
 @pytest.mark.cuda

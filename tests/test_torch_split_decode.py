@@ -1,16 +1,20 @@
-"""The split decode of the online paged-attention kernel (B8,
-``csrc/paged_attention.cu``) modelled in PyTorch on the CPU, its wrapper's
-pure helpers, and the lockstep engine's padding against the JAX package.
+"""The split decode of the paged-attention kernel (``csrc/paged_attention.cu``,
+both contracts: B8 online and B7 one-shot) modelled in PyTorch on the CPU,
+its wrapper's pure helpers, and the lockstep engine's padding against the
+JAX package.
 
-B8 splits each sequence's slots over blocks of ``split_rows`` slots; in a
-block each of 8 warps keeps an online softmax over its 8 rows of every
-64-row tile; the block merges its warps and the last split to arrive
-merges the splits: ``M = max m_s``, ``out = sum e^(m_s - M) acc_s / sum
-e^(m_s - M) l_s``. :func:`split_decode_model` repeats that arithmetic in
-float32 and must equal ``ref.paged_attention_online_ref`` (the kernel's
-contract) to 1e-6 of max|V| (the same float32 terms summed in another
-order). The kernel itself is held to its plain version on the card
-(``test_torch_cuda.py``).
+The kernel splits each sequence's slots over blocks of ``split_rows``
+slots; in a block each of 8 warps keeps an online softmax over its 8 rows
+of every 64-row tile; the block merges its warps and the last split to
+arrive merges the splits: ``M = max m_s``, ``out = sum e^(m_s - M) acc_s /
+sum e^(m_s - M) l_s``. The two contracts differ only where ctx = 0: the
+online one gives zeros, the one-shot one the uniform average of V over
+every slot of the table (each slot's logit 0, every split live).
+:func:`split_decode_model` repeats that arithmetic in float32 and must
+equal ``ref.paged_attention_online_ref`` or ``ref.paged_attention_ref``
+(the kernel's contracts) to 1e-6 of max|V| (the same float32 terms summed
+in another order). The kernel itself is held to its plain versions on the
+card (``test_torch_cuda.py``).
 
 The lockstep test runs the port's ``LockstepEngine`` and the JAX
 package's on a stream of several waves of mixed prompt lengths, with the
@@ -46,12 +50,15 @@ def _merge(states):
 
 def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
                        split_rows, k_scale=None, v_scale=None,
-                       kv_bits=32):
-    """B8's arithmetic, float32: splits of ``split_rows`` slots up to
-    n_rows = ceil(ctx / ps)·ps (splits past it leave nothing), 64-row tiles,
-    8 rows of each tile per warp with its own online softmax (probabilities
-    past ctx masked to 0), the warps merged per split, the live splits
-    merged per (sequence, KV head); zeros where ctx = 0."""
+                       kv_bits=32, oneshot=False):
+    """The split kernel's arithmetic, float32: splits of ``split_rows``
+    slots up to n_rows = ceil(ctx / ps)·ps (splits past it leave nothing),
+    64-row tiles, 8 rows of each tile per warp with its own online softmax
+    (probabilities past ctx masked to 0), the warps merged per split, the
+    live splits merged per (sequence, KV head). Where ctx = 0: zeros
+    (online), or (``oneshot``) every slot of the table with logit 0, so
+    every split is live, every probability 1 and the merge divides the sum
+    of V by P·ps."""
     bsz, heads, hd = q.shape
     num_pages, ps, num_kv, _ = k_pages.shape
     groups = heads // num_kv
@@ -73,7 +80,9 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
     splits = paged_attention.split_count(pps, ps, split_rows)
     for b in range(bsz):
         ctx = int(ctx_lens[b])
-        n_rows = min(-(-ctx // ps) * ps, pps * ps) if ctx > 0 else 0
+        uniform = oneshot and ctx <= 0
+        n_rows = (pps * ps if uniform
+                  else min(-(-ctx // ps) * ps, pps * ps) if ctx > 0 else 0)
         live = -(-n_rows // split_rows)
         assert live <= splits
         parts = []
@@ -90,9 +99,12 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
                     if r1 <= r0:
                         continue
                     idx = torch.arange(r0, r1)
-                    logit = torch.einsum("kgd,rkd->kgr", qb[b],
-                                         keys[b, idx]) * scale
-                    valid = idx < ctx
+                    if uniform:         # no K read, no q·K
+                        logit = torch.zeros((num_kv, groups, r1 - r0))
+                    else:
+                        logit = torch.einsum("kgd,rkd->kgr", qb[b],
+                                             keys[b, idx]) * scale
+                    valid = (idx < ctx) | uniform
                     logit = torch.where(valid, logit, -1e30)
                     m_new = torch.maximum(m, logit.amax(-1))
                     alpha = torch.exp(m - m_new)
@@ -119,11 +131,14 @@ POOLS = [(32, torch.float32), (32, torch.bfloat16), (8, None), (4, None)]
 @pytest.mark.parametrize("split_rows", [64, 128])
 @pytest.mark.parametrize("kv_bits,pool_dtype", POOLS)
 @pytest.mark.parametrize("heads", sorted(HEADS))
-def test_split_decode_model_equals_online_contract(heads, kv_bits,
+@pytest.mark.parametrize("oneshot", [False, True])
+def test_split_decode_model_equals_online_contract(oneshot, heads, kv_bits,
                                                    pool_dtype, split_rows):
-    """ctx 0, 1 (every later split wholly past ctx), one before, on and one
-    past a split boundary, one short of the table and the full table;
-    slots past ctx poisoned (-1 or ids past the pool)."""
+    """Both contracts (online: zeros at ctx = 0; one-shot: the uniform
+    average over the table there), at ctx 0, 1 (every later split wholly
+    past ctx), one before, on and one past a split boundary, one short of
+    the table and the full table; slots past ctx poisoned (-1 or ids past
+    the pool)."""
     h, kv, hd, ps, pps = HEADS[heads]
     full = pps * ps
     ctx = [0, 1, split_rows - 1, split_rows, split_rows + 1, full - 1, full]
@@ -132,9 +147,14 @@ def test_split_decode_model_equals_online_contract(heads, kv_bits,
     args = [kw.pop(k) for k in ("q", "k_pages", "v_pages", "block_tables",
                                 "ctx_lens")]
     assert int((args[3] < 0).sum()) > 0                  # poisoned slots
-    got = split_decode_model(*args, split_rows=split_rows, **kw)
-    want = ref.paged_attention_online_ref(*args, **kw)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    got = split_decode_model(*args, split_rows=split_rows, oneshot=oneshot,
+                             **kw)
+    if oneshot:
+        want = ref.paged_attention_ref(*args, **kw)
+        assert bool(torch.isfinite(got).all())
+    else:
+        want = ref.paged_attention_online_ref(*args, **kw)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
     err = float((got - want).abs().max())
     assert err <= 1e-6 * vmax, (err, vmax)
 
