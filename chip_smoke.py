@@ -14,8 +14,10 @@ with its time printed:
    ones, and time kernel, plain version and (for the mix) ``torch.matmul``
    with CUDA events and the profiler: the mix and ``torch.matmul`` at the
    convex (64, 2000), the LM trainer's (4, 134,277,912) and a 1,024-worker
-   (1024, 2000) shape (checked there too), and what a ctypes launch pays
-   on the host (an empty call, ``torch.empty``, the stream handle);
+   (1024, 2000) shape (checked there too), ``stoch_quantize`` at (64,
+   2000) and the paper's (24, 50) beside an empty kernel on its grid, and
+   what a ctypes launch pays on the host (an empty call, ``torch.empty``,
+   the stream handle);
 4. paper size: quickstart part 1 (24 workers, synth-linear d=50, p=0.35,
    300 iterations) for ggadmm and cq-ggadmm on the card: distance to the
    optimum below 1e-8, 7200 rounds, and ggadmm's trajectory equal to the
@@ -44,9 +46,10 @@ with its time printed:
 9. ``edge_gather_mix`` (B6) against its plain version, bit for bit, at
    (6, 7), (24, 50), (64, 2000), ``star_graph(257)`` and a 1,024-worker
    p=0.05 graph at d=2000, and the LM trainer's (4, 134,277,912) buffer
-   (S=2), and with a poisoned table; device time, time per call, plain
-   time, bytes bounds, ``torch.sparse.mm`` (CSR) and B2 on the dense
-   adjacency at each;
+   (S=2), and with a poisoned table; the plan's regime and geometry,
+   device time, time per call, plain time, bytes bounds, ``torch.matmul``
+   and ``torch.sparse.mm`` (CSR) over the adjacency and B2 on the dense
+   adjacency, per call, at each;
 10. full-width consensus training of xlstm-125m through
    ``repro_torch.launch.train.main`` with the example's flags (4 workers,
    batch 16, seq 128, 2 local steps, ``--groups leaf``, 3 steps): a finite
@@ -361,27 +364,38 @@ def time_mix(ops, ref, dev):
 
 
 def time_kernels(ops, ref, dev):
-    """Kernel, plain and library times at the main path's full-size
-    shapes, with warm inputs (the main path finds them in L2)."""
+    """Kernel, plain and library times at the main path's shapes, with
+    warm inputs (the main path finds them in L2): B1 at the full size
+    (64, 2000) and the paper's (24, 50), beside an empty kernel on B1's
+    grid through the same ctypes path (the floor no launch goes under)."""
+    from repro_torch.kernels import stoch_quant as sq
+
     gen = torch.Generator(device=dev).manual_seed(0)
-    n, d = FULL_N, FULL_D
-    theta = torch.randn((n, d), generator=gen, device=dev)
-    qprev = torch.randn((n, d), generator=gen, device=dev)
-    unif = torch.rand((n, d), generator=gen, device=dev)
-    qrange = (theta - qprev).abs().amax(dim=1)
-    delta = 2.0 * qrange / 255.0
-    q_args = (theta, qprev, unif, delta, qrange)
-    t = {"ms": time_ms(lambda: ops.stoch_quantize(*q_args)),
-         "plain_ms": time_ms(lambda: ref.stoch_quantize_ref(*q_args)),
-         "library_ms": None,
-         "device_ms": device_ms(lambda: ops.stoch_quantize(*q_args), 50),
-         "bound": bound(4.0 * (4 * n * d + 2 * n),
-                        QUANT_OPS_PER_ELEM * n * d + 2 * n)}
-    log(f"time stoch_quantize: per call {t['ms']:.5f} ms (device only "
-        f"{t['device_ms']} ms), plain {t['plain_ms']:.5f} ms, bound "
-        f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
+    out = None
+    for n, d in ((FULL_N, FULL_D), (24, 50)):
+        theta = torch.randn((n, d), generator=gen, device=dev)
+        qprev = torch.randn((n, d), generator=gen, device=dev)
+        unif = torch.rand((n, d), generator=gen, device=dev)
+        qrange = (theta - qprev).abs().amax(dim=1)
+        delta = 2.0 * qrange / 255.0
+        q_args = (theta, qprev, unif, delta, qrange)
+        t = {"ms": time_ms(lambda: ops.stoch_quantize(*q_args)),
+             "plain_ms": time_ms(lambda: ref.stoch_quantize_ref(*q_args)),
+             "library_ms": None,
+             "device_ms": device_ms(lambda: ops.stoch_quantize(*q_args), 50),
+             "empty_ms": time_ms(lambda: sq.empty_launch(n * d, dev)),
+             "empty_device_ms": device_ms(
+                 lambda: sq.empty_launch(n * d, dev), 50),
+             "bound": bound(4.0 * (4 * n * d + 2 * n),
+                            QUANT_OPS_PER_ELEM * n * d + 2 * n)}
+        log(f"time stoch_quantize ({n}, {d}), {sq.blocks(n * d)} blocks: "
+            f"per call {t['ms']:.5f} ms (device only {t['device_ms']} ms), "
+            f"plain {t['plain_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]}); empty kernel on its grid: per call "
+            f"{t['empty_ms']:.5f} ms, device {t['empty_device_ms']} ms")
+        out = out or t
     launch_floor(dev)
-    return {"stoch_quantize": t, "bipartite_mix": time_mix(ops, ref, dev)}
+    return {"stoch_quantize": out, "bipartite_mix": time_mix(ops, ref, dev)}
 
 
 def paper_size(ops, dev):
@@ -984,6 +998,7 @@ def time_edge(ops, ref, dev):
     dense 0/1 adjacency, the library column, and ``torch.sparse.mm`` with
     a CSR float32 adjacency) and B2 on the dense adjacency. Returns the LM
     shape's numbers, the ones the main path pays."""
+    from repro_torch.kernels import edge_gather_mix as EG
     from repro_torch.kernels.bipartite_mix import bipartite_mix_cuda
 
     out = None
@@ -1001,8 +1016,7 @@ def time_edge(ops, ref, dev):
              "bound": b}
         _, acts = device_times(
             lambda: ops.edge_gather_mix(vals, table, valid), 10)
-        hits = [(c, ms) for k, (c, ms) in acts.items()
-                if "edge_gather_mix" in k]
+        hits = [(c, ms) for k, (c, ms) in acts.items() if "edge_gather" in k]
         t["device_ms"] = (sum(ms for _, ms in hits)
                           / sum(c for c, _ in hits) if hits else None)
         csr = torch.sparse_csr_tensor(
@@ -1035,7 +1049,10 @@ def time_edge(ops, ref, dev):
             + ("the same function" if first is None else
                f"WRONG from column {first} of {d}, not reported") + ")"
             for name, (ms, err, first) in lib.items())
-        log(f"time edge_gather_mix {label} S={table.shape[1]} nnz {nnz}: "
+        p = EG.plan(graph.n, table.shape[1], d, vals.data_ptr() % 16 == 0)
+        log(f"time edge_gather_mix {label} S={table.shape[1]} nnz {nnz} "
+            f"({p.regime}, tile {p.tile}, rows {p.rows}, grid {p.grid}, "
+            f"{p.smem} B): "
             f"device {t['device_ms']} ms, per call {t['ms']:.5f} ms, plain "
             f"{t['plain_ms']:.5f} ms; {lib_txt}, tolerance {lib_tol:.3e}; "
             f"B2 on the dense adjacency {b2:.5f} ms; bound {b[0]:.5f} ms "

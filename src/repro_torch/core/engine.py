@@ -286,8 +286,7 @@ def grouped_quantize_step_unfused(
         cfg.omega, cfg.b0, cfg.b_max)
     fresh = ops.stoch_quantize(
         flat.contiguous(), q.contiguous(), uniforms.contiguous(),
-        torch.clamp_min(delta[:, 0], _EPS).contiguous(),
-        range_new[:, 0].contiguous())
+        delta[:, 0].contiguous(), range_new[:, 0].contiguous())
     out = torch.where(degen, q, fresh).to(q_leaf.dtype).reshape(q_leaf.shape)
     q_hat_new = T.unflatten(state.q_hat, [out])
     new_state = GroupQuantState(

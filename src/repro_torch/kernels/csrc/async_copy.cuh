@@ -19,6 +19,14 @@ __device__ __forceinline__ void copy16(void* smem, const void* gmem) {
                : "memory");
 }
 
+// 16 bytes through L1 as well (rows that other warps of the SM read again)
+__device__ __forceinline__ void copy16_ca(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
 // 16 bytes of which the first src_bytes (0 or 16) are read, the rest
 // zero-filled: a tile's ragged edge without a branch around the copy
 __device__ __forceinline__ void copy16_zfill(void* smem, const void* gmem,

@@ -48,7 +48,7 @@ def stoch_quantize(theta: torch.Tensor, q_hat_prev: torch.Tensor,
                    uniforms: torch.Tensor, delta: torch.Tensor,
                    qrange: torch.Tensor) -> torch.Tensor:
     """Fused quantize -> dequantize, Eqs. 14-20 (see ``ref``)."""
-    if theta.device.type == "cpu":
+    if theta.is_cpu:
         return ref.stoch_quantize_ref(theta, q_hat_prev, uniforms, delta,
                                       qrange)
     out = stoch_quantize_cuda(theta, q_hat_prev, uniforms, delta, qrange)
@@ -71,10 +71,11 @@ def edge_gather_mix(values: torch.Tensor, nbr_table: torch.Tensor,
     """Neighbour sum over the degree-padded CSR table, float32 out (see
     ``ref.edge_gather_mix_ref``). Values of another dtype are cast to
     float32 first, as the JAX kernel does."""
-    values = values.to(torch.float32)
-    if values.device.type == "cpu":
+    if values.is_cpu:
         return ref.edge_gather_mix_ref(values, nbr_table, nbr_valid)
-    out = edge_gather_mix_cuda(values.contiguous(), nbr_table, nbr_valid)
+    if values.dtype != torch.float32 or not values.is_contiguous():
+        values = values.to(torch.float32).contiguous()
+    out = edge_gather_mix_cuda(values, nbr_table, nbr_valid)
     launches["edge_gather_mix"] += 1
     return out
 

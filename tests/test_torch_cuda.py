@@ -9,6 +9,8 @@ has only PyTorch:
 The input builders and tolerance checks are shared with
 ``test_torch_kernels.py``, which holds the plain versions against JAX.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -171,6 +173,32 @@ def test_stoch_quantize_kernel_matches_plain_on_card(cuda, shape):
     assert ops.launches["stoch_quantize"] == before + 1
     want = ref.stoch_quantize_ref(*dev_args)
     assert_quant_close(got.cpu().numpy(), want.cpu().numpy(), *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(70000, 3), (9, 1), (9, 3), (9, 5),
+                                   (24, 50)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stoch_quantize_flat_pass_on_card(cuda, shape, offset):
+    """The flat pass past the first design's 65,535 rows, at widths that
+    put row ends inside a group of 4, and with inputs one float into their
+    buffers (the scalar body)."""
+    n, d = shape
+    args = quant_inputs(n, d, seed=n + d, degenerate_rows=(0, n - 1))
+    dev_args = []
+    for a in args:
+        t = torch.from_numpy(a)
+        if a.ndim == 2:
+            buf = torch.empty(a.size + offset, device=cuda)
+            t = buf[offset:].view(a.shape).copy_(t)
+        dev_args.append(t.to(cuda))
+    assert bool(dev_args[0].data_ptr() % 16) == bool(offset)
+    got = ops.stoch_quantize(*dev_args)
+    torch.cuda.synchronize()
+    want = ref.stoch_quantize_ref(*dev_args)
+    assert_quant_close(got.cpu().numpy(), want.cpu().numpy(), *args)
+    np.testing.assert_array_equal(got.cpu().numpy()[[0, n - 1]],
+                                  args[1][[0, n - 1]])
 
 
 @pytest.mark.cuda
@@ -655,6 +683,95 @@ def test_edge_gather_mix_poisoned_table_and_scalar_path_on_card(cuda):
         assert torch.equal(got.isnan(), want.isnan())
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     assert bool(want.isnan().any())
+
+
+# B6's regimes: (N, table, validity, d, storage offset of V in floats).
+# Each is run as plan() picks it and forced into the other design where
+# that one fits
+def _random_table(n, s, seed):
+    """An (N, S) table of random ids, pad slots (valid 0) out of range."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, n, size=(n, s)).astype(np.int32)
+    valid = (rng.uniform(size=(n, s)) < 0.7).astype(np.float32)
+    table[valid == 0] = rng.integers(-5, n + 5, size=int((valid == 0).sum()))
+    return n, table, valid
+
+
+@functools.lru_cache(maxsize=1)
+def _edge_regime_cases():
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import edge_gather_mix as EG
+
+    def of(g):
+        return (g.n, *g.neighbor_table)
+
+    n_switch = EG.STAGE_CAP // (4 * 16)         # float4 rows, d = 2000
+    return {
+        "full-64": (*of(G.random_bipartite_graph(64, 0.35, seed=0)), 2000,
+                    0),
+        "star-257": (*of(G.star_graph(257)), 2000, 0),
+        "random-1024": (*of(G.random_bipartite_graph(1024, 0.05, seed=0)),
+                        2000, 0),
+        "lm-4-loop": (*of(G.complete_bipartite_graph(2, 2)), 4 * 64 * 4300,
+                      0),
+        "switch-1": (*_random_table(n_switch - 1, 9, 2), 2000, 0),
+        "switch": (*of(G.star_graph(n_switch)), 2000, 0),
+        "switch+1": (*_random_table(n_switch + 1, 9, 3), 2000, 0),
+        "s-1": (*_random_table(500, 1, 5), 2000, 0),
+        "unaligned": (*of(G.random_bipartite_graph(64, 0.35, seed=0)), 2000,
+                      1),
+        "n-70000": (*_random_table(70000, 3, 4), 3, 0),
+        "weights": (*_weighted(_random_table(64, 27, 6)), 2000, 0),
+    }
+
+
+def _weighted(case):
+    """Weights other than 0 and 1 (the kernels' general product-then-add
+    walk; 0/1 weights take one fmaf a slot)."""
+    n, table, valid = case
+    pick = np.array([0.0, 0.37, 1.0, -2.5], np.float32)
+    return n, table, pick[np.arange(valid.size).reshape(valid.shape) % 4]
+
+
+EDGE_REGIMES = ["full-64", "star-257", "random-1024", "lm-4-loop",
+                "switch-1", "switch", "switch+1", "s-1", "unaligned",
+                "n-70000", "weights"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_REGIMES)
+def test_edge_gather_mix_regimes_match_plain_bitwise_on_card(cuda, name):
+    """Bit for bit with the plain version through the entry point (the
+    plan's regime), and in each design forced where it fits: S = 1, a V
+    view one float into its buffer (scalar units), N past 65,535."""
+    from repro_torch.kernels import edge_gather_mix as EG
+    n, table, valid, d, offset = _edge_regime_cases()[name]
+    table, valid = torch.from_numpy(table).to(cuda), torch.from_numpy(
+        valid).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    buf = torch.randn(n * d + offset, generator=gen, device=cuda)
+    vals = buf[offset:].view(n, d)
+    assert bool(vals.data_ptr() % 16) == bool(offset)
+    want = ref.edge_gather_mix_ref(vals, table, valid)
+    before = ops.launches["edge_gather_mix"]
+    got = ops.edge_gather_mix(vals, table, valid)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_gather_mix"] == before + 1
+    assert torch.equal(got, want)
+    s = table.shape[1]
+    picked = EG.plan(n, s, d, not offset)
+    if name == "s-1":
+        assert s == 1
+    for regime in ("staged", "gather"):
+        try:
+            p = EG.plan(n, s, d, not offset, regime)
+        except ValueError:
+            assert picked.regime == "gather"    # too large to stage
+            continue
+        out = torch.full_like(vals, float("nan"))
+        EG.launch(vals, table, valid, out, p)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), regime
 
 
 @pytest.mark.cuda
