@@ -57,7 +57,7 @@ with its time printed:
    fused quantize and 3 mix launches per step;
    s/step, peak device memory, and the top device activities of one more
    step from torch.profiler;
-11. the slice's main path: the same training with ``--mix-backend sparse
+11. the same training with ``--mix-backend sparse
    --fleet --fleet-participation 0.75 --fleet-staleness 2 --fleet-churn
    2:1:1`` for 4 rounds: a finite loss every round, the churn applied at
    round 2, dark workers charged 0 bits, exactly 3 B6 and 2 fused
@@ -71,11 +71,12 @@ with its time printed:
 14. the paged-attention decode kernel under its two contracts (B7
    one-shot, B8 online softmax) against their plain versions, and B8
    against B7, to 1e-5 of max|V|, at the smoke model's heads and at
-   tinyllama's (H 32, KV 4, hd 64, ps 16, B 8, tables of 64 and 256 pages,
-   ctx 0 to 4096, poisoned table slots, every sequence on or around a split
-   boundary), with bf16, 8-bit and 4-bit pools; B7 at ctx 0 against the
-   uniform average of V; every call repeated, equal bit for bit; kernel,
-   plain and SDPA times at the shapes the serving path gives them; B8 at
+   tinyllama's (H 32, KV 4, hd 64, ps 16, B 8, tables of 64, 84 and 256
+   pages, ctx 0 to 4096, poisoned table slots, every sequence on or around
+   a split boundary), with bf16, float32, 8-bit and 4-bit pools; B7 at
+   ctx 0 against the uniform average of V; every call repeated, equal bit
+   for bit; kernel, plain and SDPA times at the shapes the serving path
+   gives them (B7 also at the 84-page table, float32 pools); B8 at
    64, 128, 256 and 512 slots per split, B7 at 64, 128 and 256;
 15. serving tinyllama-1.1b at full width (random float32 weights from
    seed 0, bf16 activations) through the paged scheduler: 16 greedy
@@ -107,7 +108,30 @@ with its time printed:
    admission zeroes the stabilizer m, as in the JAX package), and the
    float32 stream once more with m set to -1e30 at each admission held
    to the lockstep engine (every request equal, or parting at a
-   near-tie); one decode tick and one prefill chunk profiled.
+   near-tie); one decode tick and one prefill chunk profiled;
+18. the FSDP-Adam baseline: ``repro_torch.launch.train.main`` with
+   ``--arch tinyllama-1.1b --mode fsdp --batch 8 --seq 512 --lr 1e-3
+   --steps 5`` at full width: a finite loss every step, the last below
+   step 0's, no kernel of the port launched; s/step, peak device memory,
+   one more step profiled;
+19. production-load serving of tinyllama-1.1b at full width (random
+   float32 weights from seed 0, bf16 activations, float32 pools): first
+   the card case ``test_paged_attention_on_aliased_and_forked_pages_on_card``
+   (B7 and B8 on 84-page block tables whose rows share pages and on a
+   forked page) in a child pytest; then phase 15's eight lengths behind one 512-token
+   system prompt, the list served twice verbatim (16 requests, 128 new
+   tokens, ``max_seqs`` 8, 84-page tables): (a) the reservation FIFO, (b)
+   with prefix sharing, (c) watermark admission with recompute
+   preemption on a 336-page pool (priorities 0/1 alternating), (d) the
+   same with swap, (e) sharing, recompute and a defrag every 32 ticks;
+   (a) and (b) again in float32; eight requests of (b) through the
+   ``AsyncServer``. Gates: 0 pages in use after every run, an empty swap
+   directory after (d), 22 B7 launches per decode tick, sharing hits and
+   a lower page peak in (b), preemptions in (c)-(e), every run equal to
+   (a) or parting only at a near-tie (the float32 pair at a top-2 gap <=
+   1e-3), the AsyncServer equal to ``Scheduler.run`` bit for bit; each
+   run's decode tick, tokens/s, TTFT with its queueing part, ITL and
+   paging counters printed.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -122,6 +146,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1285,8 +1310,9 @@ LONG_PROMPT, LONG_NEW, LONG_PAGES = 3968, 32, 256
 GAP_TOL = 1e-3
 TOP_K = 8        # logits kept per generated position for the comparison
 # (B, H, KV, hd, ps, P) and ctx lens of the paged-attention checks: the
-# smoke model's heads; tinyllama's with the main stream's table (64 pages)
-# and with the long request's (256 pages); poisoned slots past ctx
+# smoke model's heads; tinyllama's with the main stream's table (64 pages),
+# the production-load stream's (84 pages: 11 splits of 128 slots, the last
+# half filled) and the long request's (256 pages); poisoned slots past ctx
 PAGED_CHECKS = {
     "smoke": ((3, 8, 2, 32, 4, 16), (0, 1, 37)),
     "tinyllama P=64": ((8, 32, 4, 64, 16, 64),
@@ -1301,12 +1327,20 @@ PAGED_CHECKS = {
     "tinyllama P=64 split edges": ((8, 32, 4, 64, 16, 64),
                                    (127, 128, 129, 255, 256, 257, 513,
                                     1023)),
+    # the load stream's contexts (529 to 1,340 of 1,344 slots), on and
+    # around the last full split's edge
+    "tinyllama P=84 load": ((8, 32, 4, 64, 16, 84),
+                            (0, 529, 1024, 1212, 1279, 1280, 1281, 1340)),
 }
+# (kv_bits, dtype of a 32-bit pool) of every paged check
+PAGED_POOLS = ((32, torch.bfloat16), (32, torch.float32), (8, None),
+               (4, None))
 
 
-def paged_inputs(dev, shape, ctx, kv_bits, seed):
-    """Decode inputs on the card from a seeded generator: q (B, H, hd)
-    float32; K/V pools of B*P+3 pages as bf16 values (kv_bits 32) or as
+def paged_inputs(dev, shape, ctx, kv_bits, seed,
+                 pool_dtype=torch.bfloat16):
+    """Decode inputs on the card from a seeded generator: q (B, H, hd) float32;
+    K/V pools of B*P+3 pages as ``pool_dtype`` values (kv_bits 32) or as
     ``kv_page_quantize`` codes with their ranges; a table of distinct pages
     whose slots past ctx are poisoned (-1, or ids past the pool). Returns
     (q, keyword arguments, max |V| as the kernels read it)."""
@@ -1328,7 +1362,7 @@ def paged_inputs(dev, shape, ctx, kv_bits, seed):
     bt = torch.where(lidx >= used, poison, bt).to(torch.int32).contiguous()
     kw = dict(block_tables=bt, ctx_lens=ctx, kv_bits=kv_bits)
     if kv_bits == 32:
-        kw.update(k_pages=k.to(torch.bfloat16), v_pages=v.to(torch.bfloat16))
+        kw.update(k_pages=k.to(pool_dtype), v_pages=v.to(pool_dtype))
         vmax = float(kw["v_pages"].float().abs().max())
     else:
         kc, kr = ref.kv_page_quantize(k, kv_bits=kv_bits)
@@ -1371,20 +1405,23 @@ def uniform_average(ref, kw, shape):
 
 
 def check_paged_parity(ref, dev):
-    """B7 (the one-shot contract) and B8 (online) against their plain
-    versions, and B8 against B7 where ctx > 0, to 1e-5 of max|V|, at every
-    shape and kv_bits 32 (bf16 pools), 8 and 4; B7 where ctx = 0 against
-    the uniform average of V over the table (as ``uniform_average``
-    computes it, to the same tolerance); a second call of each equal bit
-    for bit (the ticket counters were reset). The kernels get the poisoned
-    table as it is (they clamp it)."""
+    """B7 (the one-shot contract) and B8 (online) against their plain versions,
+    and B8 against B7 where ctx > 0, to 1e-5 of max|V|, at every shape and
+    kv_bits 32 (bf16 and float32 pools), 8 and 4; B7 where ctx = 0 against
+    the uniform average of V over the table (as ``uniform_average`` computes
+    it, to the same tolerance); a second call of each equal bit for bit (the
+    ticket counters were reset). The kernels get the poisoned table as it is
+    (they clamp it)."""
     errs = {"paged_attention_decode": 0.0,
             "paged_attention_decode_online": 0.0}
     seed = 0
     for label, (shape, ctx) in PAGED_CHECKS.items():
-        for bits in (32, 8, 4):
+        for bits, pool_dtype in PAGED_POOLS:
             seed += 1
-            q, kw, vmax = paged_inputs(dev, shape, ctx, bits, seed)
+            pools = (str(pool_dtype).removeprefix("torch.") + " pools"
+                     if pool_dtype else "code pools")
+            q, kw, vmax = paged_inputs(dev, shape, ctx, bits, seed,
+                                       pool_dtype)
             got = {o: paged_kernel(q, kw, o) for o in (False, True)}
             again = {o: paged_kernel(q, kw, o) for o in (False, True)}
             torch.cuda.synchronize()
@@ -1395,32 +1432,33 @@ def check_paged_parity(ref, dev):
                 err = float((got[online] - paged_plain(ref, q, kw, online)
                              ).abs().max())
                 if not err <= 1e-5 * vmax:
-                    raise AssertionError(f"{name} {label} kv_bits {bits}: "
-                                         f"max |err| {err:.3e} > 1e-5 x "
-                                         f"{vmax:.3f}")
+                    raise AssertionError(f"{name} {label} kv_bits {bits} "
+                                         f"{pools}: max |err| {err:.3e} > "
+                                         f"1e-5 x {vmax:.3f}")
                 errs[name] = max(errs[name], err)
                 line.append(f"{name} {err:.3e}")
             live = kw["ctx_lens"] > 0
             cross = float((got[True][live] - got[False][live]).abs().max())
             if not cross <= 1e-5 * vmax:
-                raise AssertionError(f"B8 vs B7 {label} kv_bits {bits}: "
-                                     f"{cross:.3e}")
+                raise AssertionError(f"B8 vs B7 {label} kv_bits {bits} "
+                                     f"{pools}: {cross:.3e}")
             assert bool((got[True][~live] == 0).all()), "B8 ctx 0 not zero"
             if bool((~live).any()):
                 uni = float((got[False][~live] - uniform_average(
                     ref, kw, shape)[~live]).abs().max())
                 if not uni <= 1e-5 * vmax:
-                    raise AssertionError(f"B7 ctx 0 {label} kv_bits {bits}: "
-                                         f"{uni:.3e} from the average")
+                    raise AssertionError(f"B7 ctx 0 {label} kv_bits "
+                                         f"{bits} {pools}: {uni:.3e} from "
+                                         f"the average")
                 line.append(f"B7 at ctx 0 vs the uniform average {uni:.3e}")
-            log(f"parity paged {label} kv_bits {bits}: max |err| "
-                f"{', '.join(line)}, B8 vs B7 {cross:.3e} (max|V| "
+            log(f"parity paged {label} kv_bits {bits} {pools}: max "
+                f"|err| {', '.join(line)}, B8 vs B7 {cross:.3e} (max|V| "
                 f"{vmax:.3f}); second calls equal bit for bit")
             del q, kw, got, again
     return errs
 
 
-def paged_bound(shape, ctx, kv_bits, online):
+def paged_bound(shape, ctx, kv_bits, online, pool_bytes=2):
     """Least time for one call: the K/V entries (and ranges) of the pages
     up to ctx (where ctx = 0: all P pages for the one-shot kernel's uniform
     average, none for the online kernel), q, out, table and ctx, each read
@@ -1429,7 +1467,7 @@ def paged_bound(shape, ctx, kv_bits, online):
     bsz, heads, num_kv, hd, ps, pps = shape
     slots = sum((-(-c // ps) if c else (0 if online else pps)) * ps
                 for c in ctx)
-    entry = {32: 2 * hd, 8: hd + 4, 4: hd // 2 + 4}[kv_bits]
+    entry = {32: pool_bytes * hd, 8: hd + 4, 4: hd // 2 + 4}[kv_bits]
     n_bytes = (2 * slots * num_kv * entry + 2 * 4 * bsz * heads * hd
                + 4 * bsz * pps + 4 * bsz)
     return bound(n_bytes, 4.0 * heads * hd * slots)
@@ -1439,28 +1477,36 @@ def time_paged(ref, dev):
     """Kernel, plain and library times of B7 and B8 at the shapes the
     serving path gives them (bf16 pools): B7 at the main stream's table
     with its mid-decode contexts, B8 at the long request's table with one
-    sequence at ~4000 tokens; also each at the other's shape, and at
-    kv_bits 8 and 4 (printed only)."""
+    sequence at ~4000 tokens; also each at the other's shape, at kv_bits 8
+    and 4, and B7 at the production-load stream's table with float32
+    pools and its mid-decode contexts (printed only)."""
     import torch.nn.functional as F
 
     b7_ctx = tuple(n + SERVE_NEW // 2 for n in SERVE_LENS)
     b8_ctx = (LONG_PROMPT + LONG_NEW // 2,) + (0,) * 7
+    load_ctx = tuple(LOAD_PREFIX + n + SERVE_NEW // 2 for n in SERVE_LENS)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = {
-        "paged_attention_decode": ((8, 32, 4, 64, 16, 64), b7_ctx, False),
+        "paged_attention_decode": ((8, 32, 4, 64, 16, 64), b7_ctx, False,
+                                   bf16),
         "paged_attention_decode_online": ((8, 32, 4, 64, 16, 256), b8_ctx,
-                                          True),
+                                          True, bf16),
     }
     extra = {
-        "B8 at B7's shape": ((8, 32, 4, 64, 16, 64), b7_ctx, True),
-        "B7 at B8's shape": ((8, 32, 4, 64, 16, 256), b8_ctx, False),
-        "B7 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, False),
-        "B8 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, True),
+        "B8 at B7's shape": ((8, 32, 4, 64, 16, 64), b7_ctx, True, bf16),
+        "B7 at B8's shape": ((8, 32, 4, 64, 16, 256), b8_ctx, False, bf16),
+        "B7 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, False,
+                                bf16),
+        "B8 P=256, 8 x ~4000": ((8, 32, 4, 64, 16, 256), (4000,) * 8, True,
+                                bf16),
+        "B7 P=84 load, float32 pools": ((8, 32, 4, 64, 16, LOAD_PPS),
+                                        load_ctx, False, f32),
     }
     out = {}
-    for label, (shape, ctx, online) in {**cases, **extra}.items():
+    for label, (shape, ctx, online, pool) in {**cases, **extra}.items():
         for bits in ((32, 8, 4) if label in cases else (32,)):
-            q, kw, _ = paged_inputs(dev, shape, ctx, bits, 50)
-            b = paged_bound(shape, ctx, bits, online)
+            q, kw, _ = paged_inputs(dev, shape, ctx, bits, 50, pool)
+            b = paged_bound(shape, ctx, bits, online, pool.itemsize)
             t = {"ms": time_ms(lambda: paged_kernel(q, kw, online), 50, 5),
                  "plain_ms": time_ms(lambda: paged_plain(ref, q, kw, online),
                                      3, 3),
@@ -1469,7 +1515,7 @@ def time_paged(ref, dev):
             t["device_ms"] = device_ms(lambda: paged_kernel(q, kw, online))
             if bits == 32:
                 # the same function after the gather: SDPA over contiguous
-                # bf16 K/V of the whole table, masked by ctx
+                # K/V of the whole table in the pool's dtype, masked by ctx
                 bsz, heads, num_kv, hd, ps, pps = shape
                 bt = torch.clamp(kw["block_tables"].long(), 0,
                                  kw["k_pages"].shape[0] - 1)
@@ -1479,7 +1525,7 @@ def time_paged(ref, dev):
                     return g.permute(0, 2, 1, 3).contiguous()
 
                 kg, vg = gather(kw["k_pages"]), gather(kw["v_pages"])
-                qb = q.to(torch.bfloat16)[:, :, None, :]
+                qb = q.to(pool)[:, :, None, :]
                 mask = (torch.arange(pps * ps, device=dev)[None]
                         < kw["ctx_lens"][:, None])[:, None, None, :]
                 t["library_ms"] = time_ms(
@@ -1621,12 +1667,14 @@ def compare_with_lockstep(name, cfg, params, dev, prompts, new, sched, outs,
 
 
 def serve_stream(sched_cls, cfg, params, dev, prompts, new, scfg, ops,
-                 record_top=0):
-    """Serve ``prompts`` through a fresh scheduler with the kernel counts
-    and the peak-memory mark set just before; returns (scheduler, outputs
-    by request, launches, wall seconds)."""
+                 record_top=0, priorities=None):
+    """Serve ``prompts`` (request i at ``priorities[i]``, default 0)
+    through a fresh scheduler with the kernel counts and the peak-memory
+    mark set just before; returns (scheduler, outputs by request,
+    launches, wall seconds)."""
     sched = sched_cls(cfg, params, scfg, device=dev, record_top=record_top)
-    rids = [sched.submit(p, new) for p in prompts]
+    rids = [sched.submit(p, new, priority=0 if priorities is None
+                         else priorities[i]) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1670,8 +1718,8 @@ def serve_long(ops, dev, cfg, params):
     log(f"serve long request: prompt {LONG_PROMPT} + {LONG_NEW} tokens "
         f"(ctx up to {LONG_PROMPT + LONG_NEW}), table {LONG_PAGES} pages: "
         f"variant {variant} ran, {s3.decode_steps} decode ticks (median "
-        f"{np.median(s3.decode_step_s) * 1e3:.3f} ms), prefill "
-        f"{s3.prefill_chunks} chunks in {np.sum(s3.prefill_chunk_s):.2f} s, "
+        f"{np.median(list(s3.decode_step_s)) * 1e3:.3f} ms), prefill "
+        f"{s3.prefill_chunks} chunks in {np.sum(list(s3.prefill_chunk_s)):.2f} s, "
         f"{w3:.2f} s wall, peak device memory {peak3:.2f} GB, final pages "
         f"0")
     return l3
@@ -1709,8 +1757,8 @@ def serve_full_width(ops, dev):
     want = {k: 0 for k in ops.KERNELS}
     want["paged_attention_decode"] = cfg.num_layers * sched.decode_steps
     assert launches == want, (launches, sched.decode_steps)
-    ticks = np.asarray(sched.decode_step_s) * 1e3
-    pre = float(np.sum(sched.prefill_chunk_s))
+    ticks = np.asarray(list(sched.decode_step_s)) * 1e3
+    pre = float(np.sum(list(sched.prefill_chunk_s)))
     log(f"serve paged stream: {wall:.2f} s wall, {sched.steps} ticks, "
         f"{sched.decode_steps} decode ticks (median {np.median(ticks):.3f} ms"
         f", mean {ticks.mean():.3f} ms, p90 {np.percentile(ticks, 90):.3f} "
@@ -1738,7 +1786,7 @@ def serve_full_width(ops, dev):
         record_top=TOP_K)
     assert l32["paged_attention_decode"] == cfg.num_layers * s32.decode_steps
     log(f"serve float32 stream: {w32:.2f} s wall, {s32.decode_steps} decode "
-        f"ticks (median {np.median(s32.decode_step_s) * 1e3:.3f} ms)")
+        f"ticks (median {np.median(list(s32.decode_step_s)) * 1e3:.3f} ms)")
     compare_with_lockstep("serve float32", cfg32, params, dev, prompts,
                           SERVE_NEW, s32, outs32, 2, torch.float32)
     del s32
@@ -1756,7 +1804,7 @@ def serve_full_width(ops, dev):
                     for i, a in enumerate(outs2))
         log(f"serve kv_bits {bits}: {SHORT_REQUESTS} x {SHORT_NEW} tokens in "
             f"{w2:.2f} s, {s2.decode_steps} decode ticks (median "
-            f"{np.median(s2.decode_step_s) * 1e3:.3f} ms), page bytes "
+            f"{np.median(list(s2.decode_step_s)) * 1e3:.3f} ms), page bytes "
             f"{paging.cache_page_bytes(s2.cache)}, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, final pages "
             f"0, {agree} of "
@@ -2084,8 +2132,8 @@ def serve_xlstm_full_width(ops, dev):
         assert l1 == want, (l1, sched.prefill_chunks)
         if launches is None:
             launches = l1
-        ticks = np.asarray(sched.decode_step_s) * 1e3
-        pre = float(np.sum(sched.prefill_chunk_s))
+        ticks = np.asarray(list(sched.decode_step_s)) * 1e3
+        pre = float(np.sum(list(sched.prefill_chunk_s)))
         log(f"serve xlstm {dtype} stream: {wall:.2f} s wall, {sched.steps} "
             f"ticks, {sched.decode_steps} decode ticks (median "
             f"{np.median(ticks):.3f} ms, p90 {np.percentile(ticks, 90):.3f} "
@@ -2165,6 +2213,258 @@ def serve_xlstm_full_width(ops, dev):
     return launches
 
 
+# the FSDP-Adam baseline: tinyllama-1.1b at full width (arXiv:2401.02385)
+FSDP_STEPS = 5
+FSDP_FLAGS = ["--arch", "tinyllama-1.1b", "--mode", "fsdp", "--batch", "8",
+              "--seq", "512", "--lr", "1e-3", "--steps", str(FSDP_STEPS),
+              "--log-every", "1"]
+
+
+def profile_busy(name, fn, top=10):
+    """One call of ``fn`` under the profiler: its wall, device-busy share
+    and top device activities."""
+    wall_ms, acts = device_times(fn)
+    busy_ms = sum(t for _, t in acts.values())
+    log(f"profile {name}: wall {wall_ms:.1f} ms, device activities "
+        f"{busy_ms:.1f} ms ({100.0 * busy_ms / wall_ms:.1f}% of wall), "
+        f"{sum(c for c, _ in acts.values())} device activities")
+    for key, (c, t) in sorted(acts.items(), key=lambda r: -r[1][1])[:top]:
+        log(f"profile   {t:10.3f} ms  x{c:<6d} {key[:80]}")
+
+
+def fsdp_full_width(ops, dev):
+    """Phase 18: the FSDP-Adam baseline on tinyllama-1.1b at full width
+    through the trainer's entry point: a finite loss every step, the last
+    below step 0's, no kernel of the port launched (its products are
+    torch.matmul); s/step, peak memory, one more step profiled."""
+    from repro_torch.configs import base
+    from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(FSDP_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    hist = out["history"]
+    assert len(hist) == FSDP_STEPS and np.isfinite(hist).all(), hist
+    assert hist[-1] < hist[0], hist
+    assert not any(launches.values()), launches
+    secs = out["step_seconds"]
+    log(f"fsdp tinyllama-1.1b batch 8 x seq 512, AdamW lr 1e-3: loss "
+        f"{' -> '.join(f'{x:.4f}' for x in hist)}; s/step "
+        f"{', '.join(f'{x:.3f}' for x in secs)} (median after step 0 "
+        f"{statistics.median(secs[1:]):.3f}; wall {wall:.1f} s with init); "
+        f"peak device memory {out['peak_device_bytes'] / 1e9:.2f} GB; "
+        f"launches of the port's kernels {sum(launches.values())}")
+    args = train.build_parser().parse_args(FSDP_FLAGS)
+    cfg = base.get_config(args.arch)
+    step = train.fsdp_step(cfg, AdamWConfig(lr=args.lr))
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, args.seq,
+                                         seed=args.seed))
+    batch = model_batch(cfg, data.batch(FSDP_STEPS, args.batch), dev)
+    holder = {"p": out["params"], "o": out["opt"]}
+    del out
+
+    def one_step():
+        holder["p"], holder["o"], _ = step(holder["p"], holder["o"], batch)
+
+    profile_busy("1 fsdp step (tinyllama-1.1b, 8 x 512)", one_step)
+    holder.clear()
+    torch.cuda.empty_cache()
+
+
+# production-load serving of tinyllama-1.1b at full width: phase 15's
+# lengths behind one 512-token system prompt, the list served twice
+# verbatim (four duplicates are page-aligned: 608, 640, 896, 1,024 tokens)
+LOAD_PREFIX, LOAD_REPEAT, LOAD_PPS, LOAD_DEFRAG = 512, 2, 84, 32
+LOAD_ASYNC, LOAD_ASYNC_NEW = 8, 32
+
+
+def load_run(name, cfg, params, dev, prompts, scfg, ops, priorities=None):
+    """Serve ``prompts`` (``SERVE_NEW`` tokens each) through a fresh
+    scheduler with the counts and the peak mark set just before: 0 pages
+    in use after, every decode tick through B7 (22 launches a tick).
+    Prints the run's latency and paging numbers; returns (scheduler,
+    outputs, launches)."""
+    from repro_torch.serving.scheduler import Scheduler
+
+    sched, outs, launches, wall = serve_stream(
+        Scheduler, cfg, params, dev, prompts, SERVE_NEW, scfg, ops,
+        record_top=TOP_K, priorities=priorities)
+    want = {k: 0 for k in ops.KERNELS}
+    want["paged_attention_decode"] = cfg.num_layers * sched.decode_steps
+    assert launches == want, (name, launches, sched.decode_steps)
+    ticks = np.asarray(list(sched.decode_step_s)) * 1e3
+    itl = np.asarray(list(sched.itl_s)) * 1e3
+    ttft = np.asarray(list(sched.ttft_s.values())) * 1e3
+    queue = np.asarray(list(sched.ttft_queue_s.values())) * 1e3
+    log(f"load {name} ({scfg.cache_dtype} pools): {wall:.2f} s wall, "
+        f"{sched.steps} ticks, "
+        f"{sched.decode_steps} decode ticks (median "
+        f"{np.median(ticks):.3f} ms, p90 {np.percentile(ticks, 90):.3f} ms)"
+        f", {len(prompts) * SERVE_NEW / wall:.1f} generated tokens/s end to "
+        f"end, {sched.decode_tokens / (ticks.sum() / 1e3):.1f} decode "
+        f"tokens/s; TTFT p50 {np.median(ttft):.1f} ms (queueing "
+        f"{np.median(queue):.1f} ms); ITL p50 {np.median(itl):.3f} ms, p99 "
+        f"{np.percentile(itl, 99):.3f} ms; prefill {sched.prefill_chunks} "
+        f"chunks; shared_page_hits {sched.shared_page_hits}, cow_forks "
+        f"{sched.cow_forks}, preemptions {sched.preemptions}, "
+        f"forced_preemptions {sched.forced_preemptions}, "
+        f"pages_alloc_events {sched.pages_alloc_events}, peak pages "
+        f"{sched.peak_pages_in_use} of {scfg.num_pages}, final 0; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return sched, outs, launches
+
+
+def load_streams(sched, outs):
+    """Each request's (tokens, (top-k values, top-k ids)) by submission
+    index (request ids of a fresh scheduler are 0, 1, ...)."""
+    assert sorted(sched.top) == list(range(len(outs)))
+    return {r: (outs[r], (np.stack([v for v, _ in sched.top[r]]),
+                          np.stack([t for _, t in sched.top[r]])))
+            for r in range(len(outs))}
+
+
+def serve_production_load(ops, dev):
+    """Phase 19: the production-load stream through the port's scheduler
+    (prefix sharing, watermark admission, recompute and swap preemption,
+    defrag, the AsyncServer), each run held against the reservation FIFO
+    reference (a); B7 on every decode tick over aliased and forked pages.
+    Returns B7's launches over run (b)."""
+    import asyncio
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.serving.scheduler import (AsyncServer, Scheduler,
+                                               ServeConfig)
+
+    cfg = base.get_config("tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = serve.make_prompts(cfg, list(SERVE_LENS), 0,
+                                 prefix_len=LOAD_PREFIX) * LOAD_REPEAT
+    lens = [len(p) for p in prompts]
+    assert max(lens) + SERVE_NEW <= LOAD_PPS * 16
+    log(f"load tinyllama-1.1b: {len(prompts)} requests behind a "
+        f"{LOAD_PREFIX}-token system prompt, lengths {lens}, {SERVE_NEW} "
+        f"new tokens each; page-aligned duplicates "
+        f"{sorted({n for n in lens if n % 16 == 0})}")
+    geom = dict(max_seqs=8, page_size=16, pages_per_seq=LOAD_PPS,
+                prefill_chunk=64, kv_bits=32, cache_dtype="float32")
+    roomy = 2 * geom["max_seqs"] * LOAD_PPS
+    tight = 4 * LOAD_PPS
+    prio = [i % 2 for i in range(len(prompts))]
+    runs = {
+        "(a) reservation FIFO": (dict(num_pages=roomy), None),
+        "(b) + share_prefix": (dict(num_pages=roomy, share_prefix=True),
+                               None),
+        "(c) preempt recompute": (dict(num_pages=tight, preempt=True,
+                                       decode_watermark=2), prio),
+        "(d) preempt swap": (dict(num_pages=tight, preempt=True,
+                                  decode_watermark=2, preempt_mode="swap"),
+                             prio),
+        "(e) share + preempt + defrag": (dict(
+            num_pages=tight, preempt=True, decode_watermark=2,
+            share_prefix=True, defrag_every=LOAD_DEFRAG), prio),
+    }
+    # each run's counters are kept, not its scheduler: its pools are freed
+    # before the next run, whose peak device memory is then its own
+    got, scheds, b7 = {}, {}, 0
+    for name, (kw, pr) in runs.items():
+        sched, outs, launches = load_run(name, cfg, params, dev, prompts,
+                                         ServeConfig(**geom, **kw), ops, pr)
+        got[name] = load_streams(sched, outs)
+        scheds[name] = types.SimpleNamespace(**{
+            k: getattr(sched, k) for k in ("shared_page_hits", "cow_forks",
+                                           "peak_pages_in_use",
+                                           "preemptions")})
+        if name.startswith("(b)"):
+            b7 = launches["paged_attention_decode"]
+        if name.startswith("(d)"):
+            assert sched.swap_dir is not None, "no swap-out happened"
+            assert os.listdir(sched.swap_dir) == [], sched.swap_dir
+            os.rmdir(sched.swap_dir)
+        del sched
+    a, b = scheds["(a) reservation FIFO"], scheds["(b) + share_prefix"]
+    assert b.shared_page_hits > 0 and b.cow_forks > 0
+    assert b.peak_pages_in_use < a.peak_pages_in_use, (
+        b.peak_pages_in_use, a.peak_pages_in_use)
+    for name in list(runs)[2:]:
+        assert scheds[name].preemptions > 0, name
+    ref_name = "(a) reservation FIFO"
+    for name in list(runs)[1:]:
+        n_div = first_divergence(f"load {name}", got[name], got[ref_name],
+                                 True)
+        same = sum(int((got[name][i][0] == got[ref_name][i][0]).all())
+                   for i in got[name])
+        log(f"load {name} against (a): {same} of {len(prompts)} requests "
+            f"equal token for token, {n_div} part at a near-tie")
+    scheds.clear()
+
+    # (a) and (b) with float32 activations and pools: part only at a
+    # top-2 gap <= GAP_TOL
+    cfg32 = cfg.with_overrides(dtype="float32")
+    g32 = {}
+    for name, kw in (("(a) float32", dict(num_pages=roomy)),
+                     ("(b) float32", dict(num_pages=roomy,
+                                          share_prefix=True))):
+        sched, outs, _ = load_run(name, cfg32, params, dev, prompts,
+                                  ServeConfig(**geom, **kw), ops)
+        g32[name] = load_streams(sched, outs)
+        del sched
+    n_div = first_divergence("load float32 (b)", g32["(b) float32"],
+                             g32["(a) float32"], False)
+    log(f"load float32 (b) against (a): {n_div} requests part (at a top-2 "
+        f"gap <= {GAP_TOL})")
+
+    # eight requests of (b) through the AsyncServer from concurrent tasks,
+    # against Scheduler.run on the same requests: the same host decisions
+    # run the same device programs
+    scfg = ServeConfig(**geom, num_pages=roomy, share_prefix=True)
+    sync = Scheduler(cfg, params, scfg, device=dev)
+    rids = [sync.submit(p, LOAD_ASYNC_NEW) for p in prompts[:LOAD_ASYNC]]
+    with torch.no_grad():
+        want = sync.run()
+    want = [want[r] for r in rids]
+
+    async def clients():
+        server = AsyncServer(Scheduler(cfg, params, scfg, device=dev))
+        return await asyncio.gather(*[
+            server.generate(p, LOAD_ASYNC_NEW) for p in prompts[:LOAD_ASYNC]])
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        async_out = asyncio.run(clients())
+    wall = time.perf_counter() - t0
+    assert all(np.array_equal(x, y) for x, y in zip(async_out, want))
+    log(f"load AsyncServer: {LOAD_ASYNC} concurrent requests x "
+        f"{LOAD_ASYNC_NEW} tokens in {wall:.2f} s, equal to Scheduler.run "
+        f"bit for bit")
+    del sync, params
+    torch.cuda.empty_cache()
+    return b7
+
+
+def run_card_case(name: str) -> None:
+    """Run one card test of tests/test_torch_cuda.py in a child pytest."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-m", "cuda", f"tests/test_torch_cuda.py::{name}"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:]
+    log(f"card test {name}: {tail} ({time.perf_counter() - t0:.1f} s)")
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2240,6 +2540,13 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["slstm_cell"] = serve_xlstm_full_width(ops, dev)["slstm_cell"]
     log(f"phase xlstm serving full width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fsdp_full_width(ops, dev)
+    log(f"phase fsdp full width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_card_case("test_paged_attention_on_aliased_and_forked_pages_on_card")
+    launches["paged_attention_decode"] = serve_production_load(ops, dev)
+    log(f"phase production-load serving: {time.perf_counter() - t0:.1f} s")
     launches.update(
         stoch_quantize_grouped_fused=lm["stoch_quantize_grouped_fused"],
         stoch_quantize_grouped_fused_tiled=tiled[

@@ -16,10 +16,21 @@ finished.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
         --smoke --prompt-lens 9,17,5,13 --decode-tokens 8 [--engine lockstep]
 
+Production load: ``--share-prefix`` maps full prompt pages that match a
+live sequence's (copy-on-write; attention stacks only, it disables itself
+elsewhere), ``--preempt`` switches to watermark admission with priority
+preemption, resumed by ``--preempt-mode recompute`` or ``swap``;
+``--prefix-len`` gives every prompt the same system prompt, ``--repeat``
+duplicates the prompt list verbatim and ``--num-pages`` sizes the pool:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --smoke --prompt-lens 9,17,5 --prefix-len 32 --repeat 2 \
+        --share-prefix --preempt --preempt-mode swap --num-pages 40 \
+        --decode-tokens 8 [--device cpu]
+
 Without ``--device cpu`` it runs on the CUDA card and raises when there is
-none; ``--full`` serves the full-width model. ``--share-prefix``,
-``--preempt``, ``--preempt-mode swap``, ``--swa-recycle`` and ``--trace``
-are not ported yet (ROADMAP.md) and exit with a message.
+none; ``--full`` serves the full-width model. ``--swa-recycle`` and
+``--trace`` are not ported yet (ROADMAP.md) and exit with a message.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serving import paging
 from repro_torch.serving.scheduler import (Scheduler, ServeConfig,
-                                           draw_seed, sample_tokens)
+                                           block_kinds, draw_seed,
+                                           sample_tokens)
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue A: serving)"
 
@@ -150,8 +162,15 @@ def run_lockstep(cfg, params, prompts, decode_tokens: int, *,
 
 
 # ---------------------------------------------------------------- paged --
+def _p50(values) -> float:
+    vals = sorted(values)
+    return vals[len(vals) // 2] if vals else 0.0
+
+
 def run_paged(cfg, params, prompts, decode_tokens: int, *,
               serve_cfg: ServeConfig, device=None) -> dict:
+    """Serve ``prompts`` through the scheduler and report the JAX
+    package's fields."""
     sched = Scheduler(cfg, params, serve_cfg, device=device)
     rids = [sched.submit(p, decode_tokens) for p in prompts]
     t0 = time.perf_counter()
@@ -166,6 +185,12 @@ def run_paged(cfg, params, prompts, decode_tokens: int, *,
             "final_pages_in_use": sched.pool.in_use,
             "page_bytes": paging.cache_page_bytes(sched.cache),
             "pages_alloc_events": sched.pages_alloc_events,
+            "shared_page_hits": sched.shared_page_hits,
+            "cow_forks": sched.cow_forks,
+            "preemptions": sched.preemptions,
+            "forced_preemptions": sched.forced_preemptions,
+            "ttft_p50_s": _p50(sched.ttft_s.values()),
+            "ttft_queue_p50_s": _p50(sched.ttft_queue_s.values()),
             "scheduler": sched}
 
 
@@ -203,11 +228,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat", type=int, default=1,
                     help="repeat the prompt list this many times")
     ap.add_argument("--share-prefix", action="store_true",
-                    help=f"prefix page sharing {NOT_PORTED}")
+                    help="copy-on-write prefix page sharing: full prompt "
+                         "pages matching a live sequence's are mapped, not "
+                         "refilled (attention stacks; disabled elsewhere)")
     ap.add_argument("--preempt", action="store_true",
-                    help=f"watermark admission and preemption {NOT_PORTED}")
+                    help="watermark admission and priority preemption "
+                         "instead of FIFO full reservation")
     ap.add_argument("--preempt-mode", choices=("recompute", "swap"),
-                    default="recompute")
+                    default="recompute",
+                    help="readmission of a preempted request: recompute "
+                         "its tokens or restore an NPZ swap of its pages "
+                         "and slot state")
     ap.add_argument("--swa-recycle", action="store_true",
                     help=f"sliding-window page recycling {NOT_PORTED}")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -218,10 +249,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, *, params=None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag, given in (("--share-prefix", args.share_prefix),
-                        ("--preempt", args.preempt),
-                        ("--preempt-mode swap", args.preempt_mode == "swap"),
-                        ("--swa-recycle", args.swa_recycle),
+    for flag, given in (("--swa-recycle", args.swa_recycle),
                         ("--trace", args.trace)):
         if given:
             raise SystemExit(f"[serve] {flag} {NOT_PORTED}")
@@ -242,6 +270,8 @@ def main(argv=None, *, params=None) -> dict:
             device=dev)
     prompts = make_prompts(cfg, prompt_lens, args.seed,
                            prefix_len=args.prefix_len)
+    # identical copies: with --share-prefix the duplicates admit as whole
+    # prompt hits and fork on write
     prompts = prompts * max(1, args.repeat)
     prompt_lens = [len(p) for p in prompts]
     with torch.no_grad():
@@ -251,6 +281,13 @@ def main(argv=None, *, params=None) -> dict:
                                temperature=args.temperature,
                                batch=args.batch, seed=args.seed, device=dev)
         else:
+            kinds = block_kinds(cfg)
+            if args.share_prefix and not kinds <= set(paging._ATTN_KINDS):
+                # recurrent state is not paged: nothing to share
+                print(f"[serve] {cfg.name} has non-attention blocks "
+                      f"({sorted(kinds - set(paging._ATTN_KINDS))}): "
+                      f"disabling --share-prefix")
+                args.share_prefix = False
             max_ctx = max(prompt_lens) + args.decode_tokens
             pages_per_seq = paging.pages_needed(max_ctx, args.page_size)
             scfg = ServeConfig(
@@ -259,6 +296,8 @@ def main(argv=None, *, params=None) -> dict:
                 pages_per_seq=pages_per_seq,
                 prefill_chunk=args.prefill_chunk, sample=args.sample,
                 temperature=args.temperature, seed=args.seed,
+                share_prefix=args.share_prefix, preempt=args.preempt,
+                preempt_mode=args.preempt_mode,
                 **({} if args.kv_bits is None
                    else {"kv_bits": args.kv_bits}))
             out = run_paged(cfg, params, prompts, args.decode_tokens,
@@ -268,8 +307,14 @@ def main(argv=None, *, params=None) -> dict:
           f"aggregate, {out['decode_steps']} decode steps)")
     if args.engine == "paged":
         print(f"[serve] pages: alloc_events={out['pages_alloc_events']} "
+              f"shared_hits={out['shared_page_hits']} "
+              f"cow_forks={out['cow_forks']} "
+              f"preemptions={out['preemptions']} "
+              f"forced={out['forced_preemptions']} "
               f"peak_in_use={out['peak_pages_in_use']} "
               f"final_in_use={out['final_pages_in_use']}")
+        print(f"[serve] ttft p50={out['ttft_p50_s'] * 1e3:.1f}ms "
+              f"(queue {out['ttft_queue_p50_s'] * 1e3:.1f}ms)")
     print(f"[serve] sample continuation (req 0): "
           f"{out['outputs'][0].tolist()}")
     return out

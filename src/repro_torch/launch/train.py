@@ -25,8 +25,18 @@ simulator (``fleet/sim.py``: straggler timeouts, bounded staleness, churn):
         --fleet-participation 0.75 --fleet-staleness 2 \
         --fleet-churn 2:1:1 --steps 4
 
-``--mode fsdp``, ``--campaign`` and ``--trace`` are not ported yet
-(ROADMAP.md) and exit with a message.
+``--mode fsdp`` is the FSDP-Adam baseline (:func:`run_fsdp`): one model, no
+worker axis, AdamW (``optim/adamw.py``) on the token-weighted loss of the
+whole batch every step. The JAX package's ``run_fsdp`` is one ``jax.jit``
+program whose sharding comes from the device mesh, not from the function;
+on one card it is this single-device trainer. Sharding the model over
+several cards (torch FSDP or NCCL) is not ported (ROADMAP.md queue A):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+        --mode fsdp --batch 8 --seq 512 --lr 1e-3 --steps 5 --log-every 1
+
+``--campaign`` and ``--trace`` are not ported yet (ROADMAP.md) and exit
+with a message.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
 from repro_torch.device import resolve_device
 from repro_torch.fleet import ChurnEvent, FaultConfig, FleetConfig, FleetSim
 from repro_torch.models import registry
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime import steps as ST
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
@@ -267,6 +278,66 @@ def run_admm(cfg, args, *, params=None,
             "state": state}
 
 
+def fsdp_step(cfg, acfg: AdamWConfig):
+    """One FSDP-Adam step, ``(params, opt, batch) -> (params, opt,
+    loss)``: forward, backward and :func:`adamw_update` of one model on the
+    batch's token-weighted loss."""
+    def step(params, opt, batch):
+        leaves = [x.detach().requires_grad_(True) for x in T.leaves(params)]
+        with torch.enable_grad():
+            loss = registry.lm_loss_tokens(T.unflatten(params, leaves),
+                                           cfg, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        params, opt = adamw_update(T.unflatten(params, list(grads)), opt,
+                                   params, acfg)
+        return params, opt, loss.detach()
+    return step
+
+
+def run_fsdp(cfg, args, *, params=None) -> dict:
+    """The FSDP-Adam baseline: ``args.steps`` AdamW steps (lr ``args.lr``,
+    the JAX package's defaults otherwise) of one model on
+    ``data.batch(i, args.batch)``, the loss token-weighted over the whole
+    batch (``registry.lm_loss_tokens``). ``params`` (one model's tree)
+    replaces the seeded init for parity tests. Checkpoints hold the
+    unstacked tree in the JAX npz layout. Returns the loss history, s/step
+    and the peak device memory (bytes; 0 on the CPU)."""
+    dev = resolve_device(args.device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = registry.init_params(cfg, gen, device=dev)
+    params = T.tree_map(lambda x: x.to(dev), params)
+    opt = adamw_init(params)
+    step = fsdp_step(cfg, AdamWConfig(lr=args.lr))
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, args.seq,
+                                         seed=args.seed))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    history, seconds = [], []
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        t_step = time.perf_counter()
+        batch = model_batch(cfg, data.batch(i, args.batch), dev)
+        params, opt, loss = step(params, opt, batch)
+        history.append(float(loss))              # waits for the device
+        seconds.append(time.perf_counter() - t_step)
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss={history[-1]:.4f}  "
+                  f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
+                  flush=True)
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, i + 1, params)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, args.steps, params)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    print(f"[train] fsdp: {args.steps} steps, final_loss={history[-1]:.4f}, "
+          f"peak device memory {peak / 1e9:.2f} GB", flush=True)
+    return {"final_loss": history[-1], "history": history,
+            "total_bits": 0.0, "step_seconds": seconds,
+            "peak_device_bytes": peak, "params": params, "opt": opt}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="xlstm-125m",
@@ -329,18 +400,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, *, params=None, uniforms=None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag, given in (("--trace", args.trace), ("--campaign", args.campaign),
-                        ("--mode fsdp", args.mode == "fsdp")):
+    for flag, given in (("--trace", args.trace),
+                        ("--campaign", args.campaign)):
         if given:
             raise SystemExit(f"[train] {flag} {NOT_PORTED}")
-    if args.batch % args.workers:
+    if args.mode == "admm" and args.batch % args.workers:
         raise SystemExit(f"[train] --batch {args.batch} is not a multiple of "
                          f"--workers {args.workers}")
     cfg = (base.get_smoke_config(args.arch) if args.smoke
            else base.get_config(args.arch))
     print(f"[train] arch={cfg.name} mode={args.mode} workers={args.workers} "
           f"batch={args.batch} seq={args.seq} steps={args.steps}", flush=True)
-    return run_admm(cfg, args, params=params, uniforms=uniforms)
+    if args.mode == "admm":
+        return run_admm(cfg, args, params=params, uniforms=uniforms)
+    if args.fleet:
+        raise SystemExit("[train] --fleet only applies to --mode admm "
+                         "(the fleet simulator drives the consensus "
+                         "engine, not the FSDP baseline)")
+    return run_fsdp(cfg, args, params=params)
 
 
 if __name__ == "__main__":

@@ -9,14 +9,16 @@ xlstm-125m), looped over in :func:`_run_stack`; leftover layers sit under
 keystr paths and packed offsets (19 leaves, 134,277,912 parameters for
 xlstm-125m).
 
-Training (:func:`lm_loss`) takes the worker-stacked tree (leading worker
-axis W on every leaf) and a batch of ``tokens`` / ``labels`` shaped
-``(W, B, S)``, and returns one loss per worker. Serving takes the tree of
-one model as :func:`init_params` makes it, tokens ``(B, S)`` at absolute
-``positions`` and a decode cache (:func:`init_cache`, or the paged one of
-``serving.paging``), which the blocks write in place: K/V for attention,
-the recurrent state (stacked on the depth axis like the parameters) for
-mLSTM and sLSTM.
+Consensus training (:func:`lm_loss`) takes the worker-stacked tree
+(leading worker axis W on every leaf) and a batch of ``tokens`` /
+``labels`` shaped ``(W, B, S)``, and returns one loss per worker; the
+FSDP-Adam baseline (:func:`lm_loss_tokens`) takes one model and ``(B,
+S)`` and returns the JAX package's token-weighted scalar. Serving takes
+the tree of one model as :func:`init_params` makes it, tokens ``(B, S)``
+at absolute ``positions`` and a decode cache (:func:`init_cache`, or the
+paged one of ``serving.paging``), which the blocks write in place: K/V
+for attention, the recurrent state (stacked on the depth axis like the
+parameters) for mLSTM and sLSTM.
 """
 from __future__ import annotations
 
@@ -144,19 +146,37 @@ def build_positions(cfg, positions) -> torch.Tensor:
     return torch.as_tensor(positions, dtype=torch.int32)
 
 
-def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Next-token cross entropy per worker, (W,), over the labels >= 0."""
+def _token_ce(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token next-token cross entropy and its mask (labels >= 0), in
+    the labels' shape, float32."""
     logits = apply_model(params, cfg, batch).to(torch.float32)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1,
                                torch.clamp_min(labels, 0)[..., None])[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    dims = tuple(range(1, labels.dim()))
-    ce = (torch.sum((logz - label_logit) * mask, dim=dims)
+    return logz - label_logit, (labels >= 0).to(torch.float32)
+
+
+def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token cross entropy per worker, (W,), over the labels >= 0 of
+    each worker's rows (the worker-stacked tree of the consensus
+    engine)."""
+    ce, mask = _token_ce(params, cfg, batch)
+    dims = tuple(range(1, mask.dim()))
+    ce = (torch.sum(ce * mask, dim=dims)
           / torch.clamp_min(torch.sum(mask, dim=dims), 1.0))
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce, {"ce": ce, "aux": aux}
+
+
+def lm_loss_tokens(params, cfg, batch) -> torch.Tensor:
+    """The JAX package's ``lm_loss`` of one unstacked model: the cross
+    entropy summed over every valid label of the batch over their count, a
+    scalar (the ported block kinds have no router, so JAX's auxiliary term
+    is 0). The mean of per-row means equals it only when every row has as
+    many valid labels."""
+    ce, mask = _token_ce(params, cfg, batch)
+    return torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 # ------------------------------------------------------------ accounting --

@@ -25,19 +25,36 @@ state, slot on the batch axis). This module owns:
   does (a fresh contiguous cache starts ``m`` at -1e30 instead; ROADMAP C
   notes where the two part).
 
-Prefix sharing (``PrefixIndex``, ``fork_pages``), SWA page recycling
-(``unmap_pages``) and swap-out of pages and slot state to host files are
-not ported (ROADMAP.md queue A): :func:`init_paged_cache` raises for block
-kinds other than "attn", "mlstm" and "slstm".
+Production load (the scheduler's ``share_prefix`` and ``preempt``):
+
+* pages are **refcounted**: ``alloc`` hands out pages at count 1,
+  ``retain`` lets another block table map a live page, ``free`` drops one
+  reference and returns only the pages whose count reached 0 (only those
+  may be invalidated on the device);
+* :class:`PrefixIndex` maps the chained sha256 of each full page's tokens
+  to the physical pages holding that content (the JAX package's hash
+  bytes exactly);
+* :func:`fork_pages` copies a shared page into a fresh one, every pool
+  leaf bit for bit, for a copy-on-write;
+* :func:`extract_pages` / :func:`insert_pages` and
+  :func:`extract_seq_state` / :func:`insert_seq_state` move a sequence's
+  pages and recurrent slot state to host numpy and back (swap
+  preemption), keyed by the cache tree's keystr paths.
+
+SWA page recycling (``unmap_pages``) waits with the sliding-window family
+(ROADMAP.md queue A): :func:`init_paged_cache` raises for block kinds other
+than "attn", "mlstm" and "slstm".
 """
 from __future__ import annotations
 
+import hashlib
 import heapq
-from typing import Dict, Iterator, List, Sequence, Set, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.models import blocks, layers, registry
 
 _POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale", "kv_pos")
@@ -58,14 +75,18 @@ class PagePool:
     """Host-side page allocator with deterministic placement: free pages
     sit in a min-heap, so every allocation takes the lowest free ids and
     two runs over the same request stream build the same block tables.
-    (The JAX package's refcounts serve prefix sharing, not ported: here a
-    page has one owner.)"""
+
+    Pages carry refcounts for copy-on-write prefix sharing: ``alloc``
+    returns pages at count 1, ``retain`` adds a reference to a live page
+    that another block table maps, and ``free`` drops one; a page returns
+    to the heap (and to the caller, for ``kv_pos`` invalidation) only when
+    its count reaches 0."""
 
     def __init__(self, num_pages: int):
         self.num_pages = int(num_pages)
         self._free: List[int] = list(range(self.num_pages))
         heapq.heapify(self._free)
-        self._live: Set[int] = set()
+        self._refs: Dict[int, int] = {}
 
     @property
     def free_count(self) -> int:
@@ -73,7 +94,8 @@ class PagePool:
 
     @property
     def in_use(self) -> int:
-        return len(self._live)
+        """Physical pages with a reference (not the sum of the counts)."""
+        return len(self._refs)
 
     def can_alloc(self, n: int) -> bool:
         return len(self._free) >= n
@@ -83,29 +105,55 @@ class PagePool:
             raise PageAllocError(
                 f"requested {n} pages, {len(self._free)} free")
         ids = [heapq.heappop(self._free) for _ in range(n)]
-        self._live.update(ids)
+        for i in ids:
+            self._refs[i] = 1
         return ids
 
+    def retain(self, ids: Sequence[int]) -> None:
+        """Add a reference to live pages (another block table maps
+        them)."""
+        for i in ids:
+            i = int(i)
+            if i not in self._refs:
+                raise PageAllocError(f"retain of free page {i}")
+            self._refs[i] += 1
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(int(page), 0)
+
+    def ref_stats(self) -> Tuple[int, int]:
+        """(sum of the refcounts, pages with a count above 1)."""
+        total = shared = 0
+        for v in self._refs.values():
+            total += v
+            shared += v > 1
+        return total, shared
+
     def free(self, ids: Sequence[int]) -> List[int]:
-        """Return pages to the pool; returns them (the pages the caller
-        must invalidate on the device)."""
+        """Drop one reference per page; returns the pages whose count
+        reached 0 and were recycled (the only ones the caller may
+        invalidate on the device: other owners still read the rest)."""
         recycled: List[int] = []
         for i in ids:
             i = int(i)
-            if i not in self._live:
+            rc = self._refs.get(i)
+            if rc is None:
                 raise PageAllocError(f"double free of page {i}")
-            self._live.remove(i)
-            heapq.heappush(self._free, i)
-            recycled.append(i)
+            if rc == 1:
+                del self._refs[i]
+                heapq.heappush(self._free, i)
+                recycled.append(i)
+            else:
+                self._refs[i] = rc - 1
         return recycled
 
     def defrag(self) -> np.ndarray:
         """Compact live pages to the lowest ids. Returns ``old_to_new``
         (num_pages,) int32, a permutation: live pages keep their relative
-        order, free pages fill the tail. The caller applies it to the
-        device cache (:func:`apply_page_remap`) and to its own page
-        lists."""
-        live = sorted(self._live)
+        order, free pages fill the tail. Refcounts move with their page.
+        The caller applies it to the device cache (:func:`apply_page_remap`)
+        and to its own page lists and :class:`PrefixIndex`."""
+        live = sorted(self._refs)
         old_to_new = np.full((self.num_pages,), -1, np.int32)
         for new, old in enumerate(live):
             old_to_new[old] = new
@@ -114,10 +162,76 @@ class PagePool:
             if old_to_new[old] < 0:
                 old_to_new[old] = nxt
                 nxt += 1
-        self._live = set(range(len(live)))
+        self._refs = {int(old_to_new[p]): rc for p, rc in self._refs.items()}
         self._free = list(range(len(live), self.num_pages))
         heapq.heapify(self._free)
         return old_to_new
+
+
+# ---------------------------------------------------------- prefix index --
+class PrefixIndex:
+    """Content index over full pages for copy-on-write prefix sharing.
+
+    A page's identity is the chained hash ``h_i = sha256(h_{i-1} ||
+    tokens[i*ps:(i+1)*ps])`` (tokens as int32 bytes) from a fixed root, so
+    the same tokens at another depth hash differently and a hit means the
+    whole prefix up to that page matches. A hash maps to the set of
+    physical pages holding that content (requests admitted in one tick
+    materialise duplicates before any is indexed); ``lookup`` returns the
+    lowest live one. A page indexes at most one hash; ``drop_page`` and
+    ``remap`` follow recycling and defrag. Only full, completely written
+    pages are registered."""
+
+    ROOT = b"paged-kv-prefix-root"
+
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+        self._by_hash: Dict[bytes, set] = {}
+        self._by_page: Dict[int, bytes] = {}
+
+    def __len__(self) -> int:
+        return len(self._by_hash)
+
+    @staticmethod
+    def chain(parent: bytes, tokens) -> bytes:
+        return hashlib.sha256(
+            parent + np.asarray(tokens, np.int32).tobytes()).digest()
+
+    def hash_chain(self, tokens) -> List[bytes]:
+        """The chained hash of every full page of ``tokens``."""
+        toks = np.asarray(tokens, np.int32)
+        ps, h, out = self.page_size, self.ROOT, []
+        for i in range(len(toks) // ps):
+            h = self.chain(h, toks[i * ps:(i + 1) * ps])
+            out.append(h)
+        return out
+
+    def lookup(self, h: bytes) -> Optional[int]:
+        pages = self._by_hash.get(h)
+        return min(pages) if pages else None
+
+    def register(self, h: bytes, page: int) -> None:
+        page = int(page)
+        if page in self._by_page:
+            return
+        self._by_hash.setdefault(h, set()).add(page)
+        self._by_page[page] = h
+
+    def drop_page(self, page: int) -> None:
+        h = self._by_page.pop(int(page), None)
+        if h is not None:
+            pages = self._by_hash[h]
+            pages.discard(int(page))
+            if not pages:
+                del self._by_hash[h]
+
+    def remap(self, old_to_new) -> None:
+        """Follow a :meth:`PagePool.defrag` permutation."""
+        o2n = np.asarray(old_to_new)
+        self._by_page = {int(o2n[p]): h for p, h in self._by_page.items()}
+        self._by_hash = {}
+        for p, h in self._by_page.items():
+            self._by_hash.setdefault(h, set()).add(p)
 
 
 # ------------------------------------------------------- cache structure --
@@ -239,6 +353,100 @@ def map_pages(cache, slot: int, logicals, pages):
         if "block_tables" in c:
             c["block_tables"][..., slot, li] = pg
             _invalidate(c, np.asarray(pages))
+    return cache
+
+
+def fork_pages(cache, slot: int, logicals, srcs, dsts, write_pos: int):
+    """Copy-on-write fork: copy physical pages ``srcs`` into ``dsts`` in
+    every pool leaf (K/V, or codes and their ranges: the copy is the donor
+    bit for bit), with the copies' ``kv_pos`` masked to -1 at positions >=
+    ``write_pos`` (the donor may have written its own tokens past the
+    shared point), and rebind only slot ``slot``'s row at ``logicals``.
+    In place."""
+    dev = _device(cache)
+    src = torch.as_tensor(np.asarray(srcs, np.int64), device=dev)
+    dst = torch.as_tensor(np.asarray(dsts, np.int64), device=dev)
+    li = torch.as_tensor(np.asarray(logicals, np.int64), device=dev)
+    for c, stacked in _block_caches(cache):
+        if "block_tables" not in c:
+            continue
+        axis = 1 if stacked else 0
+        for name in _POOL_LEAVES:
+            if name in c:
+                x = c[name]
+                slab = x.index_select(axis, src)
+                if name == "kv_pos":
+                    slab = torch.where(slab < int(write_pos), slab, -1)
+                x.index_copy_(axis, dst, slab)
+        c["block_tables"][..., slot, li] = dst.to(torch.int32)
+    return cache
+
+
+# -------------------------------------------------- preemption swap I/O --
+def _leaf_items(cache):
+    """(keystr path, leaf dict, name, stacked) for every cache leaf, the
+    path in the JAX package's keystr form (``['units']['p0']['k_pages']``)."""
+    for part, stacked in (("units", True), ("rem", False)):
+        for key, c in cache[part].items():
+            for name in c:
+                yield T.keystr((part, key, name)), c, name, stacked
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A host copy numpy can save: bfloat16 (which numpy lacks) as its raw
+    bits, uint16, as the JAX package's ``_npz_safe`` stores it."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
+
+
+def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bfloat16 and a.dtype == np.uint16:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.view(torch.bfloat16).to(like.device)
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=like.dtype,
+                           device=like.device)
+
+
+def extract_pages(cache, pages) -> Dict[str, np.ndarray]:
+    """The pool slabs (K/V or codes and ranges, ``kv_pos``) of physical
+    ``pages`` on the host, keyed by leaf path: what a swap preemption
+    saves."""
+    idx = torch.as_tensor(np.asarray(pages, np.int64), device=_device(cache))
+    return {path: _to_host(c[name].index_select(1 if stacked else 0, idx))
+            for path, c, name, stacked in _leaf_items(cache)
+            if name in _POOL_LEAVES}
+
+
+def insert_pages(cache, slabs: Dict[str, np.ndarray], pages):
+    """Inverse of :func:`extract_pages` into ``pages`` (other physical ids
+    than the extracted ones; the caller rebuilds the block tables). In
+    place."""
+    idx = torch.as_tensor(np.asarray(pages, np.int64), device=_device(cache))
+    for path, c, name, stacked in _leaf_items(cache):
+        if path in slabs:
+            x = c[name]
+            x.index_copy_(1 if stacked else 0, idx,
+                          _from_host(slabs[path], x))
+    return cache
+
+
+def extract_seq_state(cache, slot: int) -> Dict[str, np.ndarray]:
+    """The per-sequence (recurrent) leaves of slot ``slot`` on the host,
+    keyed by leaf path (each with a batch axis of 1)."""
+    return {path: _to_host(_slot_view(c[name], stacked, slot))
+            for path, c, name, stacked in _leaf_items(cache)
+            if name not in _POOL_LEAVES and name != "block_tables"}
+
+
+def insert_seq_state(cache, state: Dict[str, np.ndarray], slot: int):
+    """Inverse of :func:`extract_seq_state`, possibly into another slot.
+    In place."""
+    for path, c, name, stacked in _leaf_items(cache):
+        if path in state:
+            view = _slot_view(c[name], stacked, slot)
+            view.copy_(_from_host(state[path], view))
     return cache
 
 

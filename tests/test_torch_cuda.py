@@ -605,6 +605,107 @@ def test_paged_attention_threshold_picks_the_variant_on_card(cuda,
         assert ops.launches == {k: int(k == name) for k in ops.KERNELS}
 
 
+# a shared system prompt of 32 pages (phase 19's 512 tokens) mapped by
+# rows 0-5 of one table; row 6 maps it too, with its last page forked
+# mid-page (write_pos 501); row 7 has a table of its own
+ALIAS_SHARED, ALIAS_WRITE_POS = 32, 31 * 16 + 5
+
+
+def aliased_inputs(kv_bits, pool_dtype=torch.float32, *, poison=False,
+                   seed=21):
+    """Decode inputs at tinyllama's heads (B 8, H 32, KV 4, hd 64, pages
+    of 16) and the production-load stream's 84-page tables (contexts from
+    the stream's 529 to its 1,340, and on the split edges at 1,280, where
+    the last of 11 splits is half filled) whose block-table rows alias
+    physical pages:
+    rows 0-5 map the same 32 prefix pages, then pages of their own; row 6
+    maps the first 31 and a fork F of the 32nd, holding the donor's K/V
+    below ``ALIAS_WRITE_POS``, its own token at it and the donor's stale
+    tokens past it (masked by its ctx, 502, as ``fork_pages`` masks them
+    in ``kv_pos``). ``poison`` fills F's slots past the write point with
+    1e3 instead (codes 255 and ranges 1e3 in code pools): a kernel that
+    reads them changes its output. Returns (kwargs for
+    ``ops.paged_attention_decode``, max |V| as the kernel reads it)."""
+    bsz, heads, num_kv, hd, ps, pps = 8, 32, 4, 64, 16, 84
+    rng = np.random.default_rng(seed)
+    num_pages = bsz * pps
+    k = rng.standard_normal((num_pages, ps, num_kv, hd)).astype(np.float32)
+    v = (2.0 * rng.standard_normal((num_pages, ps, num_kv, hd))
+         ).astype(np.float32)
+    q = rng.standard_normal((bsz, heads, hd)).astype(np.float32)
+    free = iter(rng.permutation(num_pages).tolist())
+    prefix = [next(free) for _ in range(ALIAS_SHARED)]
+    bt = np.full((bsz, pps), -1, np.int32)
+    ctx = np.array([1340, 529, 1281, 1279, 512, 1280, ALIAS_WRITE_POS + 1,
+                    1212], np.int32)
+    for b in range(bsz):
+        used = -(-int(ctx[b]) // ps)
+        own = [next(free) for _ in range(used)]
+        bt[b, :used] = own
+        if b <= 6:
+            bt[b, :ALIAS_SHARED] = prefix
+    fork = next(free)                        # F, row 6's last page
+    bt[6, ALIAS_SHARED - 1] = fork
+    k[fork], v[fork] = k[prefix[-1]], v[prefix[-1]]
+    slot = ALIAS_WRITE_POS % ps
+    k[fork, slot] = rng.standard_normal((num_kv, hd))
+    v[fork, slot] = 2.0 * rng.standard_normal((num_kv, hd))
+    if poison and kv_bits == 32:
+        k[fork, slot + 1:] = 1e3
+        v[fork, slot + 1:] = 1e3
+    kw = dict(q=torch.from_numpy(q), block_tables=torch.from_numpy(bt),
+              ctx_lens=torch.from_numpy(ctx), kv_bits=kv_bits)
+    if kv_bits == 32:
+        kw.update(k_pages=torch.from_numpy(k).to(pool_dtype),
+                  v_pages=torch.from_numpy(v).to(pool_dtype))
+        return kw, float(kw["v_pages"].float().abs().max())
+    kc, kr = ref.kv_page_quantize(torch.from_numpy(k), kv_bits=kv_bits)
+    vc, vr = ref.kv_page_quantize(torch.from_numpy(v), kv_bits=kv_bits)
+    vmax = float(ref.kv_page_dequantize(vc, vr, kv_bits=kv_bits,
+                                        head_dim=hd).abs().max())
+    if poison:
+        for codes, ranges in ((kc, kr), (vc, vr)):
+            codes[fork, slot + 1:] = 255
+            ranges[fork, slot + 1:] = 1e3
+    kw.update(k_pages=kc, v_pages=vc, k_scale=kr, v_scale=vr)
+    return kw, vmax
+
+
+ALIAS_POOLS = [(32, torch.bfloat16), (32, torch.float32), (8, None),
+               (4, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,pool_dtype", ALIAS_POOLS)
+@pytest.mark.parametrize("online", [False, True])
+def test_paged_attention_on_aliased_and_forked_pages_on_card(
+        cuda, monkeypatch, online, kv_bits, pool_dtype):
+    """B7 and B8 on tables whose rows share physical pages (prefix
+    sharing) and on a page forked mid-page: within 1e-5 of max|V| of the
+    plain version, a repeated call equal bit for bit, and the forked
+    page's stale slots past the write point never read (poisoning them
+    leaves the output bit for bit)."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    name = ("paged_attention_decode_online" if online
+            else "paged_attention_decode")
+    kw, vmax = aliased_inputs(kv_bits, pool_dtype or torch.float32)
+    bad, _ = aliased_inputs(kv_bits, pool_dtype or torch.float32,
+                            poison=True)
+    before = ops.launches[name]
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    again = paged_call(ops.paged_attention_decode, kw, cuda)
+    poisoned = paged_call(ops.paged_attention_decode, bad, cuda)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 3
+    plain = (ref.paged_attention_online_ref if online
+             else ref.paged_attention_ref)
+    want = paged_call(plain, kw, cuda)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
+    assert torch.equal(got, again)
+    assert torch.equal(got, poisoned)
+
+
 @pytest.mark.cuda
 def test_paged_attention_rejects_what_it_does_not_take(cuda):
     kw, _ = paged_inputs(*PAGED_SHAPES["smoke"], 8, seed=5)

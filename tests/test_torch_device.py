@@ -62,7 +62,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         lambda: interop.engine_state_from_numpy({}),
         lambda: interop.tree_from_numpy({}),
         lambda: train.main(["--smoke", "--steps", "1", "--batch", "4"]),
+        lambda: train.main(["--smoke", "--steps", "1", "--mode", "fsdp"]),
         lambda: serve.main(["--decode-tokens", "1"]),
+        lambda: serve.main(["--decode-tokens", "1", "--share-prefix",
+                            "--preempt", "--preempt-mode", "swap"]),
         lambda: serve.LockstepEngine(tiny, None),
         lambda: Scheduler(tiny, None, ServeConfig()),
     ]
@@ -125,13 +128,24 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
             torch.ones((2,), dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fsdp"],
-                                  ["--campaign", "lm-sweep"],
+@pytest.mark.parametrize("argv", [["--campaign", "lm-sweep"],
                                   ["--trace", "t.json"],
                                   ["--fleet", "--trace", "t.json"]])
 def test_train_flags_not_ported_exit_naming_roadmap(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_train_fsdp_mode_runs_on_the_cpu_only_when_asked(no_cuda):
+    """``--mode fsdp`` (it exited before slice 9) runs with ``--device
+    cpu`` and raises without it when there is no card."""
+    argv = ["--smoke", "--mode", "fsdp", "--batch", "2", "--seq", "8",
+            "--steps", "2"]
+    out = train.main(argv + ["--device", "cpu"])
+    assert np.isfinite(out["history"]).all() and len(out["history"]) == 2
+    assert out["total_bits"] == 0.0
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(argv)
 
 
 def test_train_fleet_flag_runs_and_refuses_regroup_every():
@@ -169,7 +183,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     scanned = {p.relative_to(ROOT).parts[2] for p in files[:-1]}
-    assert {"serving", "launch", "models", "kernels", "fleet"} <= scanned
+    assert {"serving", "launch", "models", "kernels", "fleet", "optim",
+            "obs"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

@@ -42,6 +42,17 @@ CACHE_LEN = PAGE * PPS
 LENS, NEWS = (9, 17, 5, 13), (5, 3, 6, 4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and under the
+    suite's parallel workers an 8-thread pool per op oversubscribes the
+    CPU (a 7x slowdown measured with 5 busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke():
     """(JAX cfg, JAX params, port cfg, port params), float32 activations."""
@@ -336,10 +347,12 @@ def test_serve_config_defaults_and_unported_policies(monkeypatch):
     assert ServeConfig(kv_bits=4).kv_bits == 4
     with pytest.raises(ValueError, match="kv_bits"):
         ServeConfig(kv_bits=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(swa_recycle=True)
+    # the production-load policies are ported (test_torch_serving_load.py)
     for kw in (dict(share_prefix=True), dict(preempt=True),
-               dict(preempt_mode="swap"), dict(swa_recycle=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeConfig(**kw)
+               dict(preempt_mode="swap")):
+        assert ServeConfig(**kw)
 
 
 def test_quantized_cache_pools_and_page_bytes():
@@ -439,12 +452,26 @@ def test_make_prompts_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("argv", [["--share-prefix"], ["--preempt"],
-                                  ["--preempt-mode", "swap"],
-                                  ["--swa-recycle"], ["--trace", "t.json"]])
+@pytest.mark.parametrize("argv", [["--swa-recycle"], ["--trace", "t.json"]])
 def test_serve_flags_not_ported_exit_naming_roadmap(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve.main(["--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv", [["--share-prefix"], ["--preempt"],
+                                  ["--preempt-mode", "swap"]])
+def test_serve_production_flags_run_on_the_cpu(argv):
+    """The flags that exited before slice 9 run: a shared system prompt,
+    repeated prompts and a pool small enough to preempt."""
+    out = serve.main(["--device", "cpu", "--prompt-lens", "9,17,5",
+                      "--prefix-len", "8", "--repeat", "2",
+                      "--decode-tokens", "5", "--batch", "3",
+                      "--num-pages", "24", "--kv-bits", "32"] + argv
+                     + (["--preempt"] if "--preempt-mode" in argv else []))
+    assert sorted(out["outputs"]) == list(range(6))
+    assert all(len(v) == 5 for v in out["outputs"].values())
+    assert out["final_pages_in_use"] == 0
+    assert (out["shared_page_hits"] > 0) == ("--share-prefix" in argv)
 
 
 @pytest.mark.parametrize("engine", ["paged", "lockstep"])
