@@ -27,7 +27,9 @@ with its time printed:
    samples per worker (cut from epsilon's 400,000 rows to keep host-side
    generation near 5 GB), 20 iterations: the distance to the optimum falls
    and every kernel launch is counted (2 quantizes and 3 mixes per
-   iteration);
+   iteration); then the same run with bf16 replicas (``hat_dtype``): the
+   distance falls, 2 B1 launches (float32 operands) and 3 B2 launches on
+   bf16 values per iteration;
 6. ``run_dynamic`` at full size (the same problem, a new p=0.35 graph
    every 5 iterations, 20 iterations of cq-ggadmm) on the sparse backend,
    then with the same draws on the dense one: exactly 3 ``edge_gather_mix``
@@ -35,7 +37,8 @@ with its time printed:
 7. the fleet on the convex path (sparse backend): the full size under
    faults (participation 0.8, staleness 2, 20 rounds), dark workers
    charged 0 bits, 3 B6 launches per round; a fault-free fleet at the
-   paper size bit for bit equal to ``run_synchronous``;
+   paper size bit for bit equal to ``run_synchronous``, run untraced and
+   traced (the same launches, a valid trace with a round span a round);
 8. the three grouped quantize kernels (``stoch_quantize_grouped_fused``,
    its D-tiled twin, ``stoch_quantize_grouped``) against their plain
    versions at (64, 2000) G=1, the xlstm-smoke tree (4, 1,905,668) G=19,
@@ -49,14 +52,26 @@ with its time printed:
    (S=2), and with a poisoned table; the plan's regime and geometry,
    device time, time per call, plain time, bytes bounds, ``torch.matmul``
    and ``torch.sparse.mm`` (CSR) over the adjacency and B2 on the dense
-   adjacency, per call, at each;
+   adjacency, per call, at each; then the narrowed storage of slice 10 in
+   bf16 and f16, each against its float32 route bit for bit: B2 at the
+   convex (64, 2000), the LM buffer, (1024, 2000) and a ragged misaligned
+   V; B6 at the six shapes and the poisoned table (and its plan's geometry
+   as float32's); B3 with a narrowed q_hat at the full-width buffer and
+   the ragged layout with degenerate groups; at the LM shape each timed
+   beside the float32 kernel and the cast route it replaces (B2 also
+   beside ``torch.matmul`` in bf16), with its bytes bound;
 10. full-width consensus training of xlstm-125m through
    ``repro_torch.launch.train.main`` with the example's flags (4 workers,
    batch 16, seq 128, 2 local steps, ``--groups leaf``, 3 steps): a finite
    loss, below the seeded initial model's after the last step, exactly 2
    fused quantize and 3 mix launches per step;
    s/step, peak device memory, and the top device activities of one more
-   step from torch.profiler;
+   step from torch.profiler; then the same 3 steps with bf16 replicas
+   (``train.main(..., hat_dtype="bfloat16")``) and ``--trace``: a finite
+   loss, exactly 2 B3 and 3 B2 launches per step on bf16 q_hat and
+   theta_hat, bf16 replica leaves, a valid trace with 3 round spans, the
+   ledger's transmissions and bits equal to ``build_comm_log``; loss,
+   s/step and peak memory beside the float32 run's;
 11. the same training with ``--mix-backend sparse
    --fleet --fleet-participation 0.75 --fleet-staleness 2 --fleet-churn
    2:1:1`` for 4 rounds: a finite loss every round, the churn applied at
@@ -125,7 +140,10 @@ with its time printed:
    preemption on a 336-page pool (priorities 0/1 alternating), (d) the
    same with swap, (e) sharing, recompute and a defrag every 32 ticks;
    (a) and (b) again in float32; eight requests of (b) through the
-   ``AsyncServer``. Gates: 0 pages in use after every run, an empty swap
+   ``AsyncServer``. Run (b) runs traced: its counters as recorded
+   untraced (303 shared hits, peak 455 pages, 108 prefill chunks, 382
+   decode ticks, 8,404 B7 launches), 16 request spans, each closed, and a
+   page_pool counter each tick. Gates: 0 pages in use after every run, an empty swap
    directory after (d), 22 B7 launches per decode tick, sharing hits and
    a lower page peak in (b), preemptions in (c)-(e), every run equal to
    (a) or parting only at a near-tie (the float32 pair at a top-2 gap <=
@@ -139,6 +157,7 @@ that path ran), parity error, times and bound, then nvidia-smi's
 name/power-limit line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -329,11 +348,11 @@ def launch_floor(dev):
     ways, timed as :func:`time_ms` times a call."""
     from repro_torch.kernels import bipartite_mix as bm
 
-    fn = bm._lib().bipartite_mix_f32
+    fn = bm._lib().bipartite_mix
     stream = torch.cuda.current_stream(dev).cuda_stream
     like = torch.empty((64, 2000), device=dev)
     floor = {"empty ctypes call": time_ms(
-                 lambda: fn(None, None, None, 0, 0, 0, stream), 1000),
+                 lambda: fn(None, None, None, 0, 0, 0, 0, stream), 1000),
              "torch.empty((64, 2000))": time_ms(
                  lambda: torch.empty((64, 2000), device=dev), 1000),
              "torch.empty_like(V (64, 2000))": time_ms(
@@ -810,7 +829,8 @@ def lm_full_width(ops, dev):
     log(f"lm launches {launches}")
     del table0, table
     profile_lm_step(out["state"], dev)
-    return launches
+    return launches, {"history": hist, "peak_gb": peak_gb,
+                      "step_seconds": out["step_seconds"]}
 
 
 def profile_lm_step(state, dev):
@@ -1156,6 +1176,7 @@ def fleet_convex(ops, dev, prob, theta_star):
     from repro_torch.data import regression as R
     from repro_torch.fleet import FaultConfig, FleetConfig, FleetSim
     from repro_torch.fleet import run_synchronous
+    from repro_torch.obs import trace as obs_trace
 
     cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0), mix_backend="sparse")
     graph = random_bipartite_graph(FULL_N, 0.35, seed=0)
@@ -1196,18 +1217,44 @@ def fleet_convex(ops, dev, prob, theta_star):
     sync_state, sync_m = run_synchronous(
         pgraph, cfg, E.ExactSolver(pprob), theta0, PAPER_FLEET_ROUNDS,
         extra_metrics=metrics)
-    fs, fm = FleetSim(24, cfg, FleetConfig(rounds=PAPER_FLEET_ROUNDS),
-                      theta0, solver=E.ExactSolver(pprob),
-                      extra_metrics=metrics, graph0=pgraph).run()
-    for k in sync_m:
-        assert np.array_equal(fm[k], sync_m[k]), f"fleet metric {k}"
-    for name in ("theta", "theta_hat", "alpha"):
-        assert torch.equal(getattr(fs.engine, name),
-                           getattr(sync_state, name)), name
+    # untraced, then traced: each bit for bit equal to run_synchronous,
+    # with the same launches
+    runs = []
+    for traced in (False, True):
+        path = TRACE_DIR / "fleet_paper.json"
+        if traced:
+            TRACE_DIR.mkdir(parents=True, exist_ok=True)
+            obs_trace.enable(str(path))
+        ops.reset_launches()
+        try:
+            sim = FleetSim(24, cfg, FleetConfig(rounds=PAPER_FLEET_ROUNDS),
+                           theta0, solver=E.ExactSolver(pprob),
+                           extra_metrics=metrics, graph0=pgraph)
+            fs, fm = sim.run()
+            torch.cuda.synchronize()
+            if traced:
+                obs_trace.save()
+        finally:
+            obs_trace.disable(save=False)
+        runs.append(dict(ops.launches))
+        for k in sync_m:
+            assert np.array_equal(fm[k], sync_m[k]), f"fleet metric {k}"
+        for name in ("theta", "theta_hat", "alpha"):
+            assert torch.equal(getattr(fs.engine, name),
+                               getattr(sync_state, name)), name
+    assert runs[0] == runs[1], runs
+    with open(path) as f:
+        doc = json.load(f)
+    assert obs_trace.validate_events(doc) == []
+    spans = sum(e["ph"] == "B" and e["name"] == "round"
+                for e in doc["traceEvents"])
+    assert spans == PAPER_FLEET_ROUNDS, spans
+    assert sim.ledger.cum_bits == float(fm["payload_bits_total"].sum())
     log(f"fleet fault-free paper size (24, 50), {PAPER_FLEET_ROUNDS} rounds: "
         f"{len(sync_m)} metrics and the final theta, theta_hat, alpha bit "
-        f"for bit equal to run_synchronous; bits "
-        f"{fm['payload_bits_total'].sum():.4e}")
+        f"for bit equal to run_synchronous, untraced and traced ({spans} "
+        f"round spans, the ledger's {sim.ledger.cum_bits:.4e} bits; "
+        f"launches {runs[1]} both ways)")
     return launches
 
 
@@ -2340,6 +2387,7 @@ def serve_production_load(ops, dev):
     from repro_torch.configs import base
     from repro_torch.launch import serve
     from repro_torch.models import registry
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.serving.scheduler import (AsyncServer, Scheduler,
                                                ServeConfig)
 
@@ -2377,8 +2425,21 @@ def serve_production_load(ops, dev):
     # before the next run, whose peak device memory is then its own
     got, scheds, b7 = {}, {}, 0
     for name, (kw, pr) in runs.items():
-        sched, outs, launches = load_run(name, cfg, params, dev, prompts,
-                                         ServeConfig(**geom, **kw), ops, pr)
+        traced = name.startswith("(b)")     # (b) runs with a tracer on
+        path = TRACE_DIR / "load_b.json"
+        if traced:
+            TRACE_DIR.mkdir(parents=True, exist_ok=True)
+            obs_trace.enable(str(path))
+        try:
+            sched, outs, launches = load_run(
+                name, cfg, params, dev, prompts, ServeConfig(**geom, **kw),
+                ops, pr)
+            if traced:
+                obs_trace.save()
+        finally:
+            obs_trace.disable(save=False)
+        if traced:
+            load_b_traced_checks(sched, launches, path)
         got[name] = load_streams(sched, outs)
         scheds[name] = types.SimpleNamespace(**{
             k: getattr(sched, k) for k in ("shared_page_hits", "cow_forks",
@@ -2451,6 +2512,353 @@ def serve_production_load(ops, dev):
     return b7
 
 
+
+# slice 10: narrowed replicas (hat_dtype) through B2, B6 and B3, and the
+# observability layer behind --trace
+NARROW = (torch.bfloat16, torch.float16)
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_traces"
+# B2 shapes (M, N, d, storage offset of V in values) of the narrowed
+# checks: the convex path, the LM trainer's buffer, 1,024 workers, and a
+# ragged V one value into its buffer (rows off the 16-byte boundary)
+NARROW_MIX = {"convex (64, 64) x (64, 2000)": (64, 64, 2000, 0),
+              "LM (4, 4) x (4, 134277912)": (4, 4, LM_DIM, 0),
+              "(1024, 1024) x (1024, 2000)": (1024, 1024, 2000, 0),
+              "ragged misaligned (12, 24) x (24, 513)": (12, 24, 513, 1)}
+
+
+def dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+@contextlib.contextmanager
+def operand_dtypes(ops, names):
+    """Record the storage dtype each named ``ops`` entry point is handed
+    (the values of a mix, q_hat_prev of a quantize round) while the real
+    entry point runs and counts its launches as ever."""
+    pos = {"bipartite_mix": 1, "edge_gather_mix": 0, "stoch_quantize": 1,
+           "stoch_quantize_grouped_fused": 1}
+    seen = {n: [] for n in names}
+    real = {n: getattr(ops, n) for n in names}
+
+    def spy(n):
+        def call(*a, **kw):
+            seen[n].append(a[pos[n]].dtype)
+            return real[n](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, spy(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(ops, n, real[n])
+
+
+def narrow_values(n, d, offset, dtype, seed, dev):
+    """A contiguous (N, d) V of ``dtype`` starting ``offset`` values into
+    its buffer."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = (3.0 * torch.randn(n * d + offset, generator=gen,
+                             device=dev)).to(dtype)
+    return buf[offset:].view(n, d)
+
+
+def check_narrow_parity(ops, dev):
+    """Narrowed B2, B6 and B3 against their float32 routes on the card,
+    bit for bit, in bf16 and f16: B2(A, V) == B2(A, V.float()).to(dtype),
+    B6(V) == B6(V.float()), B3 with a narrowed q_prev == B3 on
+    q_prev.float() with out rounded to the storage type and the (N, G)
+    outputs equal."""
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import edge_gather_mix as EG
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for label, (m, n, d, off) in NARROW_MIX.items():
+        adj = (torch.rand((m, n), generator=gen, device=dev) < 0.35).float()
+        for dt in NARROW:
+            vals = narrow_values(n, d, off, dt, m + off, dev)
+            got = ops.bipartite_mix(adj, vals)
+            want = ops.bipartite_mix(adj, vals.float()).to(dt)
+            assert got.dtype == dt and torch.equal(got, want), (label, dt)
+            del vals, got, want
+        log(f"parity narrowed bipartite_mix {label}: bf16 and f16 equal "
+            f"the float32 kernel rounded once, bit for bit")
+        torch.cuda.empty_cache()
+
+    for seed, (label, (graph, d)) in enumerate(edge_cases().items()):
+        table, valid = (torch.from_numpy(x).to(dev)
+                        for x in graph.neighbor_table)
+        for dt in NARROW:
+            vals = narrow_values(graph.n, d, 0, dt, seed, dev)
+            got = ops.edge_gather_mix(vals, table, valid)
+            want = ops.edge_gather_mix(vals.float(), table, valid)
+            assert torch.equal(got, want), (label, dt)
+            del vals, got, want
+        p16 = EG.plan(graph.n, table.shape[1], d, True, elem=2)
+        p32 = EG.plan(graph.n, table.shape[1], d, True)
+        assert p16._replace(smem=0) == p32._replace(smem=0), label
+        log(f"parity narrowed edge_gather_mix {label}: bf16 and f16 V equal "
+            f"the float32 kernel on V.float(), bit for bit ({p16.regime} "
+            f"as float32, shared memory {p16.smem} B against {p32.smem})")
+        torch.cuda.empty_cache()
+    g = G.random_bipartite_graph(6, 0.5, seed=1)
+    table, valid = (x.copy() for x in g.neighbor_table)
+    pads = valid == 0
+    table[pads] = np.resize(np.array([7, -3, 100, -1], np.int32),
+                            int(pads.sum()))
+    args = (torch.from_numpy(table).to(dev), torch.from_numpy(valid).to(dev))
+    for dt in NARROW:
+        vals = torch.randn((6, 1001), device=dev).to(dt)
+        vals[0, 2], vals[5, 1] = float("nan"), float("inf")
+        got = ops.edge_gather_mix(vals, *args)
+        want = ops.edge_gather_mix(vals.float(), *args)
+        nan = want.isnan()
+        assert bool(nan.any()) and torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan], want[~nan]), dt
+    log("parity narrowed edge_gather_mix poisoned table: bf16 and f16 equal "
+        "the float32 kernel (NaN where it has NaN, the rest bit for bit)")
+
+    layouts = grouped_layouts()
+    for label in ("xlstm-125m (4, 134277912) G=19", "ragged (5, 4099) G=3"):
+        n, dims, gids, degen = layouts[label]
+        args, pk = grouped_inputs(dev, n, dims, gids, 5, ())
+        theta, qprev = args[0], args[1]
+        kw = dict(group_runs=pk.group_runs, **GROUPED_KW)
+        for dt in NARROW:
+            qn = qprev.to(dt)
+            th = theta.clone()
+            for row, grp in degen:      # theta equals the stored replica
+                for off, size in pk.group_runs[grp]:
+                    th[row, off:off + size] = qn[row, off:off + size].float()
+            got = ops.stoch_quantize_grouped_fused(th, qn, *args[2:], None,
+                                                   **kw)
+            want = ops.stoch_quantize_grouped_fused(th, qn.float(),
+                                                    *args[2:], None, **kw)
+            assert got[0].dtype == dt
+            assert torch.equal(got[0], want[0].to(dt)), (label, dt)
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b), (label, dt)
+            for row, grp in degen:
+                for off, size in pk.group_runs[grp]:
+                    assert torch.equal(got[0][row, off:off + size],
+                                       qn[row, off:off + size]), label
+            del qn, th, got, want
+        log(f"parity narrowed stoch_quantize_grouped_fused {label}: bf16 and "
+            f"f16 q_hat equal the float32 kernel on q_hat.float(), out "
+            f"rounded once and the (N, G) outputs bit for bit; degenerate "
+            f"groups {degen} keep q_hat")
+        del args, theta, qprev
+        torch.cuda.empty_cache()
+
+
+def narrow_times(label, fns, b):
+    """Device time (profiler, all activities of one call) and time per
+    call (CUDA events) of each entry of ``fns``, printed beside the bound
+    ``b``; returns them by name."""
+    t = {}
+    for name, fn in fns.items():
+        t[name] = (device_ms(fn, 10), time_ms(fn, 10, 5))
+    log(f"time narrowed {label}: " + "; ".join(
+        f"{name} device {dv} ms, per call {pc:.4f} ms"
+        for name, (dv, pc) in t.items())
+        + f"; bound {b[0]:.4f} ms ({b[1]})")
+    return t
+
+
+def time_narrow(ops, dev):
+    """The narrowed kernels at the LM shape beside the float32 kernel, the
+    route each replaces (the cast pass plus the float32 kernel; for B2 and
+    B3 the cast back as well) and, for B2, torch.matmul in bf16."""
+    from repro_torch.runtime import steps as ST
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    adj = (torch.rand((4, 4), generator=gen, device=dev) < 0.6).float()
+    vb = narrow_values(4, LM_DIM, 0, bf, 11, dev)
+    v32 = vb.float()
+    out["bipartite_mix"] = narrow_times(
+        "bipartite_mix (4, 4) x (4, 134277912)", {
+            "bf16 kernel": lambda: ops.bipartite_mix(adj, vb),
+            "float32 kernel": lambda: ops.bipartite_mix(adj, v32),
+            "replaced route (cast, float32 kernel, cast)":
+                lambda: ops.bipartite_mix(adj, vb.float()).to(bf),
+            "torch.matmul bf16": lambda: torch.matmul(adj.to(bf), vb)},
+        bound(2.0 * (4 * LM_DIM + 4 * LM_DIM) + 4.0 * 16,
+              2.0 * 16 * LM_DIM))
+    graph = ST.worker_graph(4)
+    table, valid = (torch.from_numpy(x).to(dev) for x in graph.neighbor_table)
+    referenced = np.unique(graph.neighbor_table[0][
+        graph.neighbor_table[1] > 0]).size
+    out["edge_gather_mix"] = narrow_times(
+        "edge_gather_mix (4, 134277912)", {
+            "bf16 kernel": lambda: ops.edge_gather_mix(vb, table, valid),
+            "float32 kernel": lambda: ops.edge_gather_mix(v32, table, valid),
+            "replaced route (cast, float32 kernel)":
+                lambda: ops.edge_gather_mix(vb.float(), table, valid)},
+        bound(2.0 * referenced * LM_DIM + 4.0 * 4 * LM_DIM
+              + 8.0 * table.numel(), 2.0 * int(valid.sum()) * LM_DIM))
+    del vb, v32
+    torch.cuda.empty_cache()
+    n, dims, gids, _ = grouped_layouts()["xlstm-125m (4, 134277912) G=19"]
+    args, pk = grouped_inputs(dev, n, dims, gids, 99, ())
+    kw = dict(group_runs=pk.group_runs, **GROUPED_KW)
+    qn = args[1].to(bf)
+    rest = args[2:]
+    n_el = args[0].numel()
+    out["stoch_quantize_grouped_fused"] = narrow_times(
+        "stoch_quantize_grouped_fused (4, 134277912) G=19", {
+            "bf16 q_hat kernel": lambda: ops.stoch_quantize_grouped_fused(
+                args[0], qn, *rest, None, **kw),
+            "float32 kernel": lambda: ops.stoch_quantize_grouped_fused(
+                args[0], args[1], *rest, None, **kw),
+            "replaced route (cast, float32 kernel, cast)":
+                lambda: ops.stoch_quantize_grouped_fused(
+                    args[0], qn.float(), *rest, None, **kw)[0].to(bf)},
+        bound(12.0 * n_el, QUANT_OPS_PER_ELEM * n_el))
+    del args, qn, rest
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_size_bf16(ops, dev, prob, theta_star):
+    """Phase 5's problem with bf16 replicas (``hat_dtype="bfloat16"``):
+    the distance to the optimum falls, and every iteration makes exactly
+    2 B1 launches (on float32 operands, the engine's casts) and 3 B2
+    launches on bf16 values."""
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import engine as E
+    from repro_torch.core.graph import random_bipartite_graph
+
+    cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0), hat_dtype="bfloat16")
+    graph = random_bipartite_graph(FULL_N, 0.35, seed=0)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with operand_dtypes(ops, ("bipartite_mix", "stoch_quantize")) as seen:
+        state, out = E.run(graph, cfg, E.ExactSolver(prob),
+                           torch.zeros((FULL_N, FULL_D), device=dev),
+                           FULL_ITERS,
+                           extra_metrics=E.flat_metrics(graph, device=dev))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(stoch_quantize=2 * FULL_ITERS, bipartite_mix=3 * FULL_ITERS)
+    assert launches == want, launches
+    assert seen["bipartite_mix"] == [torch.bfloat16] * (3 * FULL_ITERS)
+    assert seen["stoch_quantize"] == [torch.float32] * (2 * FULL_ITERS)
+    for x in (state.theta_hat, state.alpha, state.quant.q_hat):
+        assert x.dtype == torch.bfloat16
+    dist = ((out["theta"] - theta_star[None, None]) ** 2).sum(
+        dim=(1, 2)).cpu().numpy()
+    assert np.isfinite(dist).all() and dist[-1] < dist[0], dist
+    log(f"full cq-ggadmm bf16 replicas N={FULL_N} d={FULL_D}: "
+        f"{wall / FULL_ITERS * 1e3:.2f} ms/iteration, dist-to-opt "
+        f"{dist[0]:.4e} -> {dist[-1]:.4e}, bits "
+        f"{float(out['payload_bits'].sum()):.4e}; launches {launches}, B2 "
+        f"on bf16 values, B1 on float32")
+
+
+def lm_bf16_traced(ops, dev, lm32):
+    """Phase 10's training with bf16 replicas (``hat_dtype``, the library
+    entry: ``train.main(..., hat_dtype=...)`` builds the engine config),
+    traced: a finite loss, exactly 2 B3 and 3 B2 launches per step on
+    bf16 q_hat and theta_hat, bf16 replica leaves; the trace valid with a
+    round span a step, and the ledger equal to build_comm_log over the
+    same tx_mask and payload_bits. Loss, s/step and peak memory beside
+    phase 10's."""
+    from repro_torch.core import comm
+    from repro_torch.core import tree as T
+    from repro_torch.launch import train
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime import steps as ST
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "lm_bf16.json"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with operand_dtypes(ops, ("bipartite_mix",
+                                  "stoch_quantize_grouped_fused")) as seen:
+            out = train.main(LM_FLAGS + ["--steps", str(LM_STEPS),
+                                         "--trace", str(path)],
+                             hat_dtype="bfloat16")
+            torch.cuda.synchronize()
+    finally:
+        obs_trace.disable(save=False)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    assert np.isfinite(hist).all(), hist
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(stoch_quantize_grouped_fused=2 * LM_STEPS,
+                bipartite_mix=3 * LM_STEPS)
+    assert launches == want, launches
+    assert seen["bipartite_mix"] == [torch.bfloat16] * (3 * LM_STEPS)
+    assert seen["stoch_quantize_grouped_fused"] == \
+        [torch.bfloat16] * (2 * LM_STEPS)
+    st = out["state"]
+    for tree in (st.theta_hat, st.alpha, st.quant.q_hat):
+        assert {x.dtype for x in T.leaves(tree)} == {torch.bfloat16}
+    with open(path) as f:
+        doc = json.load(f)
+    errors = obs_trace.validate_events(doc)
+    assert errors == [], errors[:5]
+    spans = sum(e["ph"] == "B" and e["name"] == "round"
+                for e in doc["traceEvents"])
+    assert spans == LM_STEPS, spans
+    ms = out["traced_metrics"]
+    clog = comm.build_comm_log([m["tx_mask"] for m in ms],
+                               [m["payload_bits"] for m in ms],
+                               ST.worker_graph(4, "random"))
+    led = out["ledger"]
+    assert led["cum_transmissions"] == clog.cumulative_rounds[-1], led
+    assert led["cum_bits"] == clog.cumulative_bits[-1], led
+    log(f"lm xlstm-125m bf16 replicas (traced): loss "
+        f"{' -> '.join(f'{x:.4f}' for x in hist)} (float32 replicas, phase "
+        f"10: {' -> '.join(f'{x:.4f}' for x in lm32['history'])}); s/step "
+        f"{', '.join(f'{x:.3f}' for x in out['step_seconds'])} (phase 10: "
+        f"{', '.join(f'{x:.3f}' for x in lm32['step_seconds'])}; wall "
+        f"{wall:.1f} s with init); peak device memory {peak_gb:.2f} GB "
+        f"(phase 10: {lm32['peak_gb']:.2f} GB); launches {launches}, B2 "
+        f"and B3 on bf16; trace {len(doc['traceEvents'])} events, "
+        f"{spans} round spans, valid; ledger {led['cum_transmissions']:.0f} "
+        f"transmissions, {led['cum_bits']:.6e} bits = build_comm_log")
+
+
+def load_b_traced_checks(sched, launches, path):
+    """Run (b) of phase 19 ran traced: its host decisions as recorded
+    untraced (PERF.md section 5: 303 shared page hits, peak 455 pages, 108
+    prefill chunks; 22 B7 launches on each of 382 decode ticks), the trace
+    valid with every request span closed and a page_pool counter each
+    tick."""
+    from repro_torch.obs import trace as obs_trace
+
+    with open(path) as f:
+        doc = json.load(f)
+    errors = obs_trace.validate_events(doc)
+    assert errors == [], errors[:5]
+    ev = doc["traceEvents"]
+    requests = sum(e["ph"] == "B" and e["name"] == "request" for e in ev)
+    closed = sum(e["ph"] == "E" and e["name"] == "request"
+                 and not e.get("args", {}).get("truncated") for e in ev)
+    pools = sum(e["ph"] == "C" and e["name"] == "page_pool" for e in ev)
+    assert requests == closed == SERVE_REQUESTS, (requests, closed)
+    assert pools == sched.steps, (pools, sched.steps)
+    counters = (sched.shared_page_hits, sched.peak_pages_in_use,
+                sched.prefill_chunks, sched.decode_steps,
+                launches["paged_attention_decode"])
+    assert counters == (303, 455, 108, 382, 8404), counters
+    log(f"load (b) traced: {len(ev)} events, {requests} request spans all "
+        f"closed, {pools} page_pool counters, valid; shared hits, peak "
+        f"pages, prefill chunks, decode ticks, B7 launches {counters} as "
+        f"untraced")
+
+
 def run_card_case(name: str) -> None:
     """Run one card test of tests/test_torch_cuda.py in a child pytest."""
     t0 = time.perf_counter()
@@ -2497,6 +2905,9 @@ def main() -> int:
     launches, prob, theta_star = full_size(ops, dev)
     log(f"phase full size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    full_size_bf16(ops, dev, prob, theta_star)
+    log(f"phase full size bf16 replicas: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     dynamic_full_size(ops, dev, prob, theta_star)
     log(f"phase dynamic full size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2513,8 +2924,16 @@ def main() -> int:
     times["edge_gather_mix"] = time_edge(ops, ref, dev)
     log(f"phase edge_gather_mix kernel: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    lm = lm_full_width(ops, dev)
+    check_narrow_parity(ops, dev)
+    time_narrow(ops, dev)
+    log(f"phase narrowed kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm, lm32 = lm_full_width(ops, dev)
     log(f"phase lm full width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_bf16_traced(ops, dev, lm32)
+    log(f"phase lm full width bf16 replicas, traced: "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lm_fleet = lm_fleet_full_width(ops, dev)
     log(f"phase lm fleet full width: {time.perf_counter() - t0:.1f} s")

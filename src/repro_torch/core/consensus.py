@@ -31,7 +31,9 @@ class ConsensusConfig:
     local_steps: int = 4          # inexact-argmin Adam iterations
     local_lr: float = 1e-3
     use_adam: bool = True         # False: plain SGD, no moments
-    hat_dtype: Optional[str] = None  # narrowed replicas: not ported
+    hat_dtype: Optional[str] = None  # "bfloat16" stores theta_hat / q_hat
+    #                               / alpha replicas at half width (the
+    #                               paper's accounting is unchanged)
     groups: E.GroupSpec = "model"    # "leaf" => L-FGADMM layer-wise mode
     censor_mode: str = "global"      # "group" => per-group censoring
 

@@ -37,8 +37,18 @@ The stochastic-rounding uniforms are ``(N, D)`` per phase, from
 ``run(uniforms=...)`` injects them (a test feeds the JAX package's draws).
 
 The step takes the fleet's ``participation`` mask (``fleet/sim.py``): a
-timed-out worker is composed into the censor decision. Not ported yet
-(ROADMAP.md): the sharded topology and narrowed ``hat_dtype`` replicas.
+timed-out worker is composed into the censor decision.
+
+``hat_dtype`` ("bfloat16", "float16" or "float32") narrows the replicas
+``theta_hat``, ``alpha`` and ``q_hat`` to that storage; ``theta`` and the
+optimizer moments keep theirs. Every quantity computed from a replica is
+computed in float32 (the censor diff, the solver's ``v``, the dual update,
+the quantizer range) and rounded once where it is stored. The mixes read
+the narrowed buffer as it is (``bipartite_mix`` returns its dtype,
+``edge_gather_mix`` float32), and the fused grouped round reads and writes
+a narrowed ``q_hat`` itself; the one-leaf and two-pass quantize paths work
+on float32 copies, as the JAX engine's casts do. Not ported yet
+(ROADMAP.md): the sharded topology.
 """
 from __future__ import annotations
 
@@ -66,6 +76,9 @@ MetricsFn = Callable[["EngineState", Any], Metrics]
 Uniforms = Callable[[int, int], torch.Tensor]   # (iteration, phase) -> (N, D)
 GroupSpec = Union[str, Tuple]
 GroupSpecError = packing.GroupSpecError
+# the storage types ``EngineConfig.hat_dtype`` names
+HAT_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+              "float32": torch.float32}
 
 
 # --------------------------------------------------------- tree helpers --
@@ -155,7 +168,7 @@ class EngineConfig:
     #                                   ported)
     use_pallas_mix: bool = False
     use_pallas_quant: bool = False
-    hat_dtype: Optional[str] = None   # narrowed replicas: not ported
+    hat_dtype: Optional[str] = None   # narrow theta_hat/q_hat/alpha replicas
     regroup_every: int = 0            # auto:K re-clustering period (0 = off)
 
     def __post_init__(self):
@@ -170,9 +183,9 @@ class EngineConfig:
                 "(ROADMAP.md queue A item 14)")
         if isinstance(self.groups, str):
             packing.validate_spec_syntax(self.groups)
-        if self.hat_dtype is not None:
-            raise NotImplementedError("hat_dtype is not ported yet "
-                                      "(ROADMAP.md queue A item 8)")
+        if self.hat_dtype is not None and self.hat_dtype not in HAT_DTYPES:
+            raise ValueError(f"hat_dtype must be one of {sorted(HAT_DTYPES)}"
+                             f" or None, got {self.hat_dtype!r}")
         if self.regroup_every < 0:
             raise ValueError(f"regroup_every must be >= 0, "
                              f"got {self.regroup_every}")
@@ -207,13 +220,15 @@ class GroupQuantState:
         return int(self.range_prev.shape[-1])
 
     @staticmethod
-    def create(theta: Tree, n_groups: int = 1,
-               b0: int = 2) -> "GroupQuantState":
+    def create(theta: Tree, n_groups: int = 1, b0: int = 2,
+               hat_dtype: Optional[torch.dtype] = None) -> "GroupQuantState":
         first = T.leaves(theta)[0]
         n = first.shape[0]
         side = dict(dtype=torch.float32, device=first.device)
         return GroupQuantState(
-            q_hat=T.tree_map(torch.zeros_like, theta),
+            q_hat=T.tree_map(
+                lambda x: torch.zeros_like(x, dtype=hat_dtype or x.dtype),
+                theta),
             range_prev=torch.zeros((n, n_groups), **side),
             bits_prev=torch.full((n, n_groups), float(b0), **side),
             delta_prev=torch.zeros((n, n_groups), **side),
@@ -238,15 +253,21 @@ class EngineState:
 
 def init_state(theta: Tree, cfg: EngineConfig,
                solver: Optional[Any] = None) -> EngineState:
-    """Engine state from per-worker initial parameters (leading axis N)."""
+    """Engine state from per-worker initial parameters (leading axis N);
+    the replicas in ``cfg.hat_dtype`` when it is set."""
     qcfg = cfg.quantize or QuantConfig()
+    hat_dtype = HAT_DTYPES[cfg.hat_dtype] if cfg.hat_dtype else None
     mu, nu = solver.init_opt(theta) if solver is not None else ((), ())
+
+    def hat_zeros(x):
+        return torch.zeros_like(x, dtype=hat_dtype or x.dtype)
+
     return EngineState(
         theta=theta,
-        theta_hat=T.tree_map(torch.zeros_like, theta),
-        alpha=T.tree_map(torch.zeros_like, theta),  # alpha^0 in col(M_-)
+        theta_hat=T.tree_map(hat_zeros, theta),
+        alpha=T.tree_map(hat_zeros, theta),  # alpha^0 in col(M_-)
         quant=GroupQuantState.create(theta, n_groups_of(theta, cfg.groups),
-                                     b0=qcfg.b0),
+                                     b0=qcfg.b0, hat_dtype=hat_dtype),
         opt_mu=mu, opt_nu=nu, k=0,
     )
 
@@ -329,10 +350,14 @@ def _grouped_quantize_step_packed(
 ) -> Tuple[GroupQuantState, Tree, torch.Tensor, torch.Tensor]:
     """The whole grouped round (range reduction, Eq. (18) schedule,
     quantize, degenerate passthrough) in one ``stoch_quantize_grouped_fused``
-    call on the packed buffer."""
+    call on the packed buffer. ``q_hat`` is packed in its own storage dtype
+    when its leaves share one (the kernel reads and writes it narrowed), so
+    ``out`` unpacks without a cast."""
     pk = packing.make_packing(theta, group_ids)
     theta_p = packing.pack(pk, theta)                     # (N, D) f32
-    qprev_p = packing.pack(pk, state.q_hat)
+    q_dtypes = {q.dtype for q in T.leaves(state.q_hat)}
+    qprev_p = packing.pack(pk, state.q_hat, dtype=q_dtypes.pop()
+                           if len(q_dtypes) == 1 else torch.float32)
     out, range_new, bits, delta = ops.stoch_quantize_grouped_fused(
         theta_p, qprev_p, uniforms.contiguous(),
         state.bits_prev.contiguous(), state.range_prev.contiguous(),

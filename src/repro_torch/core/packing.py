@@ -30,7 +30,7 @@ from repro_torch.core import tree as T
 
 Tree = Any
 
-# Layout cache: (paths, shapes, dtypes, group_ids) -> Packing. Layouts are
+# Layout cache: (structure, shapes, dtypes, group_ids) -> Packing. Layouts are
 # immutable and few per process (as the JAX module's cache).
 _CACHE: Dict[Tuple, "Packing"] = {}
 
@@ -98,7 +98,10 @@ def make_packing(tree: Tree, group_ids: Sequence[int]) -> Packing:
     if len(ids) != len(flat):
         raise ValueError(f"group spec covers {len(ids)} leaves, "
                          f"tree has {len(flat)}")
-    key = (tuple(p for p, _ in flat), shapes, dtypes, ids)
+    # the structure, empty sub-trees included (they have no leaf paths), is
+    # part of the key: unpack rebuilds the tree from the skeleton
+    skeleton = T.tree_map(lambda x: None, tree)
+    key = (repr(skeleton), shapes, dtypes, ids)
     hit = _CACHE.get(key)
     if hit is not None:
         return hit
@@ -120,7 +123,7 @@ def make_packing(tree: Tree, group_ids: Sequence[int]) -> Packing:
             runs[g][-1] = (runs[g][-1][0], runs[g][-1][1] + d)
         else:
             runs[g].append((off_i, d))
-    pk = Packing(skeleton=T.tree_map(lambda x: None, tree), shapes=shapes,
+    pk = Packing(skeleton=skeleton, shapes=shapes,
                  dtypes=dtypes, dims=dims, offsets=tuple(offsets),
                  group_ids=ids, n_groups=n_groups, group_dims=tuple(gdims),
                  group_runs=tuple(tuple(r) for r in runs))

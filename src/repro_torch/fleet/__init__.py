@@ -1,5 +1,5 @@
 """Fleet simulation: stragglers, bounded staleness, churn (DESIGN.md
-§Fleet). The JAX package's tracing helpers are not ported."""
+§Fleet), traced with ``--trace`` (``FleetSim.run``)."""
 from repro_torch.fleet.faults import (ChurnEvent, FaultConfig, FaultSchedule,
                                       RoundFaults, staleness_trace)
 from repro_torch.fleet.sim import (FleetConfig, FleetSim, FleetState,

@@ -26,8 +26,13 @@ The host loop (:class:`FleetSim`) steps one round at a time. Per-round
 rounding draws come from a ``torch.Generator`` seeded from ``(seed,
 round)`` (:func:`round_draws`), or from a ``uniforms(round, phase)`` hook
 (the parity tests feed the JAX package's draws through it); the fault
-schedule is a pure function of its config. The JAX package's tracer spans
-and ``CommLedger`` (observability behind ``--trace``) are not ported.
+schedule is a pure function of its config. With a tracer active
+(``obs.trace``, ``--trace``) each round is a span on the ``fleet/rounds``
+track, churn an instant there, each worker's drop, lag_start and deliver an
+instant on its ``fleet/worker <gid>`` track, and a ``CommLedger`` streams
+the cumulative transmissions, bits and energy; all of it reads the round's
+fault draw and the host copy of its metrics the loop makes anyway, so a
+traced run is the untraced one bit for bit.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ from repro_torch.core import tree as T
 from repro_torch.core.graph import WorkerGraph, membership_graph
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.fleet.faults import FaultConfig, FaultSchedule
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ledger import CommLedger
 
 Tree = Any
 
@@ -309,6 +316,7 @@ class FleetSim:
         # host shadow of the staleness timers (fleet_timer of the last
         # faulted round): is any packet in flight before this round?
         self._host_timer = np.zeros(n_workers, np.int32)
+        self.ledger: Optional[CommLedger] = None   # set by a traced run
         self._rebuild_step()
 
     # ------------------------------------------------------- internals --
@@ -358,6 +366,26 @@ class FleetSim:
             self.on_churn(r, self.graph, fs)
         return fs
 
+    def _trace_worker_events(self, tr, r: int, rf, host) -> None:
+        """Per-worker fault instants on ``fleet/worker <gid>`` tracks: drop
+        (straggler timeout), lag_start (packet parked), deliver (stale
+        packet landed), from the round's fault draw and host metrics."""
+        start = np.asarray(host["fleet_start"])
+        deliver = np.asarray(host["fleet_deliver"])
+        for i, gid in enumerate(self.members):
+            if rf.drop[i]:
+                tr.instant("drop", "fleet",
+                           tr.track("fleet", f"worker {gid}"),
+                           args={"round": r})
+            if start[i] > 0:
+                tr.instant("lag_start", "fleet",
+                           tr.track("fleet", f"worker {gid}"),
+                           args={"round": r, "lag": int(rf.lag[i])})
+            if deliver[i] > 0:
+                tr.instant("deliver", "fleet",
+                           tr.track("fleet", f"worker {gid}"),
+                           args={"round": r})
+
     # ------------------------------------------------------------- run --
     def run(self) -> Tuple[FleetState, Dict[str, Any]]:
         """Drive ``fleet_cfg.rounds`` rounds; returns the final state and
@@ -371,17 +399,34 @@ class FleetSim:
         fs = init_fleet_state(state)
         del state
         records: List[Dict[str, Any]] = []
+        # observers only: the events and the ledger read the fault schedule
+        # and the host copy of the metrics each round makes anyway
+        tr = obs_trace.tracer()
+        self.ledger = CommLedger(self.graph, subsystem="fleet") \
+            if tr is not None else None
         for r in range(fcfg.rounds):
             t0 = time.perf_counter()
             event = self.schedule.churn_at(r)
             if event is not None and (event.leave or event.join):
                 fs = self._apply_churn(r, fs, event)
+                if self.ledger is not None:
+                    self.ledger.rebuild(self.graph)
+                if tr is not None:
+                    log = self.churn_log[-1]
+                    tr.instant("churn", "fleet",
+                               tr.track("fleet", "rounds"),
+                               args={"round": r, "left": len(log["left"]),
+                                     "joined": len(log["joined"]),
+                                     "n_members": log["n_members"]})
             rf = self.schedule.round_faults(r, self.members)
             batch = self.batch_fn(r, tuple(self.members)) \
                 if self.batch_fn is not None else None
             n = len(self.members)
             draw = round_draws(fcfg.seed, r, (n, dim), self.device,
                                self.uniforms)
+            if tr is not None:
+                tr.begin("round", "fleet", tr.track("fleet", "rounds"),
+                         args={"round": r, "n_members": n})
             if (not rf.drop.any() and not rf.lag.any()
                     and not self._host_timer.any()):
                 # fault-free round, nothing in flight: the synchronous step
@@ -401,6 +446,10 @@ class FleetSim:
                 host = _to_host(m)
                 self._host_timer = host["fleet_timer"].astype(np.int32)
             del m
+            if tr is not None:
+                tr.end("fleet", tr.track("fleet", "rounds"))
+                self._trace_worker_events(tr, r, rf, host)
+                self.ledger.update(host)
             host["n_members"] = np.asarray(n, np.int32)
             host["round_seconds"] = np.asarray(time.perf_counter() - t0)
             records.append(host)

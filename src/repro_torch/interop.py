@@ -12,6 +12,12 @@ for a bare (N, d) array), the (N, G) side information
 port's trees and :class:`~repro_torch.core.engine.EngineState` on a
 device, and back. It imports neither JAX nor the JAX package: the caller
 hands it arrays.
+
+Leaves are float32, or narrowed replicas (``hat_dtype``) in float16 or
+bfloat16. ``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes``
+bfloat16 array, which ``torch.from_numpy`` refuses: its bits cross as a
+``uint16`` view (as the serving swap payload's do), and a bfloat16 leaf
+goes back the same way.
 """
 from __future__ import annotations
 
@@ -36,15 +42,30 @@ SIDE_FIELDS = ("range_prev", "bits_prev", "delta_prev", "initialized")
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
-    if arr.dtype != np.float32:
-        raise ValueError(f"expected float32 arrays, got {arr.dtype}")
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    if arr.dtype not in (np.float32, np.float16):
+        raise ValueError(f"expected float32, float16 or bfloat16 arrays, "
+                         f"got {arr.dtype}")
     return torch.as_tensor(arr.copy(), device=dev)
+
+
+def _array(x: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy; bfloat16 as its bits in an ``ml_dtypes`` bfloat16
+    array (the dtype JAX hands out)."""
+    x = x.detach().cpu()
+    if x.dtype != torch.bfloat16:
+        return x.numpy()
+    import ml_dtypes  # numpy's bfloat16; imported only for such a leaf
+
+    return x.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
 
 
 def tree_from_numpy(flat: Mapping[str, np.ndarray],
                     device: Device = None) -> Any:
-    """A keystr-path -> float32 array mapping (e.g. a JAX params tree
-    flattened with ``jax.tree_util.keystr``) as the port's tree."""
+    """A keystr-path -> array mapping (e.g. a JAX params tree flattened
+    with ``jax.tree_util.keystr``) as the port's tree."""
     dev = resolve_device(device)
     return T.from_paths({k: _tensor(v, dev) for k, v in flat.items()})
 
@@ -74,7 +95,7 @@ def model_params_from_numpy(flat: Mapping[str, np.ndarray], cfg,
 
 def tree_to_numpy(tree: Any) -> Dict[str, np.ndarray]:
     """keystr path -> numpy array, the inverse of :func:`tree_from_numpy`."""
-    return {k: v.detach().cpu().numpy() for k, v in T.to_paths(tree).items()}
+    return {k: _array(v) for k, v in T.to_paths(tree).items()}
 
 
 def _field(d: Mapping[str, np.ndarray], name: str) -> Dict[str, Any]:
@@ -120,7 +141,7 @@ def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
         if isinstance(tree, tuple):         # a solver without moments
             continue
         for path, leaf in T.to_paths(tree).items():
-            out[name + path] = leaf.detach().cpu().numpy()
+            out[name + path] = _array(leaf)
     out.update({f"quant.{f}": getattr(state.quant, f).cpu().numpy()
                 for f in SIDE_FIELDS})
     out["k"] = np.asarray(state.k, np.int32)

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/edge_gather_mix.py::
 // edge_gather_mix (_edge_gather_kernel): out[n] = sum_s valid[n, s] *
-// V[nbr[n, s]], with V (N, d) float32, the table (N, S) int32 (S = max
-// degree), the validity (N, S) float32 1/0, and out (N, d) float32. On the
+// V[nbr[n, s]], with V (N, d) float32, bf16 or f16 (the engine's narrowed
+// replicas), the table (N, S) int32 (S = max degree), the validity (N, S)
+// float32 1/0, and out (N, d) float32. On the
 // TPU the neighbour ids were scalar-prefetched so that the BlockSpec could
 // DMA the gathered row block; here a block stages its rows' ids itself.
 //
@@ -16,8 +17,18 @@
 // clamped into [0, N) as the TPU block index is (pad ids may point
 // anywhere; the table is never checked on the host).
 //
+// A narrowed V is staged as it is stored (half the bytes through HBM and
+// shared memory) and widened exactly where a walk reads it, so the sums are
+// those of V.float(), bit for bit; there is no cast pass before the kernel.
+// The narrow tile is staged, not widened on landing: cp.async copies raw
+// bytes, and widening on read costs two conversions a unit against a
+// second pass over shared memory. Rows that are not 8-byte aligned (or d
+// not a multiple of 4) take one value a unit by plain loads, as cp.async
+// copies 4 bytes at least.
+//
 // What bounds it on this card: bytes, V's referenced rows read once and out
-// written once (the LM buffer: 4.3 GB, 1.28 ms at 3.35 TB/s). The first
+// written once (the LM buffer: 4.3 GB, 1.28 ms at 3.35 TB/s; 3.22 GB, 0.96
+// ms with bf16 V). The first
 // design (a grid row per output row, every thread reading each slot's id
 // and then its V row from L2 or HBM) read (S + 1) rows per output row
 // through a chain of two dependent loads a slot: 6.45 GB at the LM shape,
@@ -54,6 +65,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "narrow.cuh"
 
 // The host's plan (kernels/edge_gather_mix.py::plan), field for field.
 struct EdgePlan {
@@ -69,13 +81,17 @@ constexpr int kRing = 8;         // gather: slots in flight per thread
 constexpr int kGatherRows = 8;   // gather: a warp per row
 constexpr int kGatherTile = 32;  // gather: a lane per unit
 
-template <bool VEC> struct Unit;
-template <> struct Unit<true> {
-  using T = float4;
-  static __device__ __forceinline__ T zero() {
+// A unit of V as it is stored (S: float4 or float of float32, four
+// narrowed values in a uint2 or one alone) and as it is summed (A: float4
+// or float); E is the storage type of one value.
+template <class E, bool VEC> struct Unit;
+template <bool VEC> struct Sum;
+template <> struct Sum<true> {
+  using A = float4;
+  static __device__ __forceinline__ A zero() {
     return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  static __device__ __forceinline__ T add(T acc, float w, T v) {
+  static __device__ __forceinline__ A add(A acc, float w, A v) {
     acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
     acc.y = __fadd_rn(acc.y, __fmul_rn(w, v.y));
     acc.z = __fadd_rn(acc.z, __fmul_rn(w, v.z));
@@ -83,34 +99,69 @@ template <> struct Unit<true> {
     return acc;
   }
   // w 0 or 1: the product is exact, so one fmaf rounds as the add above
-  static __device__ __forceinline__ T add_exact(T acc, float w, T v) {
+  static __device__ __forceinline__ A add_exact(A acc, float w, A v) {
     acc.x = fmaf(w, v.x, acc.x);
     acc.y = fmaf(w, v.y, acc.y);
     acc.z = fmaf(w, v.z, acc.z);
     acc.w = fmaf(w, v.w, acc.w);
     return acc;
   }
-  static __device__ __forceinline__ void copy(T* smem, const T* gmem) {
+};
+template <> struct Sum<false> {
+  using A = float;
+  static __device__ __forceinline__ A zero() { return 0.0f; }
+  static __device__ __forceinline__ A add(A acc, float w, A v) {
+    return __fadd_rn(acc, __fmul_rn(w, v));
+  }
+  static __device__ __forceinline__ A add_exact(A acc, float w, A v) {
+    return fmaf(w, v, acc);
+  }
+};
+template <> struct Unit<float, true> : Sum<true> {
+  using S = float4;
+  static __device__ __forceinline__ A widen(S v) { return v; }
+  static __device__ __forceinline__ void copy(S* smem, const S* gmem) {
     async_copy::copy16(smem, gmem);
   }
-  static __device__ __forceinline__ void copy_ca(T* smem, const T* gmem) {
+  static __device__ __forceinline__ void copy_ca(S* smem, const S* gmem) {
     async_copy::copy16_ca(smem, gmem);
   }
 };
-template <> struct Unit<false> {
-  using T = float;
-  static __device__ __forceinline__ T zero() { return 0.0f; }
-  static __device__ __forceinline__ T add(T acc, float w, T v) {
-    return __fadd_rn(acc, __fmul_rn(w, v));
-  }
-  static __device__ __forceinline__ T add_exact(T acc, float w, T v) {
-    return fmaf(w, v, acc);
-  }
-  static __device__ __forceinline__ void copy(T* smem, const T* gmem) {
+template <> struct Unit<float, false> : Sum<false> {
+  using S = float;
+  static __device__ __forceinline__ A widen(S v) { return v; }
+  static __device__ __forceinline__ void copy(S* smem, const S* gmem) {
     async_copy::copy4_zfill(smem, gmem, 4);
   }
-  static __device__ __forceinline__ void copy_ca(T* smem, const T* gmem) {
+  static __device__ __forceinline__ void copy_ca(S* smem, const S* gmem) {
     async_copy::copy4_zfill(smem, gmem, 4);
+  }
+};
+// narrowed: staged as stored, widened where a walk reads it
+template <class E> struct Unit<E, true> : Sum<true> {
+  using S = uint2;
+  static __device__ __forceinline__ A widen(S v) {
+    const E* e = reinterpret_cast<const E*>(&v);
+    return make_float4(narrow::widen(e[0]), narrow::widen(e[1]),
+                       narrow::widen(e[2]), narrow::widen(e[3]));
+  }
+  static __device__ __forceinline__ void copy(S* smem, const S* gmem) {
+    async_copy::copy8(smem, gmem);
+  }
+  static __device__ __forceinline__ void copy_ca(S* smem, const S* gmem) {
+    async_copy::copy8(smem, gmem);
+  }
+};
+template <class E> struct Unit<E, false> : Sum<false> {
+  using S = E;
+  static __device__ __forceinline__ A widen(S v) { return narrow::widen(v); }
+  // cp.async copies 4 bytes at least: a plain load and store, seen by the
+  // block at the barrier that publishes the tile (by this thread at once)
+  static __device__ __forceinline__ void copy(S* smem, const S* gmem) {
+    *smem = *gmem;
+  }
+  static __device__ __forceinline__ void copy_ca(S* smem, const S* gmem) {
+    *smem = *gmem;
   }
 };
 
@@ -166,16 +217,16 @@ __device__ __forceinline__ bool prepare_slots(int* ids, const float* ws,
 // fmaf(w, v, acc), which rounds as acc + (w * v) does for such w (the
 // product is exact). QUAD (s % 4 == 0): offsets and weights are read four
 // at a time.
-template <bool VEC, bool EXACT, bool QUAD>
-__device__ __forceinline__ typename Unit<VEC>::T walk(
+template <class E, bool VEC, bool EXACT, bool QUAD>
+__device__ __forceinline__ typename Unit<E, VEC>::A walk(
     const int* __restrict__ off, const float* __restrict__ wr,
-    const typename Unit<VEC>::T* __restrict__ vt, int s) {
-  using U = Unit<VEC>;
-  using T = typename U::T;
-  T acc = U::zero(), v = U::zero();
+    const typename Unit<E, VEC>::S* __restrict__ vt, int s) {
+  using U = Unit<E, VEC>;
+  using A = typename U::A;
+  A acc = U::zero(), v = U::zero();
   int last = -1;
   auto step = [&](int o, float w) {
-    if (o != last) v = vt[o];
+    if (o != last) v = U::widen(vt[o]);
     last = o;
     acc = EXACT ? U::add_exact(acc, w, v) : U::add(acc, w, v);
   };
@@ -195,34 +246,35 @@ __device__ __forceinline__ typename Unit<VEC>::T walk(
   return acc;
 }
 
-template <bool VEC, bool EXACT, bool QUAD>
+template <class E, bool VEC, bool EXACT, bool QUAD>
 __device__ __forceinline__ void walk_rows(
-    typename Unit<VEC>::T* __restrict__ o_u, const int* __restrict__ ids,
-    const float* __restrict__ ws, const typename Unit<VEC>::T* __restrict__ vt,
-    int s, int64_t row0, int rr, int nr, int pass, int64_t cols, int64_t c) {
+    typename Unit<E, VEC>::A* __restrict__ o_u, const int* __restrict__ ids,
+    const float* __restrict__ ws,
+    const typename Unit<E, VEC>::S* __restrict__ vt, int s, int64_t row0,
+    int rr, int nr, int pass, int64_t cols, int64_t c) {
   for (int r = rr; r < nr; r += pass)
     o_u[(row0 + r) * cols + c] =
-        walk<VEC, EXACT, QUAD>(ids + r * s, ws + r * s, vt, s);
+        walk<E, VEC, EXACT, QUAD>(ids + r * s, ws + r * s, vt, s);
 }
 
 // Shared memory: the block's rows' slots, ids then weights, rows x s each
 // (row r's slot j at r * s + j), then the ring of V tiles, each n x tile
-// units (a tile's row j of V at j * tile).
-template <bool VEC>
+// units as stored (a tile's row j of V at j * tile).
+template <class E, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-edge_gather_staged_kernel(const float* __restrict__ vals,
+edge_gather_staged_kernel(const E* __restrict__ vals,
                           const int* __restrict__ nbr,
                           const float* __restrict__ valid,
                           float* __restrict__ out, int n, int s,
                           int64_t cols, int tile, int rows) {
-  using U = Unit<VEC>;
-  using T = typename U::T;
+  using U = Unit<E, VEC>;
+  using S = typename U::S;
   extern __shared__ __align__(16) unsigned char smem[];
   int* ids = reinterpret_cast<int*>(smem);
   float* ws = reinterpret_cast<float*>(smem + align16(rows * s * 4));
-  T* ring = reinterpret_cast<T*>(smem + 2 * align16(rows * s * 4));
-  const T* v_u = reinterpret_cast<const T*>(vals);
-  T* o_u = reinterpret_cast<T*>(out);
+  S* ring = reinterpret_cast<S*>(smem + 2 * align16(rows * s * 4));
+  const S* v_u = reinterpret_cast<const S*>(vals);
+  typename U::A* o_u = reinterpret_cast<typename U::A*>(out);
 
   const int r0 = blockIdx.y * rows;
   const int nr = min(rows, n - r0);
@@ -237,7 +289,7 @@ edge_gather_staged_kernel(const float* __restrict__ vals,
   auto issue = [&](int64_t t, int buf) {
     const int64_t c0 = t << shift;
     const int w = cols - c0 < tile ? (int)(cols - c0) : tile;
-    T* dst = ring + (size_t)buf * tile_units;
+    S* dst = ring + (size_t)buf * tile_units;
     for (int e = threadIdx.x; e < tile_units; e += kThreads) {
       const int j = e & (tile - 1);
       if (j < w)
@@ -263,22 +315,22 @@ edge_gather_staged_kernel(const float* __restrict__ vals,
       if (tn < col_tiles) issue(tn, (k + kStages - 1) % kStages);
       async_copy::commit();
     }
-    const T* vt = ring + (size_t)(k % kStages) * tile_units + cc;
+    const S* vt = ring + (size_t)(k % kStages) * tile_units + cc;
     const int64_t c = ((first + k * stride) << shift) + cc;
     if (c >= cols) continue;
     if (exact) {
       if (quad)
-        walk_rows<VEC, true, true>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
+        walk_rows<E, VEC, true, true>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
                                    cols, c);
       else
-        walk_rows<VEC, true, false>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
+        walk_rows<E, VEC, true, false>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
                                     cols, c);
     } else {
       if (quad)
-        walk_rows<VEC, false, true>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
+        walk_rows<E, VEC, false, true>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
                                     cols, c);
       else
-        walk_rows<VEC, false, false>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
+        walk_rows<E, VEC, false, false>(o_u, ids, ws, vt, s, r0, rr, nr, pass,
                                      cols, c);
     }
   }
@@ -286,24 +338,25 @@ edge_gather_staged_kernel(const float* __restrict__ vals,
 }
 
 // Shared memory: ids then weights, kGatherRows x chunk each, then the
-// per-thread V rings, kRing x kThreads units (thread t's entry k at
-// k * kThreads + t).
-template <bool VEC>
+// per-thread V rings, kRing x kThreads units as stored (thread t's entry k
+// at k * kThreads + t).
+template <class E, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-edge_gather_gather_kernel(const float* __restrict__ vals,
+edge_gather_gather_kernel(const E* __restrict__ vals,
                           const int* __restrict__ nbr,
                           const float* __restrict__ valid,
                           float* __restrict__ out, int n, int s,
                           int64_t cols, int chunk) {
-  using U = Unit<VEC>;
-  using T = typename U::T;
+  using U = Unit<E, VEC>;
+  using S = typename U::S;
+  using A = typename U::A;
   extern __shared__ __align__(16) unsigned char smem[];
   int* ids = reinterpret_cast<int*>(smem);
   float* ws = reinterpret_cast<float*>(ids + kGatherRows * chunk);
-  T* ring = reinterpret_cast<T*>(
+  S* ring = reinterpret_cast<S*>(
                 smem + align16(2 * kGatherRows * chunk * 4)) + threadIdx.x;
-  const T* v_u = reinterpret_cast<const T*>(vals);
-  T* o_u = reinterpret_cast<T*>(out);
+  const S* v_u = reinterpret_cast<const S*>(vals);
+  A* o_u = reinterpret_cast<A*>(out);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * kGatherRows;
@@ -315,8 +368,8 @@ edge_gather_gather_kernel(const float* __restrict__ vals,
   for (int64_t ct = blockIdx.y; ct < col_tiles; ct += gridDim.y) {
     const int64_t c = ct * kGatherTile + lane;
     const bool live = warp < nr && c < cols;
-    const T* v_c = v_u + c;
-    T acc = U::zero();
+    const S* v_c = v_u + c;
+    A acc = U::zero();
     for (int s0 = 0; s0 < s; s0 += chunk) {
       const int len = min(chunk, s - s0);
       __syncthreads();                 // the previous chunk is consumed
@@ -339,7 +392,7 @@ edge_gather_gather_kernel(const float* __restrict__ vals,
           U::copy_ca(ring + (jn % kRing) * kThreads, v_c + iw[jn] * cols);
         async_copy::commit();
         async_copy::wait<kRing - 1>();   // this thread's slot j landed
-        acc = U::add(acc, ww[j], ring[(j % kRing) * kThreads]);
+        acc = U::add(acc, ww[j], U::widen(ring[(j % kRing) * kThreads]));
       }
     }
     if (live) o_u[(int64_t)(r0 + warp) * cols + c] = acc;
@@ -356,20 +409,20 @@ cudaError_t allow_smem(Kernel fn, int smem, int* allowed) {
   return err;
 }
 
-template <bool VEC>
-cudaError_t launch(const float* v, const int* t, const float* w, float* o,
+template <class E, bool VEC>
+cudaError_t launch(const E* v, const int* t, const float* w, float* o,
                    const EdgePlan& p, cudaStream_t st) {
   static int allowed_staged = 0, allowed_gather = 0;   // per instantiation
   const dim3 grid((unsigned)p.grid_x, (unsigned)p.grid_y);
   cudaError_t err;
   if (p.gather) {
-    auto fn = edge_gather_gather_kernel<VEC>;
+    auto fn = edge_gather_gather_kernel<E, VEC>;
     if ((err = allow_smem(fn, p.smem, &allowed_gather)) != cudaSuccess)
       return err;
     fn<<<grid, kThreads, p.smem, st>>>(v, t, w, o, p.n, p.s, p.cols,
                                        p.chunk);
   } else {
-    auto fn = edge_gather_staged_kernel<VEC>;
+    auto fn = edge_gather_staged_kernel<E, VEC>;
     if ((err = allow_smem(fn, p.smem, &allowed_staged)) != cudaSuccess)
       return err;
     fn<<<grid, kThreads, p.smem, st>>>(v, t, w, o, p.n, p.s, p.cols, p.tile,
@@ -378,25 +431,43 @@ cudaError_t launch(const float* v, const int* t, const float* w, float* o,
   return cudaGetLastError();
 }
 
+template <class E>
+cudaError_t launch_typed(const void* vals, const int* t, const float* w,
+                         float* o, const EdgePlan& p, cudaStream_t st) {
+  const E* v = (const E*)vals;
+  return p.vec ? launch<E, true>(v, t, w, o, p, st)
+               : launch<E, false>(v, t, w, o, p, st);
+}
+
 }  // namespace
 
-// vals: device float32 (n, d); nbr: int32 (n, s); valid: float32 (n, s);
-// out: float32 (n, d), all row-major and contiguous; vals 16-byte aligned
-// with d % 4 == 0 where plan->vec. The plan is the host's, taken as given.
-// Launches on `stream` and returns cudaGetLastError(); no synchronisation.
-extern "C" int edge_gather_mix_f32(const void* vals, const void* nbr,
-                                   const void* valid, void* out,
-                                   const EdgePlan* plan, void* stream) {
+// vals: device (n, d) of the storage type `dtype` (narrow::Code: 0
+// float32, 1 bf16, 2 f16); nbr: int32 (n, s); valid: float32 (n, s); out:
+// float32 (n, d), all row-major and contiguous; vals aligned to a unit (16
+// bytes of float32, 8 of narrowed values) with d % 4 == 0 where plan->vec.
+// The plan is the host's, taken as given. Launches on `stream` and returns
+// cudaGetLastError(); no synchronisation.
+extern "C" int edge_gather_mix(const void* vals, const void* nbr,
+                               const void* valid, void* out,
+                               const EdgePlan* plan, int dtype,
+                               void* stream) {
   const EdgePlan& p = *plan;
   if (p.n <= 0 || p.cols <= 0) return (int)cudaSuccess;
   if (p.tile <= 0 || (p.tile & (p.tile - 1)) || p.tile > kThreads ||
       p.grid_x <= 0 || p.grid_y <= 0 || p.grid_y > 65535 || p.smem > 232448)
     return (int)cudaErrorInvalidValue;
-  const float* v = (const float*)vals;
   const int* t = (const int*)nbr;
   const float* w = (const float*)valid;
   float* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(p.vec ? launch<true>(v, t, w, o, p, st)
-                     : launch<false>(v, t, w, o, p, st));
+  switch (dtype) {
+    case narrow::kF32:
+      return (int)launch_typed<float>(vals, t, w, o, p, st);
+    case narrow::kBF16:
+      return (int)launch_typed<__nv_bfloat16>(vals, t, w, o, p, st);
+    case narrow::kF16:
+      return (int)launch_typed<__half>(vals, t, w, o, p, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

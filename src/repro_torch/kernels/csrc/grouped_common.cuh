@@ -1,7 +1,8 @@
 // Shared device code of the grouped quantize kernels (grouped_quant.cu,
 // grouped_fused.cu, grouped_fused_tiled.cu) for Hopper (sm_90a).
 //
-// The packed buffer is (N, D) float32, row-major and contiguous, so the
+// The packed buffer is (N, D) float32, row-major and contiguous (q_prev
+// and out may be stored narrowed, in bf16 or f16: see Q below), so the
 // whole of it is one run of N*D elements. A row's columns fall into the
 // packing's column runs, each of one quantization group; a (row, run) pair
 // is a "piece": N*S contiguous pieces tile the buffer, and inside a piece
@@ -24,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "narrow.cuh"
 
 namespace gq {
 
@@ -117,9 +120,10 @@ __device__ __forceinline__ void for_each_piece(long long lo, long long hi,
 }
 
 // Block-strided visit of the elements [lo, hi): scalars up to the first
-// multiple of 4, float4 over the aligned middle, scalars for the tail.
+// multiple of 4, quads over the aligned middle, scalars for the tail.
 // Requires every (N, D) buffer to start on a 16-byte boundary (the
-// wrappers check), so element e is 16-byte aligned iff e % 4 == 0.
+// wrappers check), so element e of a float32 buffer is 16-byte aligned iff
+// e % 4 == 0 (of a narrowed one, 8-byte aligned).
 template <class One, class Four>
 __device__ __forceinline__ void visit(long long lo, long long hi, One one,
                                       Four four) {
@@ -153,18 +157,23 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
 // Per-piece max |theta - q_prev| merged into acc[row * G + g] with an
 // atomicMax on the float bits: for non-negative floats the bit patterns
 // order as the values, and max does not depend on the order of merging.
+// Q is q_prev's storage type (float, or a narrowed replica widened exactly
+// as quantize_piece widens it, so both passes see the same values).
+template <class Q>
 __device__ __forceinline__ void reduce_piece(const float* __restrict__ theta,
-                                             const float* __restrict__ qprev,
+                                             const Q* __restrict__ qprev,
                                              float* acc, long long row,
                                              int g, int n_groups,
                                              long long lo, long long hi,
                                              float* sh) {
   float m = 0.0f;
   visit(lo, hi,
-        [&](long long e) { m = fmaxf(m, fabsf(__fsub_rn(theta[e], qprev[e]))); },
+        [&](long long e) {
+          m = fmaxf(m, fabsf(__fsub_rn(theta[e], narrow::widen(qprev[e]))));
+        },
         [&](long long e) {
           const float4 t = *reinterpret_cast<const float4*>(theta + e);
-          const float4 q = *reinterpret_cast<const float4*>(qprev + e);
+          const float4 q = narrow::load4(qprev + e);
           m = fmaxf(m, fabsf(__fsub_rn(t.x, q.x)));
           m = fmaxf(m, fabsf(__fsub_rn(t.y, q.y)));
           m = fmaxf(m, fabsf(__fsub_rn(t.z, q.z)));
@@ -178,15 +187,19 @@ __device__ __forceinline__ void reduce_piece(const float* __restrict__ theta,
 
 // Quantize the piece [lo, hi) with one group's Δ and R; with
 // `passthrough`, a degenerate group (R <= 1e-12) keeps q_prev unchanged.
+// q_prev and out are stored as Q: the float32 chain's result is rounded
+// once into a narrowed out.
+template <class Q>
 __device__ __forceinline__ void quantize_piece(
-    const float* __restrict__ theta, const float* __restrict__ qprev,
-    const float* __restrict__ unif, float* __restrict__ out, float delta,
+    const float* __restrict__ theta, const Q* __restrict__ qprev,
+    const float* __restrict__ unif, Q* __restrict__ out, float delta,
     float r, bool passthrough, long long lo, long long hi) {
+  using Raw = typename narrow::Quad<Q>::Raw;
   if (passthrough && r <= kEps) {
     visit(lo, hi, [&](long long e) { out[e] = qprev[e]; },
           [&](long long e) {
-            *reinterpret_cast<float4*>(out + e) =
-                *reinterpret_cast<const float4*>(qprev + e);
+            *reinterpret_cast<Raw*>(out + e) =
+                *reinterpret_cast<const Raw*>(qprev + e);
           });
     return;
   }
@@ -194,18 +207,19 @@ __device__ __forceinline__ void quantize_piece(
   const float lv = __fdiv_rn(__fmul_rn(2.0f, r), sd);
   visit(lo, hi,
         [&](long long e) {
-          out[e] = quant_one(theta[e], qprev[e], unif[e], sd, r, lv);
+          out[e] = narrow::round_to<Q>(quant_one(
+              theta[e], narrow::widen(qprev[e]), unif[e], sd, r, lv));
         },
         [&](long long e) {
           const float4 t = *reinterpret_cast<const float4*>(theta + e);
-          const float4 q = *reinterpret_cast<const float4*>(qprev + e);
+          const float4 q = narrow::load4(qprev + e);
           const float4 u = *reinterpret_cast<const float4*>(unif + e);
           float4 o;
           o.x = quant_one(t.x, q.x, u.x, sd, r, lv);
           o.y = quant_one(t.y, q.y, u.y, sd, r, lv);
           o.z = quant_one(t.z, q.z, u.z, sd, r, lv);
           o.w = quant_one(t.w, q.w, u.w, sd, r, lv);
-          *reinterpret_cast<float4*>(out + e) = o;
+          narrow::store4(out + e, o);
         });
 }
 

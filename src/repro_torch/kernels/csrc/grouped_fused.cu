@@ -12,11 +12,18 @@
 //                  q_prev
 //
 // and writes out (N, D) and R, b, Δ (N, G). `range_new` must be zero on
-// entry: it is the accumulator of the reduction.
+// entry: it is the accumulator of the reduction. q_prev and out share one
+// storage type: float32, or bf16 / f16 for the engine's narrowed q_hat
+// (hat_dtype). A narrowed q_prev is widened exactly in both sweeps, the
+// same way, so the range and the quantize see the same values, and out is
+// the float32 chain rounded once to nearest even: the result equals this
+// kernel on q_prev.float(), out rounded to the storage type, with the
+// (N, G) outputs bit for bit. No float32 copy of q_hat is packed.
 //
 // What bounds it on this card: bytes. Each element is read from three
-// inputs and written once (16 B); the arithmetic is a dozen flops. At the
-// LM path's (4, 134,277,912) that is 8.6 GB, 2.56 ms at 3.35 TB/s. The
+// inputs and written once (16 B; 12 B with a narrowed q_hat); the
+// arithmetic is a dozen flops. At the LM path's (4, 134,277,912) that is
+// 8.6 GB, 2.56 ms at 3.35 TB/s (6.4 GB, 1.92 ms narrowed). The
 // per-group maxima must be complete before any element is quantized, and
 // at 2 GB per operand nothing stays in the 50 MB L2 between the two
 // sweeps, so this design reads theta and q_prev twice: 24 B per element,
@@ -45,13 +52,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <class Q>
 __global__ void __launch_bounds__(kThreads)
 grouped_fused_kernel(const float* __restrict__ theta,
-                     const float* __restrict__ qprev,
+                     const Q* __restrict__ qprev,
                      const float* __restrict__ unif,
                      const float* __restrict__ bprev,
                      const float* __restrict__ rprev,
-                     const float* __restrict__ init, float* __restrict__ out,
+                     const float* __restrict__ init, Q* __restrict__ out,
                      float* range_new, float* __restrict__ bits,
                      float* __restrict__ delta, long long n, long long d,
                      int n_groups, long long chunk, float omega, float b0,
@@ -86,25 +94,18 @@ grouped_fused_kernel(const float* __restrict__ theta,
       });
 }
 
-}  // namespace
-
-// theta, qprev, unif, out: device float32 (n, d), 16-byte aligned;
-// bprev, rprev, init, range_new (zeroed), bits, delta: (n, n_groups).
-// seg_off (n_segs + 1) and seg_gid (n_segs) are HOST arrays: the column
-// runs. Launches on `stream` and returns a cudaError_t; no
-// synchronisation.
-extern "C" int grouped_fused_f32(const void* theta, const void* qprev,
-                                 const void* unif, const void* bprev,
-                                 const void* rprev, const void* init,
-                                 void* out, void* range_new, void* bits,
-                                 void* delta, long long n, long long d,
-                                 int n_groups, const long long* seg_off,
-                                 const int* seg_gid, int n_segs, float omega,
-                                 float b0, float bmax, void* stream) {
+template <class Q>
+int launch(const void* theta, const void* qprev, const void* unif,
+           const void* bprev, const void* rprev, const void* init, void* out,
+           void* range_new, void* bits, void* delta, long long n,
+           long long d, int n_groups, const long long* seg_off,
+           const int* seg_gid, int n_segs, float omega, float b0, float bmax,
+           void* stream) {
   if (n <= 0 || d <= 0) return (int)cudaSuccess;
   gq::Segs segs;
   if (!gq::make_segs(&segs, seg_off, seg_gid, n_segs))
     return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)grouped_fused_kernel<Q>;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -112,8 +113,8 @@ extern "C" int grouped_fused_f32(const void* theta, const void* qprev,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, grouped_fused_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return (int)err;
   if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long total = n * d;
@@ -128,9 +129,34 @@ extern "C" int grouped_fused_f32(const void* theta, const void* qprev,
                   (void*)&delta, (void*)&n,         (void*)&d,
                   (void*)&n_groups, (void*)&chunk,  (void*)&omega,
                   (void*)&b0,    (void*)&bmax,      (void*)&segs};
-  err = cudaLaunchCooperativeKernel((const void*)grouped_fused_kernel,
-                                    dim3((unsigned)grid), dim3(kThreads),
-                                    args, 0, (cudaStream_t)stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid),
+                                    dim3(kThreads), args, 0,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// theta, qprev, unif, out: device (n, d), 16-byte aligned; theta and unif
+// float32, qprev and out of the entry's storage type (float32, bf16, f16);
+// bprev, rprev, init, range_new (zeroed), bits, delta: float32 (n,
+// n_groups). seg_off (n_segs + 1) and seg_gid (n_segs) are HOST arrays: the
+// column runs. Launches on `stream` and returns a cudaError_t; no
+// synchronisation.
+#define GROUPED_FUSED_ENTRY(NAME, Q)                                         \
+  extern "C" int NAME(const void* theta, const void* qprev,                  \
+                      const void* unif, const void* bprev,                   \
+                      const void* rprev, const void* init, void* out,        \
+                      void* range_new, void* bits, void* delta, long long n, \
+                      long long d, int n_groups, const long long* seg_off,   \
+                      const int* seg_gid, int n_segs, float omega, float b0, \
+                      float bmax, void* stream) {                            \
+    return launch<Q>(theta, qprev, unif, bprev, rprev, init, out,            \
+                     range_new, bits, delta, n, d, n_groups, seg_off,        \
+                     seg_gid, n_segs, omega, b0, bmax, stream);              \
+  }
+
+GROUPED_FUSED_ENTRY(grouped_fused_f32, float)
+GROUPED_FUSED_ENTRY(grouped_fused_bf16, __nv_bfloat16)
+GROUPED_FUSED_ENTRY(grouped_fused_f16, __half)

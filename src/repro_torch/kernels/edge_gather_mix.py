@@ -5,7 +5,8 @@ picks one, with its geometry, from the shapes; the C launcher takes the
 plan as it is.
 
 The port's counterpart of ``repro.kernels.edge_gather_mix.edge_gather_mix``.
-It takes CUDA tensors only; ``kernels.ops.edge_gather_mix`` is the entry
+It takes CUDA tensors only, V in float32, bf16 or f16 (the engine's
+narrowed replicas, read as stored and widened in the kernel), out float32; ``kernels.ops.edge_gather_mix`` is the entry
 point the sparse topology calls. The table's ids are not checked here (that
 would read the table back to the host every call): the kernels clamp them
 into [0, N). The host path is kept thin, as B2's: the C function is
@@ -36,12 +37,14 @@ GATHER_ROWS, GATHER_TILE, GATHER_RING = 8, 32, 8
 GATHER_CHUNK = 512           # slots staged at a time by the gather design
 
 _F32, _I32 = torch.float32, torch.int32
+# V's storage types, by the C entry's dtype code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _launch = None
 
 
 class Plan(NamedTuple):
     """What the launcher runs: ``regime`` "staged" or "gather"; ``vec``
-    float4 units (else float); ``cols`` units per row; ``tile`` units of
+    units of 4 values (else 1); ``cols`` units per row; ``tile`` units of
     columns (a power of two) and ``rows`` output rows per block; ``chunk``
     slots staged at a time (gather; S when staged); ``grid`` (x, y);
     ``smem`` bytes."""
@@ -72,11 +75,17 @@ def slot_bytes(rows: int, s: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(n: int, s: int, d: int, aligned: bool,
-         regime: Optional[str] = None) -> Plan:
-    """The regime and geometry for values (n, d), a table (n, s), and V's
-    rows 16-byte ``aligned`` or not. Pure: the CPU tests check it.
-    ``regime`` forces "staged" or "gather" (the card tests and timings hold
-    both designs to one shape); the entry point never passes it.
+         regime: Optional[str] = None, elem: int = 4) -> Plan:
+    """The regime and geometry for values (n, d) of ``elem`` bytes a value
+    (4 float32, 2 bf16 or f16), a table (n, s), and V ``aligned`` to a unit
+    of 4 values or not. Pure: the CPU tests check it. ``regime`` forces
+    "staged" or "gather" (the card tests and timings hold both designs to
+    one shape); the entry point never passes it.
+
+    ``STAGE_CAP`` and every choice below count V as float32 (4 bytes a
+    value) whatever it is stored in, so a narrowed V takes the regime,
+    tile, rows and grid of a float32 V of its shape; only ``smem`` follows
+    the storage (a narrowed tile stages half the bytes).
 
     Staged while a column tile of ``tile`` units for all n rows fits
     ``STAGE_CAP``: the tile starts at 256 / min(8, n) units (a row pass of
@@ -89,7 +98,8 @@ def plan(n: int, s: int, d: int, aligned: bool,
     gather design: 8 rows a block, 32 units of columns, slots staged
     ``GATHER_CHUNK`` at a time."""
     vec = aligned and d % 4 == 0
-    unit = 16 if vec else 4
+    unit = 16 if vec else 4                  # float32 bytes of a unit
+    stored = unit * elem // 4                # its bytes as stored
     cols = d // 4 if vec else d
     width = _pow2_at_least(max(cols, 1))
     tile = min(THREADS // min(8, _pow2_at_least(max(n, 1))), width)
@@ -117,9 +127,9 @@ def plan(n: int, s: int, d: int, aligned: bool,
                 gx = min(col_tiles, max(1, SMS * _per_sm(one) // groups))
         stages = min(STAGES, -(-col_tiles // gx))
         return Plan("staged", vec, cols, tile, rows, s, (gx, groups),
-                    slot_bytes(rows, s) + stages * v_bytes)
+                    slot_bytes(rows, s) + stages * n * tile * stored)
     chunk = max(1, min(s, GATHER_CHUNK))
-    smem = GATHER_ROWS * chunk * 8 + GATHER_RING * THREADS * unit
+    smem = GATHER_ROWS * chunk * 8 + GATHER_RING * THREADS * stored
     col_tiles = -(-cols // GATHER_TILE)
     return Plan("gather", vec, cols, GATHER_TILE, GATHER_ROWS, chunk,
                 (-(-n // GATHER_ROWS), min(col_tiles, 65535)), smem)
@@ -140,9 +150,10 @@ def c_plan(n: int, s: int, p: Plan) -> _CPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def _planned(n: int, s: int, d: int, aligned: bool) -> Tuple[_CPlan, int]:
+def _planned(n: int, s: int, d: int, aligned: bool,
+             elem: int) -> Tuple[_CPlan, int]:
     """``plan``'s C struct and its address, kept alive by the cache."""
-    cp = c_plan(n, s, plan(n, s, d, aligned))
+    cp = c_plan(n, s, plan(n, s, d, aligned, elem=elem))
     return cp, ctypes.addressof(cp)
 
 
@@ -151,9 +162,9 @@ def _lib() -> ctypes.CDLL:
     global _launch
     lib = build.load("edge_gather_mix")
     if _launch is None:
-        fn = lib.edge_gather_mix_f32
+        fn = lib.edge_gather_mix
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         _launch = fn
     return lib
 
@@ -168,6 +179,7 @@ def launch(values: torch.Tensor, nbr_table: torch.Tensor,
     cp = c_plan(values.shape[0], nbr_table.shape[1], p)
     _check(_launch(values.data_ptr(), nbr_table.data_ptr(),
                    nbr_valid.data_ptr(), out.data_ptr(), ctypes.addressof(cp),
+                   DTYPE_CODES[values.dtype],
                    torch._C._cuda_getCurrentRawStream(values.get_device())))
 
 
@@ -179,12 +191,13 @@ def _check(err: int) -> None:
 def edge_gather_mix_cuda(values: torch.Tensor, nbr_table: torch.Tensor,
                          nbr_valid: torch.Tensor) -> torch.Tensor:
     """``out[n] = sum_s valid[n, s] * values[nbr[n, s]]`` on the current
-    stream: values (N, d) float32, nbr_table (N, S) int32, nbr_valid (N, S)
-    float32, all contiguous on one card -> (N, d) float32. Same contract as
-    ``ref.edge_gather_mix_ref``, bit for bit."""
+    stream: values (N, d) float32, bf16 or f16, nbr_table (N, S) int32,
+    nbr_valid (N, S) float32, all contiguous on one card -> (N, d) float32.
+    Same contract as ``ref.edge_gather_mix_ref``, bit for bit."""
     dev = values.get_device()
+    code = DTYPE_CODES.get(values.dtype)
     if not (values.is_cuda and values.dim() == 2 and nbr_table.dim() == 2
-            and values.dtype == _F32 and nbr_table.dtype == _I32
+            and code is not None and nbr_table.dtype == _I32
             and nbr_valid.dtype == _F32
             and nbr_valid.shape == nbr_table.shape
             and nbr_table.shape[0] == values.shape[0]
@@ -193,7 +206,8 @@ def edge_gather_mix_cuda(values: torch.Tensor, nbr_table: torch.Tensor,
             and values.is_contiguous() and nbr_table.is_contiguous()
             and nbr_valid.is_contiguous()):
         raise ValueError(
-            f"edge_gather_mix: needs contiguous CUDA float32 (N, d) values, "
+            f"edge_gather_mix: needs contiguous CUDA float32, bf16 or f16 "
+            f"(N, d) values, "
             f"int32 (N, S) table and float32 (N, S) validity on one device, "
             f"got {tuple(values.shape)} {values.dtype} on {values.device}, "
             f"{tuple(nbr_table.shape)} {nbr_table.dtype} on "
@@ -202,10 +216,11 @@ def edge_gather_mix_cuda(values: torch.Tensor, nbr_table: torch.Tensor,
     if _launch is None:
         _lib()
     n, d = values.shape
-    vp = values.data_ptr()
-    out = torch.empty_like(values)
+    vp, elem = values.data_ptr(), values.element_size()
+    out = torch.empty((n, d), dtype=_F32, device=values.device)
     _check(_launch(vp, nbr_table.data_ptr(), nbr_valid.data_ptr(),
                    out.data_ptr(),
-                   _planned(n, nbr_table.shape[1], d, vp % 16 == 0)[1],
+                   _planned(n, nbr_table.shape[1], d, vp % (4 * elem) == 0,
+                            elem)[1], code,
                    torch._C._cuda_getCurrentRawStream(dev)))
     return out

@@ -7,7 +7,9 @@
 * ``stoch_quantize_grouped_fused_tiled_cuda`` (csrc/grouped_fused_tiled.cu),
   of ``stoch_quantize_grouped_fused_tiled``.
 
-They take CUDA float32 tensors only. The column groups arrive as the
+They take CUDA float32 tensors; the fused kernel also takes ``q_hat_prev``
+in bf16 or f16 (the engine's narrowed ``q_hat``) and writes ``out`` in
+that dtype, rounded once. The column groups arrive as the
 packing's ``group_runs`` (per group, its ``(offset, size)`` column runs),
 which must tile ``[0, D)``; the kernels read the run boundaries, never a
 ``(D,)`` id map. ``kernels.ops`` holds the entry points the engine calls.
@@ -60,20 +62,27 @@ def column_runs(group_runs, dim: int) -> Tuple[ctypes.Array, ctypes.Array,
     return offs, gids, len(runs)
 
 
+# the fused kernel's entry per storage type of q_hat_prev and out
+FUSED_ENTRIES = {torch.float32: "grouped_fused_f32",
+                 torch.bfloat16: "grouped_fused_bf16",
+                 torch.float16: "grouped_fused_f16"}
+
+
 def _check(op: str, tensors: Sequence[Tuple[str, torch.Tensor, tuple]],
-           device) -> None:
+           device, q_dtypes=(torch.float32,)) -> None:
     for name, x, shape in tensors:
-        if (x.device != device or x.dtype != torch.float32
-                or not x.is_contiguous()):
-            raise ValueError(f"{op}: {name} must be a contiguous float32 "
-                             f"tensor on {device}, got {x.dtype} on "
-                             f"{x.device}")
+        ok = q_dtypes if name == "q_hat_prev" else (torch.float32,)
+        if x.device != device or x.dtype not in ok or not x.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous "
+                             f"{' or '.join(str(t) for t in ok)} tensor on "
+                             f"{device}, got {x.dtype} on {x.device}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{op}: {name} has shape {tuple(x.shape)}, "
                              f"expected {tuple(shape)}")
 
 
-def _buffers(op: str, theta: torch.Tensor, qprev, unif, side, n_groups):
+def _buffers(op: str, theta: torch.Tensor, qprev, unif, side, n_groups,
+             q_dtypes=(torch.float32,)):
     """Validate the (N, D) buffers and the (N, G) side arrays."""
     if theta.dim() != 2 or not theta.is_cuda:
         raise ValueError(f"{op}: theta must be a CUDA (N, D) tensor, got "
@@ -81,7 +90,8 @@ def _buffers(op: str, theta: torch.Tensor, qprev, unif, side, n_groups):
     n, d = theta.shape
     _check(op, [("theta", theta, (n, d)), ("q_hat_prev", qprev, (n, d)),
                 ("uniforms", unif, (n, d))]
-           + [(name, x, (n, n_groups)) for name, x in side], theta.device)
+           + [(name, x, (n, n_groups)) for name, x in side], theta.device,
+           q_dtypes)
     if any(x.data_ptr() % 16 for x in (theta, qprev, unif)):
         raise ValueError(f"{op}: the (N, D) buffers must start on 16-byte "
                          f"boundaries")
@@ -122,16 +132,16 @@ _FUSED_ARGS = [_P] * 10 + [_LL, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
 
 def _fused(op, lib_name, fn_name, extra_types, extra_args, theta, q_hat_prev,
            uniforms, bits_prev, range_prev, initialized, group_runs, omega,
-           b0, b_max):
+           b0, b_max, q_dtypes=(torch.float32,)):
     n_groups = bits_prev.shape[1] if bits_prev.dim() == 2 else -1
     n, d = _buffers(op, theta, q_hat_prev, uniforms,
                     [("bits_prev", bits_prev), ("range_prev", range_prev),
-                     ("initialized", initialized)], n_groups)
+                     ("initialized", initialized)], n_groups, q_dtypes)
     offs, gids, n_runs = column_runs(group_runs, d)
     if max(gids) >= n_groups:
         raise ValueError(f"{op}: a run names group {max(gids)}, the state "
                          f"has {n_groups} groups")
-    out = torch.empty_like(theta)
+    out = torch.empty_like(q_hat_prev)
     side = dict(dtype=torch.float32, device=theta.device)
     range_new = torch.zeros((n, n_groups), **side)   # the max accumulator
     bits = torch.empty((n, n_groups), **side)
@@ -153,11 +163,13 @@ def stoch_quantize_grouped_fused_cuda(theta, q_hat_prev, uniforms,
                                       group_runs, omega, b0, b_max):
     """One grouped round in one cooperative launch; same contract as
     ``ref.stoch_quantize_grouped_fused_ref``: returns ``(out, range_new,
-    bits, delta)``."""
-    return _fused("stoch_quantize_grouped_fused", "grouped_fused",
-                  "grouped_fused_f32", [], [], theta, q_hat_prev, uniforms,
-                  bits_prev, range_prev, initialized, group_runs, omega, b0,
-                  b_max)
+    bits, delta)``, ``out`` in ``q_hat_prev``'s dtype (float32, bf16 or
+    f16)."""
+    entry = FUSED_ENTRIES.get(q_hat_prev.dtype, "grouped_fused_f32")
+    return _fused("stoch_quantize_grouped_fused", "grouped_fused", entry, [],
+                  [], theta, q_hat_prev, uniforms, bits_prev, range_prev,
+                  initialized, group_runs, omega, b0, b_max,
+                  q_dtypes=tuple(FUSED_ENTRIES))
 
 
 def stoch_quantize_grouped_fused_tiled_cuda(theta, q_hat_prev, uniforms,

@@ -6,7 +6,17 @@ kernel does not take raises, and so does a failed build or launch.
 round is two CUDA launches and counts once). It is bumped only where a
 kernel is launched (never on the CPU path), so a run can show that the main
 path went through the kernels: set the counts to 0 before the run and read
-them after.
+them after. Every wrapper also bumps the ``kernel_dispatch`` counter of
+``obs.metrics`` with the JAX package's ``(kernel, variant)`` labels, on the
+CPU as well: which variant the call selected, not whether a kernel ran.
+
+Storage types: ``bipartite_mix`` takes values in float32, bf16 or f16 and
+returns their dtype, ``edge_gather_mix`` reads them as stored and returns
+float32, and the fused grouped round takes ``q_hat_prev`` in any of the
+three and returns ``out`` in it (the engine's narrowed replicas,
+``hat_dtype``). The other quantize kernels take float32: the tiled fused
+round widens a narrowed ``q_hat_prev`` before its kernel and rounds
+``out`` back after, as the JAX engine's casts do.
 
 The grouped entry points take the JAX package's arguments plus the
 packing's ``group_runs`` (per group, its ``(offset, size)`` column runs):
@@ -31,6 +41,7 @@ from repro_torch.kernels.grouped_quant import (
     stoch_quantize_grouped_fused_tiled_cuda)
 from repro_torch.kernels.slstm_cell import slstm_cell_cuda
 from repro_torch.kernels.stoch_quant import stoch_quantize_cuda
+from repro_torch.obs.metrics import kernel_dispatch_counter
 
 KERNELS = ("stoch_quantize", "bipartite_mix", "stoch_quantize_grouped",
            "stoch_quantize_grouped_fused",
@@ -44,10 +55,15 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def _count(kernel: str, variant: str) -> None:
+    kernel_dispatch_counter().inc(kernel=kernel, variant=variant)
+
+
 def stoch_quantize(theta: torch.Tensor, q_hat_prev: torch.Tensor,
                    uniforms: torch.Tensor, delta: torch.Tensor,
                    qrange: torch.Tensor) -> torch.Tensor:
     """Fused quantize -> dequantize, Eqs. 14-20 (see ``ref``)."""
+    _count("stoch_quantize", "flat")
     if theta.is_cpu:
         return ref.stoch_quantize_ref(theta, q_hat_prev, uniforms, delta,
                                       qrange)
@@ -58,7 +74,9 @@ def stoch_quantize(theta: torch.Tensor, q_hat_prev: torch.Tensor,
 
 def bipartite_mix(adjacency: torch.Tensor, values: torch.Tensor
                   ) -> torch.Tensor:
-    """Neighbour sum ``A @ V`` (see ``ref``)."""
+    """Neighbour sum ``A @ V`` in the values' dtype, float32 accumulation
+    (see ``ref``)."""
+    _count("bipartite_mix", "dense")
     if values.is_cpu:
         return ref.bipartite_mix_ref(adjacency, values)
     out = bipartite_mix_cuda(adjacency, values)
@@ -69,12 +87,15 @@ def bipartite_mix(adjacency: torch.Tensor, values: torch.Tensor
 def edge_gather_mix(values: torch.Tensor, nbr_table: torch.Tensor,
                     nbr_valid: torch.Tensor) -> torch.Tensor:
     """Neighbour sum over the degree-padded CSR table, float32 out (see
-    ``ref.edge_gather_mix_ref``). Values of another dtype are cast to
-    float32 first, as the JAX kernel does."""
+    ``ref.edge_gather_mix_ref``). The kernel reads float32, bf16 and f16
+    values as stored; values of another dtype are cast to float32 first,
+    as the JAX kernel casts every dtype."""
+    _count("edge_gather_mix", "sparse")
     if values.is_cpu:
         return ref.edge_gather_mix_ref(values, nbr_table, nbr_valid)
-    if values.dtype != torch.float32 or not values.is_contiguous():
-        values = values.to(torch.float32).contiguous()
+    if values.dtype not in (torch.float32,) + ref.NARROW:
+        values = values.to(torch.float32)
+    values = values.contiguous()
     out = edge_gather_mix_cuda(values, nbr_table, nbr_valid)
     launches["edge_gather_mix"] += 1
     return out
@@ -88,6 +109,7 @@ def slstm_cell(wx: torch.Tensor, r_w: torch.Tensor, fbias: torch.Tensor,
     (hs (B, S, H, dh) float32, (c, n, m, h)) (see ``ref.slstm_cell_ref``).
     The inputs go to the kernel as they are: it reads bf16 or float32
     ``wx`` and raises on anything else, or on a non-contiguous tensor."""
+    _count("slstm_cell", "fused")
     if wx.device.type == "cpu":
         return ref.slstm_cell_ref(wx, r_w, fbias, c0, n0, m0, h0)
     out = slstm_cell_cuda(wx, r_w, fbias, c0, n0, m0, h0)
@@ -110,6 +132,7 @@ def stoch_quantize_grouped(theta: torch.Tensor, q_hat_prev: torch.Tensor,
                            group_runs) -> torch.Tensor:
     """Grouped quantize -> dequantize with given (N, G) Δ and R (see
     ``ref.stoch_quantize_grouped_ref``)."""
+    _count("stoch_quantize", "grouped")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_ref(
             theta, q_hat_prev, uniforms, delta, qrange,
@@ -134,6 +157,7 @@ def stoch_quantize_grouped_fused(theta, q_hat_prev, uniforms, bits_prev,
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
             group_ids, group_runs=group_runs, omega=omega, b0=b0,
             b_max=b_max, block_d=tile_d)
+    _count("stoch_quantize_fused", "slab")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_fused_ref(
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
@@ -152,17 +176,20 @@ def stoch_quantize_grouped_fused_tiled(theta, q_hat_prev, uniforms,
                                        omega: float, b0: int, b_max: int,
                                        block_d: int = 512):
     """The D-tiled twin of :func:`stoch_quantize_grouped_fused`, with the
-    same outputs bit for bit."""
+    same outputs bit for bit. Its kernel takes float32 operands: a narrowed
+    ``q_hat_prev`` is widened before it and ``out`` rounded back after."""
+    _count("stoch_quantize_fused", "tiled")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_fused_ref(
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
             _col_ids(group_ids, group_runs, theta.shape[1], theta.device),
             group_runs=group_runs, omega=omega, b0=b0, b_max=b_max)
+    store = q_hat_prev.dtype
     out = stoch_quantize_grouped_fused_tiled_cuda(
-        theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
-        group_runs, omega, b0, b_max, block_d)
+        theta, q_hat_prev.to(torch.float32), uniforms, bits_prev, range_prev,
+        initialized, group_runs, omega, b0, b_max, block_d)
     launches["stoch_quantize_grouped_fused_tiled"] += 1
-    return out
+    return (out[0].to(store),) + tuple(out[1:])
 
 
 # The one-shot contract's first kernel kept its (G, P·ps) float32 logits
@@ -203,6 +230,7 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
     online = paged_attention_online_selected(
         q.shape[1], k_pages.shape[2], q.shape[2], block_tables.shape[1],
         k_pages.shape[1])
+    _count("paged_attention_decode", "online" if online else "oneshot")
     bt = block_tables.to(torch.int32)
     if q.device.type == "cpu":
         plain = (ref.paged_attention_online_ref if online

@@ -4,6 +4,12 @@ They are what a CPU tensor runs (``kernels.ops``), what the tests hold
 against the JAX package's ``repro.kernels.ref``, and what ``chip_smoke.py``
 holds each CUDA kernel against on the card. Each repeats its kernel's
 arithmetic in the same order; none is a yardstick of speed.
+
+Narrowed storage (bf16, f16: the engine's ``hat_dtype`` replicas) has one
+contract in every kernel that takes it: the float32 route on the widened
+values, its result rounded once to the storage dtype
+(:func:`bipartite_mix_ref`, :func:`stoch_quantize_grouped_fused_ref`;
+:func:`edge_gather_mix_ref` returns float32).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 from repro_torch.core.quantization import _exp2, bit_schedule
 
 _EPS = 1e-12
+NARROW = (torch.bfloat16, torch.float16)
 
 
 def stoch_quantize_ref(theta: torch.Tensor, q_hat_prev: torch.Tensor,
@@ -90,7 +97,14 @@ def stoch_quantize_grouped_fused_ref(
     Eq. (18) bit schedule (``core.quantization.bit_schedule``), the grouped
     quantize, and degenerate groups (R <= 1e-12) passed through unchanged.
     Returns ``(out (N, D), range_new, bits, delta)``, the last three
-    (N, G) float32."""
+    (N, G) float32. A narrowed ``q_hat_prev`` takes the float32 route on
+    its widened values, and ``out`` is rounded once to its dtype."""
+    if q_hat_prev.dtype in NARROW:
+        out, range_new, bits, delta = stoch_quantize_grouped_fused_ref(
+            theta, q_hat_prev.to(torch.float32), uniforms, bits_prev,
+            range_prev, initialized, group_ids, group_runs=group_runs,
+            omega=omega, b0=b0, b_max=b_max)
+        return out.to(q_hat_prev.dtype), range_new, bits, delta
     theta32 = theta.to(torch.float32)
     qprev32 = q_hat_prev.to(torch.float32)
     range_new = grouped_range_ref(theta32 - qprev32, group_runs)
@@ -109,7 +123,12 @@ def stoch_quantize_grouped_fused_ref(
 def bipartite_mix_ref(adjacency: torch.Tensor, values: torch.Tensor
                       ) -> torch.Tensor:
     """Neighbor aggregation ``A @ V``: adjacency (M, N) cast to the values'
-    dtype, values (N, d) -> (M, d)."""
+    dtype, values (N, d) -> (M, d). Narrowed values: the float32 product,
+    rounded once to their dtype (not a bf16 matmul, whose rounding is the
+    library's)."""
+    if values.dtype in NARROW:
+        return (adjacency.to(torch.float32) @ values.to(torch.float32)
+                ).to(values.dtype)
     return adjacency.to(values.dtype) @ values
 
 
@@ -124,7 +143,7 @@ def edge_gather_mix_ref(values: torch.Tensor, nbr_table: torch.Tensor,
     the add. A padded slot is multiplied by its 0.0, not skipped, so a NaN
     or inf in the row it points at reaches the output as in the Pallas
     body. Table ids are clamped into [0, N), as the TPU kernel's block
-    index is."""
+    index is. Narrowed values are widened first: the float32 route."""
     vals = values.to(torch.float32)
     n = vals.shape[0]
     idx = torch.clamp(nbr_table.to(torch.int64), 0, n - 1)

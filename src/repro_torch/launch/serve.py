@@ -29,8 +29,11 @@ duplicates the prompt list verbatim and ``--num-pages`` sizes the pool:
         --decode-tokens 8 [--device cpu]
 
 Without ``--device cpu`` it runs on the CUDA card and raises when there is
-none; ``--full`` serves the full-width model. ``--swa-recycle`` and
-``--trace`` are not ported yet (ROADMAP.md) and exit with a message.
+none; ``--full`` serves the full-width model. ``--trace out.json``
+writes a Chrome-trace/Perfetto JSON of the paged scheduler's requests,
+decode steps and page pool (as ``REPRO_TRACE=out.json`` does; the token
+streams are unchanged). ``--swa-recycle`` is not ported yet (ROADMAP.md)
+and exits with a message.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.configs import base
 from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import paging
 from repro_torch.serving.scheduler import (Scheduler, ServeConfig,
                                            block_kinds, draw_seed,
@@ -242,17 +246,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--swa-recycle", action="store_true",
                     help=f"sliding-window page recycling {NOT_PORTED}")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help=f"Chrome-trace output {NOT_PORTED}")
+                    help="write a Chrome-trace/Perfetto JSON of this run "
+                         "to PATH (as REPRO_TRACE=PATH does); it observes "
+                         "only: the token streams are unchanged")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv=None, *, params=None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag, given in (("--swa-recycle", args.swa_recycle),
-                        ("--trace", args.trace)):
-        if given:
-            raise SystemExit(f"[serve] {flag} {NOT_PORTED}")
+    if args.swa_recycle:
+        raise SystemExit(f"[serve] --swa-recycle {NOT_PORTED}")
+    if args.trace:
+        obs_trace.enable(args.trace)
     dev = resolve_device(args.device)
     cfg = (base.get_smoke_config(args.arch) if args.smoke
            else base.get_config(args.arch))
@@ -317,6 +323,8 @@ def main(argv=None, *, params=None) -> dict:
               f"(queue {out['ttft_queue_p50_s'] * 1e3:.1f}ms)")
     print(f"[serve] sample continuation (req 0): "
           f"{out['outputs'][0].tolist()}")
+    if args.trace:
+        obs_trace.save()
     return out
 
 

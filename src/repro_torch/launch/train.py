@@ -35,8 +35,19 @@ several cards (torch FSDP or NCCL) is not ported (ROADMAP.md queue A):
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --mode fsdp --batch 8 --seq 512 --lr 1e-3 --steps 5 --log-every 1
 
-``--campaign`` and ``--trace`` are not ported yet (ROADMAP.md) and exit
-with a message.
+``--trace out.json`` writes a Chrome-trace/Perfetto JSON of the run (as
+``REPRO_TRACE=out.json`` does): a span per round and the communication
+ledger's counters (cumulative transmissions, bits, transmit energy, censor
+rate), with the fleet's fault and churn instants under ``--fleet``.
+Tracing observes only: the run's results and kernel launches are those of
+an untraced run, and the ledger's one host copy of a round's metrics is the
+only synchronisation it adds. ``--campaign`` is not ported yet (ROADMAP.md)
+and exits with a message.
+
+Narrowed replicas (``hat_dtype``) have no flag here, as in the JAX
+package: :func:`main` and :func:`run_admm` take ``hat_dtype=`` from a
+caller, and the library's entries are ``EngineConfig`` and
+``core.consensus.ConsensusConfig``.
 """
 from __future__ import annotations
 
@@ -58,6 +69,8 @@ from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
 from repro_torch.device import resolve_device
 from repro_torch.fleet import ChurnEvent, FaultConfig, FleetConfig, FleetSim
 from repro_torch.models import registry
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ledger import CommLedger
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime import steps as ST
 
@@ -131,6 +144,7 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
     sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
                    extra_metrics=E.consensus_metrics(loss_fn),
                    batch_fn=batch_fn, graph0=graph, uniforms=uniforms)
+    # the fleet traces its own rounds, faults and churn (FleetSim.run)
     t0 = time.perf_counter()
     fs, m = sim.run()
     history = [float(x) for x in m["loss"]]
@@ -156,17 +170,20 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
             "n_groups": fs.engine.quant.n_groups,
             "churn_log": m["churn_log"], "metrics": m,
             "step_seconds": [float(x) for x in m["round_seconds"]],
+            "ledger": sim.ledger.totals() if sim.ledger else None,
             "sim": sim, "fleet_state": fs}
 
 
 def run_admm(cfg, args, *, params=None,
-             uniforms: Optional[Callable[[int, int], torch.Tensor]] = None
-             ) -> dict:
+             uniforms: Optional[Callable[[int, int], torch.Tensor]] = None,
+             hat_dtype: Optional[str] = None) -> dict:
     """Train ``args.steps`` consensus steps. ``params`` (one model's tree,
     no worker axis) replaces the seeded init, and ``uniforms(step, phase)``
-    the (N, D) rounding draws; both serve parity tests. Returns the loss
+    the (N, D) rounding draws; both serve parity tests. ``hat_dtype``
+    narrows the replicas (``EngineConfig.hat_dtype``). Returns the loss
     history, total bits, group count, per-step (N, G) bit widths and
-    seconds, and the final engine state."""
+    seconds, the final engine state and, with a tracer active, the
+    ledger's totals and each step's host copy of the metrics."""
     dev = resolve_device(args.device)
     graph = ST.worker_graph(args.workers, args.topology)
     try:
@@ -179,6 +196,7 @@ def run_admm(cfg, args, *, params=None,
             groups=args.groups,
             censor_mode=args.censor_mode,
             mix_backend=args.mix_backend,
+            hat_dtype=hat_dtype,
             regroup_every=args.regroup_every)
     except E.GroupSpecError as e:
         raise SystemExit(
@@ -226,6 +244,13 @@ def run_admm(cfg, args, *, params=None,
     step = build_step(ecfg)
     shape = (args.workers, E.tree_dim(theta))
     ugen = torch.Generator(device=dev).manual_seed(args.seed + 1000)
+    # observers only: the ledger folds a host copy of the metrics the step
+    # already returned, made inside the round span (so on the card the span
+    # covers the round's device work); untraced, each site is one test
+    tr = obs_trace.tracer()
+    ledger = CommLedger(graph) if tr is not None else None
+    rounds_tid = tr.track("engine", "rounds") if tr is not None else 0
+    traced = []
     total_bits = 0.0
     history, seconds, bits_hist = [], [], []
     t0 = time.perf_counter()
@@ -253,7 +278,15 @@ def run_admm(cfg, args, *, params=None,
                 return uniforms(i, phase).to(device=dev, dtype=torch.float32)
             return torch.rand(shape, generator=ugen, device=dev)
 
+        if tr is not None:
+            tr.begin("round", "engine", rounds_tid, args={"round": i})
         state, m = step(state, draw, batch)
+        if ledger is not None:
+            host = {k: v.cpu().numpy() for k, v in m.items()}
+            ledger.update(host)
+            traced.append(host)
+        if tr is not None:
+            tr.end("engine", rounds_tid)
         bits = float(m["payload_bits"].sum())   # already tx-masked
         total_bits += bits
         mean_bits = float(m["bits_per_group"].mean())
@@ -275,7 +308,9 @@ def run_admm(cfg, args, *, params=None,
     return {"final_loss": history[-1], "history": history,
             "total_bits": total_bits, "n_groups": n_groups,
             "bits_per_group": bits_hist, "step_seconds": seconds,
-            "state": state}
+            "state": state,
+            "ledger": ledger.totals() if ledger is not None else None,
+            "traced_metrics": traced if ledger is not None else None}
 
 
 def fsdp_step(cfg, acfg: AdamWConfig):
@@ -390,7 +425,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fault-schedule seed (replays the same trace)")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help=f"Chrome-trace output {NOT_PORTED}")
+                    help="write a Chrome-trace/Perfetto JSON of this run "
+                         "to PATH (as REPRO_TRACE=PATH does); it observes "
+                         "only: results and kernel launches are unchanged")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--campaign", default=None, metavar="NAME",
@@ -398,12 +435,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, params=None, uniforms=None) -> dict:
+def main(argv=None, *, params=None, uniforms=None,
+         hat_dtype: Optional[str] = None) -> dict:
+    """The trainer's entry point. ``params`` and ``uniforms`` replace the
+    seeded init and draws (parity tests); ``hat_dtype`` narrows the
+    consensus replicas (no flag, as in the JAX package)."""
     args = build_parser().parse_args(argv)
-    for flag, given in (("--trace", args.trace),
-                        ("--campaign", args.campaign)):
-        if given:
-            raise SystemExit(f"[train] {flag} {NOT_PORTED}")
+    if args.campaign:
+        raise SystemExit(f"[train] --campaign {NOT_PORTED}")
     if args.mode == "admm" and args.batch % args.workers:
         raise SystemExit(f"[train] --batch {args.batch} is not a multiple of "
                          f"--workers {args.workers}")
@@ -411,13 +450,20 @@ def main(argv=None, *, params=None, uniforms=None) -> dict:
            else base.get_config(args.arch))
     print(f"[train] arch={cfg.name} mode={args.mode} workers={args.workers} "
           f"batch={args.batch} seq={args.seq} steps={args.steps}", flush=True)
-    if args.mode == "admm":
-        return run_admm(cfg, args, params=params, uniforms=uniforms)
-    if args.fleet:
+    if args.mode == "fsdp" and args.fleet:
         raise SystemExit("[train] --fleet only applies to --mode admm "
                          "(the fleet simulator drives the consensus "
                          "engine, not the FSDP baseline)")
-    return run_fsdp(cfg, args, params=params)
+    if args.trace:
+        obs_trace.enable(args.trace)
+    if args.mode == "admm":
+        out = run_admm(cfg, args, params=params, uniforms=uniforms,
+                       hat_dtype=hat_dtype)
+    else:
+        out = run_fsdp(cfg, args, params=params)
+    if args.trace:
+        obs_trace.save()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,3 +1,6 @@
-"""Host-side observability of the port: the typed metrics registry
-(``metrics``). Tracing and the communication ledger are not ported
-(ROADMAP.md queue A)."""
+"""Host-side observability of the port: the Chrome-trace tracer behind
+``--trace`` (``trace``), the live communication ledger (``ledger``) and the
+typed metrics registry with the kernel-dispatch counter (``metrics``).
+With no tracer active, every instrumentation site is one ``is None`` test:
+no host copy, no synchronisation."""
+from repro_torch.obs import ledger, metrics, trace  # noqa: F401

@@ -296,5 +296,15 @@ class Registry:
         return out
 
 
-#: Process-wide default registry.
+#: Process-wide default registry (the kernel-dispatch counter lives here).
 REGISTRY = Registry()
+
+
+def kernel_dispatch_counter() -> Counter:
+    """Counter of kernel-wrapper dispatches by (kernel, variant), bumped by
+    every ``kernels/ops.py`` wrapper on every call, on the CPU too, with
+    the JAX package's labels: which variant a call selected. Whether a
+    kernel ran on the card is ``ops.launches``."""
+    return REGISTRY.counter(
+        "kernel_dispatch", labels=("kernel", "variant"),
+        help="ops.py wrapper dispatches by kernel variant")

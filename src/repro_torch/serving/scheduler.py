@@ -61,8 +61,17 @@ deterministically, so a replayed run makes the same decisions.
 
 :class:`AsyncServer` wraps the synchronous core for asyncio callers.
 
+* **Tracing** (``obs.trace``, ``--trace``): with a tracer active, a span
+  per request (its queue spans and prefill chunks inside, admit, preempt,
+  swap_out, cow_fork and first_token instants) on a ``serving/req <rid>``
+  track, and the decode_step spans, defrag and forced_preempt instants and
+  the ``page_pool`` counter on ``serving/scheduler``, at the JAX package's
+  sites. Each site is one ``is None`` test without a tracer; with one it
+  records host decisions only, so the token streams and kernel launches
+  are those of an untraced run.
+
 Not ported (ROADMAP.md queue A): SWA page recycling (the sliding-window
-family is not ported) and tracing. The JAX package's threefry keys cannot
+family is not ported). The JAX package's threefry keys cannot
 be reproduced in PyTorch, so temperature sampling draws other tokens than
 the JAX package's; greedy decoding is what the two are held equal on.
 """
@@ -82,6 +91,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import paging
 
 
@@ -298,6 +308,14 @@ class Scheduler:
         self.waiting.append(_WaitEntry(
             Request(rid, prompt, int(max_new_tokens), int(priority),
                     deadline), self.steps))
+        tr = obs_trace.tracer()
+        if tr is not None:
+            tid = tr.track("serving", f"req {rid}")
+            tr.begin("request", "serving", tid,
+                     args={"rid": rid, "prompt": int(len(prompt)),
+                           "max_new": int(max_new_tokens),
+                           "priority": int(priority)})
+            tr.begin("queue", "serving", tid)
         return rid
 
     @property
@@ -432,6 +450,13 @@ class Scheduler:
         rid = e.req.rid
         if rid not in self.ttft_queue_s and rid in self._submit_t:
             self.ttft_queue_s[rid] = time.perf_counter() - self._submit_t[rid]
+        tr = obs_trace.tracer()
+        if tr is not None:
+            tid = tr.track("serving", f"req {rid}")
+            tr.end("serving", tid)      # close the queue span
+            tr.instant("admit", "serving", tid,
+                       args={"slot": slot,
+                             "swapped": e.swap_path is not None})
         if e.swap_path is not None:
             self._admit_swapped(e, slot)
             return
@@ -464,6 +489,9 @@ class Scheduler:
             recycled = self._free([src])
             assert not recycled, "forked a page nobody else referenced"
             self.cow_forks += 1
+            if tr is not None:
+                tr.instant("cow_fork", "serving", tid,
+                           args={"logical": k - 1, "at": "admit"})
         chunk = self.cfg.prefill_chunk
         bulk_end = s0 + ((plan["known"] - 1 - s0) // chunk) * chunk
         self.slots[slot] = _Slot(
@@ -527,6 +555,15 @@ class Scheduler:
         self.slots[slot] = None
         self.waiting.append(entry)
         self.preemptions += 1
+        tr = obs_trace.tracer()
+        if tr is not None:
+            tid = tr.track("serving", f"req {st.req.rid}")
+            tr.instant("preempt", "serving", tid,
+                       args={"slot": slot, "mode": self.cfg.preempt_mode,
+                             "generated": len(st.generated)})
+            if entry.swap_path is not None:
+                tr.instant("swap_out", "serving", tid)
+            tr.begin("queue", "serving", tid)   # re-queued until re-admit
 
     def _swap_out(self, slot: int, st: _Slot) -> str:
         if self._swap_dir is None:
@@ -564,11 +601,17 @@ class Scheduler:
     def _bulk_prefill(self) -> int:
         chunk = self.cfg.prefill_chunk
         ran = 0
+        tr = obs_trace.tracer()
         for slot, st in enumerate(self.slots):
             if st is None:
                 continue
             while st.fed < st.bulk_end:
                 f0 = st.fed
+                tid = None
+                if tr is not None:
+                    tid = tr.track("serving", f"req {st.req.rid}")
+                    tr.begin("prefill_chunk", "serving", tid,
+                             args={"from": f0, "chunk": chunk})
                 toks = np.array([st.token_at(i)
                                  for i in range(f0, f0 + chunk)],
                                 np.int32)[None, :]
@@ -583,6 +626,8 @@ class Scheduler:
                 ran += 1
                 st.fed += chunk
                 self._after_progress(st)
+                if tid is not None:
+                    tr.end("serving", tid)
         return ran
 
     # ------------------------------------------------------------- decode --
@@ -610,6 +655,11 @@ class Scheduler:
             recycled = self._free([src])
             assert not recycled, "forked a page nobody else referenced"
             self.cow_forks += 1
+            tr = obs_trace.tracer()
+            if tr is not None:
+                tr.instant("cow_fork", "serving",
+                           tr.track("serving", f"req {st.req.rid}"),
+                           args={"logical": l, "at": "decode"})
         else:
             page = self._alloc(1)[0]
             paging.map_pages(self.cache, slot, [l], [page])
@@ -654,9 +704,16 @@ class Scheduler:
             seeds[slot] = draw_seed(self.cfg.seed, st.req.rid, st.fed)
         if not active.any():
             return 0
+        tr = obs_trace.tracer()
+        sched_tid = tr.track("serving", "scheduler") if tr is not None else 0
+        if tr is not None:
+            tr.begin("decode_step", "serving", sched_tid,
+                     args={"active": int(active.sum())})
         t0 = time.perf_counter()
         nxt, top = self._decode(tokens, pos, active, seeds)
         now = time.perf_counter()
+        if tr is not None:
+            tr.end("serving", sched_tid)
         self.decode_step_s.observe(now - t0)
         self.decode_steps += 1
         for slot, st in enumerate(self.slots):
@@ -677,6 +734,10 @@ class Scheduler:
                     t_sub = self._submit_t.pop(st.req.rid, None)
                     if t_sub is not None:
                         self.ttft_s[st.req.rid] = now - t_sub
+                    if tr is not None:
+                        tr.instant(
+                            "first_token", "serving",
+                            tr.track("serving", f"req {st.req.rid}"))
             self._after_progress(st)
             if len(st.generated) >= st.req.max_new_tokens:
                 self._evict(slot)
@@ -701,6 +762,10 @@ class Scheduler:
     def _evict(self, slot: int):
         st = self.slots[slot]
         self.finished[st.req.rid] = np.asarray(st.generated, np.int32)
+        tr = obs_trace.tracer()
+        if tr is not None:
+            tr.end("serving", tr.track("serving", f"req {st.req.rid}"),
+                   args={"tokens": len(st.generated)})   # close "request"
         recycled = self._free([st.pages[l] for l in sorted(st.pages)])
         paging.release_slot(self.cache, slot, paging.build_block_table_row(
             recycled, self.cfg.pages_per_seq))
@@ -711,6 +776,10 @@ class Scheduler:
         device pools, block tables, the slots' page maps and the prefix
         index together). A page several tables map moves once and every
         row follows it."""
+        tr = obs_trace.tracer()
+        if tr is not None:
+            tr.instant("defrag", "serving", tr.track("serving", "scheduler"),
+                       args={"in_use": self.pool.in_use})
         old_to_new = self.pool.defrag()
         new_to_old = np.argsort(old_to_new).astype(np.int32)
         paging.apply_page_remap(self.cache, old_to_new, new_to_old)
@@ -744,6 +813,19 @@ class Scheduler:
             if victim is not None:
                 self._preempt(victim)
                 self.forced_preemptions += 1
+                tr = obs_trace.tracer()
+                if tr is not None:
+                    tr.instant("forced_preempt", "serving",
+                               tr.track("serving", "scheduler"))
+        tr = obs_trace.tracer()
+        if tr is not None:
+            refs, shared = self.pool.ref_stats()
+            tr.counter("page_pool", "serving", {
+                "free": self.pool.free_count,
+                "in_use": self.pool.in_use,
+                "refs": refs,
+                "shared": shared,
+            }, tid=tr.track("serving", "scheduler"))
         return sorted(set(self.finished) - before)
 
     def run(self, max_steps: int = 100_000) -> Dict[int, np.ndarray]:

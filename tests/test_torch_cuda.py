@@ -1039,3 +1039,126 @@ def test_xlstm_scheduler_runs_b9_per_bulk_chunk_on_card(cuda):
     assert sched.prefill_chunks > 0
     assert ops.launches["slstm_cell"] == n_slstm * sched.prefill_chunks
     assert sched.pool.in_use == 0
+
+
+# ------------------------------------------------------ narrowed storage --
+# B2, B6 and B3 on bf16 and f16 replicas (the engine's hat_dtype): each the
+# float32 kernel on the widened values, rounded once to the storage type,
+# bit for bit (a narrowed value widens exactly; the float32 chain is the
+# same, and __float2bfloat16_rn / __float2half_rn round as torch's .to()).
+NARROW_DTYPES = [torch.bfloat16, torch.float16]
+
+# (M, N, d, storage offset of V in values): both B2 designs, 16-byte rows,
+# odd and misaligned rows (scalar loads), 1,024 workers
+NARROW_MIX = {"convex": (64, 64, 2000, 0), "ragged": (12, 24, 513, 0),
+              "wide-16B": (4, 4, 2 ** 20 + 8, 0),
+              "wide-odd": (4, 4, 1001, 0),
+              "wide-unaligned": (4, 4, 2 ** 20 + 8, 1),
+              "tiled-unaligned": (64, 64, 2000, 3),
+              "tiled-1024": (1024, 1024, 2000, 0)}
+
+
+def narrow_values(n, d, offset, dtype, seed, device):
+    """A contiguous (N, d) V of ``dtype`` starting ``offset`` values into
+    its buffer (offset 1 or 3: rows off the 16-byte boundary)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    buf = (3.0 * torch.randn(n * d + offset, generator=gen,
+                             device=device)).to(dtype)
+    return buf[offset:].view(n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(NARROW_MIX))
+def test_bipartite_mix_narrowed_is_the_float32_route_on_card(cuda, case,
+                                                             dtype):
+    m, n, d, offset = NARROW_MIX[case]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    adj = (torch.rand((m, n), generator=gen, device=cuda) < 0.4).float()
+    vals = narrow_values(n, d, offset, dtype, 3, cuda)
+    before = ops.launches["bipartite_mix"]
+    got = ops.bipartite_mix(adj, vals)
+    want = ops.bipartite_mix(adj, vals.float()).to(dtype)
+    torch.cuda.synchronize()
+    assert ops.launches["bipartite_mix"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, want)
+    # the plain version rounds the library's float32 product once: one
+    # step of the storage type apart at most (its sum order differs)
+    plain = ref.bipartite_mix_ref(adj, vals).float()
+    assert bool(((got.float() - plain).abs()
+                 <= torch.finfo(dtype).eps * got.float().abs()).all())
+
+
+EDGE_NARROW = ["full-64", "star-257", "random-1024", "lm-4-loop", "s-1",
+               "unaligned", "n-70000", "weights"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+@pytest.mark.parametrize("name", EDGE_NARROW)
+def test_edge_gather_mix_reads_narrowed_values_on_card(cuda, name, dtype):
+    """B6 on narrowed V equals B6 on V.float() bit for bit, through the
+    entry point and in each design forced where it fits; the plan's regime
+    and geometry are those of float32 V (only the shared memory halves)."""
+    from repro_torch.kernels import edge_gather_mix as EG
+    n, table, valid, d, offset = _edge_regime_cases()[name]
+    table, valid = torch.from_numpy(table).to(cuda), torch.from_numpy(
+        valid).to(cuda)
+    vals = narrow_values(n, d, offset, dtype, len(name), cuda)
+    aligned = vals.data_ptr() % 8 == 0
+    assert aligned == (not offset)
+    before = ops.launches["edge_gather_mix"]
+    got = ops.edge_gather_mix(vals, table, valid)
+    want = ops.edge_gather_mix(vals.float(), table, valid)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_gather_mix"] == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    s = table.shape[1]
+    for regime in (None, "staged", "gather"):
+        try:
+            p32 = EG.plan(n, s, d, aligned, regime)
+        except ValueError:
+            continue
+        p16 = EG.plan(n, s, d, aligned, regime, elem=2)
+        assert p16._replace(smem=0) == p32._replace(smem=0)
+        assert p16.smem <= p32.smem
+        if regime is None:
+            continue
+        out = torch.full((n, d), float("nan"), device=cuda)
+        EG.launch(vals, table, valid, out, p16)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), regime
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+@pytest.mark.parametrize("layout", sorted(GROUPED_LAYOUTS))
+def test_grouped_fused_narrowed_q_hat_is_the_float32_route_on_card(
+        cuda, layout, dtype):
+    """B3 with a narrowed q_prev equals B3 on q_prev.float(): out rounded
+    once to the storage type, the (N, G) outputs bit for bit; the tiled
+    route (B4 through the engine's casts) gives the same."""
+    n, dims, gids, degen = GROUPED_LAYOUTS[layout]
+    args, pk = grouped_inputs(n, dims, gids, seed=9, degenerate=degen)
+    dev = [torch.from_numpy(a).to(cuda) for a in args]
+    qn = dev[1].to(dtype)
+    for row, grp in degen:      # theta equals the stored replica there
+        cols = torch.from_numpy(pk.col_group_ids == grp).to(cuda)
+        dev[0][row, cols] = qn[row, cols].float()
+    kw = dict(group_runs=pk.group_runs, omega=0.9995, b0=6, b_max=16)
+    before = ops.launches["stoch_quantize_grouped_fused"]
+    got = ops.stoch_quantize_grouped_fused(dev[0], qn, *dev[2:], None, **kw)
+    want = ops.stoch_quantize_grouped_fused(dev[0], qn.float(), *dev[2:],
+                                            None, **kw)
+    tiled = ops.stoch_quantize_grouped_fused_tiled(dev[0], qn, *dev[2:], None,
+                                                   block_d=512, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["stoch_quantize_grouped_fused"] == before + 2
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0].to(dtype))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    for a, b in zip(tiled, got):
+        assert torch.equal(a, b)
+    for row, grp in degen:
+        cols = torch.from_numpy(pk.col_group_ids == grp).to(cuda)
+        assert torch.equal(got[0][row][cols], qn[row][cols])

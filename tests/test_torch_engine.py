@@ -242,10 +242,7 @@ def test_cq_ggadmm_adapter_run(setup):
     assert np.isfinite(out["objective"]).all()
 
 
-@pytest.mark.parametrize("kw", [dict(mix_backend="sharded"),
-                                dict(hat_dtype="bfloat16"),
-                                dict(hat_dtype="float16"),
-                                dict(hat_dtype="float32", groups="leaf")])
+@pytest.mark.parametrize("kw", [dict(mix_backend="sharded")])
 def test_engine_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         E.EngineConfig(**kw)

@@ -198,3 +198,23 @@ def test_leaf_log_ranges_and_auto_grouper_match_jax():
         jag.should_regroup(i) for i in range(7)]
     for _ in range(2):
         assert ag.regroup(ptheta, pq) == jag.regroup(jtheta, jq)
+
+
+def test_packing_cache_keeps_each_tree_structure():
+    """Two trees with the same leaves, one with an empty sub-tree (as
+    ``registry.init_params`` gives ``stack.rem``), get packings that
+    unpack to their own structure, as the JAX package's treedef-keyed
+    cache does; a shared layout once handed one tree the other's skeleton."""
+    leaves = {"a": torch.zeros((2, 3)), "b": {"c": torch.ones((2, 4))}}
+    with_empty = {"a": leaves["a"], "b": {"c": leaves["b"]["c"], "d": {}}}
+    for tree in (leaves, with_empty, leaves):
+        pk = P.make_packing(tree, (0, 1))
+        back = P.unpack(pk, P.pack(pk, tree))
+        assert T.tree_map(lambda x: None, back) == T.tree_map(
+            lambda x: None, tree)
+        jtree = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()),
+                                       tree)
+        assert jax.tree_util.tree_structure(JP.unpack(
+            JP.make_packing(jtree, (0, 1)), JP.pack(JP.make_packing(
+                jtree, (0, 1)), jtree))) == jax.tree_util.tree_structure(
+            jtree)

@@ -452,7 +452,7 @@ def test_make_prompts_match_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("argv", [["--swa-recycle"], ["--trace", "t.json"]])
+@pytest.mark.parametrize("argv", [["--swa-recycle"]])
 def test_serve_flags_not_ported_exit_naming_roadmap(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve.main(["--device", "cpu"] + argv)
