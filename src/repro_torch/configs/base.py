@@ -1,11 +1,12 @@
 """Model configuration and registry: the port of ``repro.configs.base``,
 cut to the fields and the architectures the ported path reads.
 
-Registered so far: xlstm-125m (``configs/xlstm_125m.py``, consensus
-training) and tinyllama-1.1b (``configs/tinyllama_1_1b.py``, serving). The
-other architectures of the JAX package wait for their block kinds (MoE,
-Mamba2, encoder-decoder, sliding-window attention) to be ported
-(ROADMAP.md).
+Registered so far: xlstm-125m (``configs/xlstm_125m.py``), tinyllama-1.1b
+(``configs/tinyllama_1_1b.py``) and the sliding-window family's
+h2o-danube-1.8b, gemma3-4b and mistral-large-123b (the last served at smoke
+size only: its 123B parameters fit on no one card). The other
+architectures of the JAX package wait for their block kinds (MoE, Mamba2,
+encoder-decoder) to be ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,10 +53,16 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def for_long_context(self) -> "ModelConfig":
+        if self.long_context == "swa_variant":
+            return self.with_overrides(sliding_window=self.long_context_window)
+        return self
+
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
-_MODULES = ("xlstm_125m", "tinyllama_1_1b")
+_MODULES = ("xlstm_125m", "tinyllama_1_1b", "h2o_danube_1_8b", "gemma3_4b",
+            "mistral_large_123b")
 
 
 def register(name: str, full: Callable[[], ModelConfig],

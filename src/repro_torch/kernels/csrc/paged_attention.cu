@@ -65,6 +65,21 @@
 //   0 in every split, and the combine divides the sum of V by Σ l = P·ps.
 //   No -1e30 reaches an exponent as a maximum.
 //
+// * Head dims 32, 64, 80, 112, 128 and 256. The lane layout works on a
+//   padded head dim HDP (32, 64, 128 or 256: a power of two, so that a
+//   row's q·K lanes and their shuffles stay inside a warp): HDP / 8 lanes a
+//   row for q·K and HDP / 32 columns a lane for P·V. At 80 and 112 the
+//   lanes past the head dim load nothing, hold zeros and write nothing, so
+//   they add exact zeros to every sum. Pool rows are copied whole, in
+//   16-byte pieces, or 8-byte ones where a row is not a multiple of 16
+//   bytes (4-bit codes at 80 and 112: 40 and 56 bytes).
+// * At HDP >= 128 a block takes 4 query heads, not 8 (q and the
+//   accumulators are 8 x 8 + 8 x HDP / 32 floats a thread at 8 heads), and
+//   where a tile's rows are wider than 512 bytes (float32 at 256: 1 KB) a
+//   tile is 32 slots, not 64, so that three stages fit in a block's shared
+//   memory. The warps' merge area reuses the ring once its last tile is
+//   reduced.
+//
 // The workspace and the counters are the wrapper's, kept across calls on
 // one device; calls that share them must run in stream order.
 
@@ -79,10 +94,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 64;                       // slots per tile
-constexpr int kRowsPerWarp = kTile / kWarps;    // 8
 constexpr int kStages = 3;                      // cp.async ring depth
-constexpr int kMaxGroups = 8;                   // query heads per block
 
 enum Kind { kF32 = 0, kBF16 = 1, kU8 = 2, kU4 = 3 };
 
@@ -125,13 +137,31 @@ struct Geo {
   static constexpr int kRowBytes = KIND == kF32 ? 4 * HD
                                    : KIND == kBF16 ? 2 * HD
                                    : KIND == kU8 ? HD : HD / 2;
-  static constexpr int kVecPerRow = kRowBytes / 16;
-  static constexpr int kLanesPerRow = HD / 8;     // q·K: 8 elements a lane
-  static constexpr int kChunkBytes = kRowBytes / kLanesPerRow;
-  static constexpr int kItems = HD / 32;          // q·K rows a lane
-  static constexpr int kCols = HD / 32;           // P·V columns a lane
+  // the padded head dim of the lane layout
+  static constexpr int kHDP = HD <= 32 ? 32 : HD <= 64 ? 64
+                              : HD <= 128 ? 128 : 256;
+  static constexpr int kGroups = kHDP >= 128 ? 4 : 8;  // query heads a block
+  static constexpr int kTile = kRowBytes > 512 ? 32 : 64;  // slots a tile
+  static constexpr int kRowsPerWarp = kTile / kWarps;
+  static constexpr int kVec = kRowBytes % 16 == 0 ? 16 : 8;  // copy bytes
+  static constexpr int kVecPerRow = kRowBytes / kVec;
+  static constexpr int kLanesPerRow = kHDP / 8;   // q·K: 8 elements a lane
+  static constexpr int kLiveLanes = HD / 8;       // ... that hold elements
+  static constexpr int kChunkBytes = 8 * kRowBytes / HD;
+  static constexpr int kItems = kRowsPerWarp * kLanesPerRow / 32;
+  static constexpr int kCols = kHDP / 32;         // P·V columns a lane
   // K rows, V rows, K ranges, V ranges
   static constexpr int kStageBytes = 2 * kTile * kRowBytes + 2 * kTile * 4;
+  static constexpr int kCombStride = kGroups * (HD + 2);
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kMergeBytes = kWarps * kCombStride * 4;
+  // the ring, reused for the warps' merge after the last tile
+  static constexpr int kSharedBytes =
+      ((kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes) + 15) / 16 * 16;
+  static_assert(HD % 8 == 0 && HD % kCols == 0, "head dim");
+  static_assert(kRowBytes % 8 == 0 && kStageBytes % 16 == 0, "row bytes");
+  static_assert(kItems >= 1 && kItems * 32 == kRowsPerWarp * kLanesPerRow,
+                "lane layout");
 };
 
 __device__ __forceinline__ size_t slot_entry(const Args& a, const int* bt_row,
@@ -156,18 +186,23 @@ __device__ __forceinline__ void issue_tile(const Args& a, const int* bt_row,
     const int c = u - r * G::kVecPerRow;
     const size_t entry = slot_entry(a, bt_row, kvh, row0 + r);
     const uint8_t* pool = which ? a.v_pages : a.k_pages;
-    async_copy::copy16(
-        stage + (which * kTile + r) * G::kRowBytes + c * 16,
-        pool + entry * G::kRowBytes + (size_t)c * 16);
+    uint8_t* dst = stage + (which * G::kTile + r) * G::kRowBytes
+                   + c * G::kVec;
+    const uint8_t* src = pool + entry * G::kRowBytes + (size_t)c * G::kVec;
+    if constexpr (G::kVec == 16)
+      async_copy::copy16(dst, src);
+    else
+      async_copy::copy8(dst, src);
   }
   if constexpr (KIND >= kU8) {
-    float* rng = reinterpret_cast<float*>(stage + 2 * kTile * G::kRowBytes);
+    float* rng =
+        reinterpret_cast<float*>(stage + 2 * G::kTile * G::kRowBytes);
     for (int v = threadIdx.x + (with_k ? 0 : rows); v < 2 * rows;
          v += kThreads) {
       const int which = v >= rows;
       const int r = v - which * rows;
       const size_t entry = slot_entry(a, bt_row, kvh, row0 + r);
-      async_copy::copy4_zfill(rng + which * kTile + r,
+      async_copy::copy4_zfill(rng + which * G::kTile + r,
                               (which ? a.v_scale : a.k_scale) + entry, 4);
     }
   }
@@ -210,13 +245,20 @@ __device__ __forceinline__ void load8(const uint8_t* p, float rng,
   }
 }
 
-// elements [d0, d0 + N) of a row (P·V), dequantized; N in {1, 2}
+// elements [d0, d0 + N) of a row (P·V), dequantized; N in {1, 2, 4, 8},
+// d0 a multiple of N
 template <int KIND, int N>
 __device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
                                           float rng, float delta, float* x) {
   if constexpr (KIND == kF32) {
     const float* p = reinterpret_cast<const float*>(row) + d0;
-    if constexpr (N == 2) {
+    if constexpr (N >= 4) {
+#pragma unroll
+      for (int i = 0; i < N; i += 4) {
+        const float4 u = *reinterpret_cast<const float4*>(p + i);
+        x[i] = u.x; x[i + 1] = u.y; x[i + 2] = u.z; x[i + 3] = u.w;
+      }
+    } else if constexpr (N == 2) {
       const float2 u = *reinterpret_cast<const float2*>(p);
       x[0] = u.x; x[1] = u.y;
     } else {
@@ -224,7 +266,19 @@ __device__ __forceinline__ void load_cols(const uint8_t* row, int d0,
     }
   } else if constexpr (KIND == kBF16) {
     const uint16_t* p = reinterpret_cast<const uint16_t*>(row) + d0;
-    if constexpr (N == 2) {
+    if constexpr (N == 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[2 * i] = bf16_lo(w[i]);
+        x[2 * i + 1] = bf16_hi(w[i]);
+      }
+    } else if constexpr (N == 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      x[0] = bf16_lo(u.x); x[1] = bf16_hi(u.x);
+      x[2] = bf16_lo(u.y); x[3] = bf16_hi(u.y);
+    } else if constexpr (N == 2) {
       const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
       x[0] = bf16_lo(u); x[1] = bf16_hi(u);
     } else {
@@ -255,21 +309,24 @@ paged_decode_kernel(const Args a) {
   using GE = Geo<KIND, HD>;
   constexpr int LPR = GE::kLanesPerRow;
   constexpr int NC = GE::kCols;
-  constexpr int kCombStride = kMaxGroups * (HD + 2);
+  constexpr int MG = GE::kGroups;
+  constexpr int TILE = GE::kTile;
+  constexpr int RPW = GE::kRowsPerWarp;
+  constexpr int kCombStride = GE::kCombStride;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* ring = smem;
-  float* probs = reinterpret_cast<float*>(ring + kStages * GE::kStageBytes);
-  float* deltas = probs + kWarps * kMaxGroups * kRowsPerWarp;
-  float* comb = deltas + kWarps * 2 * kRowsPerWarp;
-  int* last_flag = reinterpret_cast<int*>(comb + kWarps * kCombStride);
+  float* comb = reinterpret_cast<float*>(smem);   // after the last tile
+  float* probs = reinterpret_cast<float*>(smem + GE::kSharedBytes);
+  float* deltas = probs + kWarps * MG * RPW;
+  int* last_flag = reinterpret_cast<int*>(deltas + kWarps * 2 * RPW);
   float* table = reinterpret_cast<float*>(last_flag + 4);   // the combine's
 
   const int split = blockIdx.x, b = blockIdx.z;
   const int groups = a.heads / a.num_kv;
-  const int chunks = (groups + kMaxGroups - 1) / kMaxGroups;
+  const int chunks = (groups + MG - 1) / MG;
   const int kvh = blockIdx.y / chunks;
-  const int g0 = (blockIdx.y - kvh * chunks) * kMaxGroups;
-  const int gn = min(kMaxGroups, groups - g0);    // this block's query heads
+  const int g0 = (blockIdx.y - kvh * chunks) * MG;
+  const int gn = min(MG, groups - g0);            // this block's query heads
   const int slab_len = a.pages_per_seq * a.ps;
   const int ctx = a.ctx_lens[b];
   const bool uniform = ONESHOT && ctx <= 0;       // every slot, logit 0
@@ -287,13 +344,13 @@ paged_decode_kernel(const Args a) {
   const int* bt_row = a.block_tables + (size_t)b * a.pages_per_seq;
   const int row_begin = split * a.split_rows;
   const int row_end = min(row_begin + a.split_rows, n_rows);
-  const int n_tiles = (row_end - row_begin + kTile - 1) / kTile;
+  const int n_tiles = (row_end - row_begin + TILE - 1) / TILE;
 
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) {
-      const int r0 = row_begin + t * kTile;
-      issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
+      const int r0 = row_begin + t * TILE;
+      issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(TILE, row_end - r0),
                            !uniform, ring + t * GE::kStageBytes);
     }
     async_copy::commit();
@@ -301,24 +358,26 @@ paged_decode_kernel(const Args a) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = lane % LPR;         // this lane's 8-element chunk of a row
-  float q[kMaxGroups][8];
+  const bool c_live = c < GE::kLiveLanes;       // past HD at 80 and 112
+  const bool cols_live = lane * NC < HD;
+  float q[MG][8];
   const float* qsrc = a.q + head0 * HD + c * 8;
 #pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g)
+  for (int g = 0; g < MG; ++g)
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      q[g][e] = g < gn ? __ldg(qsrc + g * HD + e) : 0.0f;
-  float m_run[kMaxGroups], l_run[kMaxGroups], acc[kMaxGroups][NC];
+      q[g][e] = g < gn && c_live ? __ldg(qsrc + g * HD + e) : 0.0f;
+  float m_run[MG], l_run[MG], acc[MG][NC];
 #pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) {
+  for (int g = 0; g < MG; ++g) {
     m_run[g] = kNegInf;
     l_run[g] = 0.0f;
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[g][j] = 0.0f;
   }
-  float* wprobs = probs + warp * kMaxGroups * kRowsPerWarp;
-  float* wdelta = deltas + warp * 2 * kRowsPerWarp;
-  const int wr0 = warp * kRowsPerWarp;
+  float* wprobs = probs + warp * MG * RPW;
+  float* wdelta = deltas + warp * 2 * RPW;
+  const int wr0 = warp * RPW;
 
   for (int t = 0; t < n_tiles; ++t) {
     async_copy::wait<kStages - 2>();
@@ -326,25 +385,25 @@ paged_decode_kernel(const Args a) {
     {
       const int tn = t + kStages - 1;
       if (tn < n_tiles) {
-        const int r0 = row_begin + tn * kTile;
-        issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(kTile, row_end - r0),
+        const int r0 = row_begin + tn * TILE;
+        issue_tile<KIND, HD>(a, bt_row, kvh, r0, min(TILE, row_end - r0),
                              !uniform, ring + (tn % kStages) * GE::kStageBytes);
       }
       async_copy::commit();
     }
     const uint8_t* stage = ring + (t % kStages) * GE::kStageBytes;
     const uint8_t* kraw = stage;
-    const uint8_t* vraw = stage + kTile * GE::kRowBytes;
+    const uint8_t* vraw = stage + TILE * GE::kRowBytes;
     const float* krng =
-        reinterpret_cast<const float*>(stage + 2 * kTile * GE::kRowBytes);
-    const float* vrng = krng + kTile;
-    const int row0 = row_begin + t * kTile;
-    const int wrows = max(0, min(kRowsPerWarp, row_end - row0 - wr0));
+        reinterpret_cast<const float*>(stage + 2 * TILE * GE::kRowBytes);
+    const float* vrng = krng + TILE;
+    const int row0 = row_begin + t * TILE;
+    const int wrows = max(0, min(RPW, row_end - row0 - wr0));
     if (wrows == 0) continue;
 
     if constexpr (KIND >= kU8) {    // step sizes of this warp's rows
-      if (lane < 2 * kRowsPerWarp) {
-        const int r = lane % kRowsPerWarp, which = lane / kRowsPerWarp;
+      if (lane < 2 * RPW) {
+        const int r = lane % RPW, which = lane / RPW;
         if (r < wrows && (which || !uniform)) {
           const float rng = (which ? vrng : krng)[wr0 + r];
           wdelta[lane] =
@@ -356,18 +415,18 @@ paged_decode_kernel(const Args a) {
 
     // q·K of the warp's rows: partial dots over each lane's 8 elements,
     // summed over the row's lanes (all 0 for the one-shot ctx = 0 row)
-    float s[GE::kItems][kMaxGroups];
+    float s[GE::kItems][MG];
     if (uniform) {
 #pragma unroll
       for (int it = 0; it < GE::kItems; ++it)
 #pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g) s[it][g] = 0.0f;
+        for (int g = 0; g < MG; ++g) s[it][g] = 0.0f;
     } else {
 #pragma unroll
       for (int it = 0; it < GE::kItems; ++it) {
         const int rr = (it * 32 + lane) / LPR;
         float x[8];
-        if (rr < wrows) {
+        if (rr < wrows && c_live) {
           const int r = wr0 + rr;
           float rng = 0.0f, delta = 0.0f;
           if constexpr (KIND >= kU8) {
@@ -381,7 +440,7 @@ paged_decode_kernel(const Args a) {
           for (int e = 0; e < 8; ++e) x[e] = 0.0f;
         }
 #pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g) {
+        for (int g = 0; g < MG; ++g) {
           float d = 0.0f;
 #pragma unroll
           for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], x[e], d);
@@ -391,7 +450,7 @@ paged_decode_kernel(const Args a) {
 #pragma unroll
       for (int it = 0; it < GE::kItems; ++it)
 #pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g)
+        for (int g = 0; g < MG; ++g)
 #pragma unroll
           for (int o = LPR / 2; o > 0; o >>= 1)
             s[it][g] = __fadd_rn(s[it][g],
@@ -399,22 +458,22 @@ paged_decode_kernel(const Args a) {
     }
 
     // masked, scaled logits; the new running max of each head
-    float m_new[kMaxGroups];
+    float m_new[MG];
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) m_new[g] = kNegInf;
+    for (int g = 0; g < MG; ++g) m_new[g] = kNegInf;
 #pragma unroll
     for (int it = 0; it < GE::kItems; ++it) {
       const int rr = (it * 32 + lane) / LPR;
       const bool ok = rr < wrows && (uniform || row0 + wr0 + rr < ctx);
 #pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
+      for (int g = 0; g < MG; ++g) {
         s[it][g] = ok ? __fmul_rn(s[it][g], a.scale) : kNegInf;
         m_new[g] = fmaxf(m_new[g], s[it][g]);
       }
     }
-    float alpha[kMaxGroups];
+    float alpha[MG];
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
+    for (int g = 0; g < MG; ++g) {
 #pragma unroll
       for (int o = 16; o >= LPR; o >>= 1)
         m_new[g] = fmaxf(m_new[g], __shfl_xor_sync(kFull, m_new[g], o));
@@ -429,16 +488,16 @@ paged_decode_kernel(const Args a) {
       const int rr = (it * 32 + lane) / LPR;
       const bool ok = rr < wrows && (uniform || row0 + wr0 + rr < ctx);
 #pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g)
+      for (int g = 0; g < MG; ++g)
         if (g < gn && g % LPR == c)
-          wprobs[g * kRowsPerWarp + rr] =
+          wprobs[g * RPW + rr] =
               ok ? expf(__fsub_rn(s[it][g], m_run[g])) : 0.0f;
     }
     __syncwarp();
 
     // P·V over the warp's rows in order, into the rescaled accumulators
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
+    for (int g = 0; g < MG; ++g) {
       l_run[g] = __fmul_rn(alpha[g], l_run[g]);
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[g][j] = __fmul_rn(alpha[g], acc[g][j]);
@@ -448,14 +507,20 @@ paged_decode_kernel(const Args a) {
       float rng = 0.0f, delta = 0.0f;
       if constexpr (KIND >= kU8) {
         rng = vrng[r];
-        delta = wdelta[kRowsPerWarp + rr];
+        delta = wdelta[RPW + rr];
       }
       float v[NC];
-      load_cols<KIND, NC>(vraw + r * GE::kRowBytes, lane * NC, rng, delta, v);
+      if (cols_live) {
+        load_cols<KIND, NC>(vraw + r * GE::kRowBytes, lane * NC, rng, delta,
+                            v);
+      } else {
 #pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
+        for (int j = 0; j < NC; ++j) v[j] = 0.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
         if (g < gn) {
-          const float p = wprobs[g * kRowsPerWarp + rr];
+          const float p = wprobs[g * RPW + rr];
           l_run[g] = __fadd_rn(l_run[g], p);
 #pragma unroll
           for (int j = 0; j < NC; ++j) acc[g][j] = fmaf(p, v[j], acc[g][j]);
@@ -465,18 +530,21 @@ paged_decode_kernel(const Args a) {
     __syncwarp();                   // wprobs / wdelta are rewritten next tile
   }
   async_copy::wait<0>();
+  __syncthreads();                  // the ring is free: the merge reuses it
 
   // merge the warps: (acc (G, hd), m (G), l (G)) per warp
   {
     float* cw = comb + warp * kCombStride;
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
+    for (int g = 0; g < MG; ++g) {
       if (g < gn) {
+        if (cols_live) {
 #pragma unroll
-        for (int j = 0; j < NC; ++j) cw[g * HD + lane * NC + j] = acc[g][j];
+          for (int j = 0; j < NC; ++j) cw[g * HD + lane * NC + j] = acc[g][j];
+        }
         if (lane == 0) {
-          cw[kMaxGroups * HD + g] = m_run[g];
-          cw[kMaxGroups * HD + kMaxGroups + g] = l_run[g];
+          cw[MG * HD + g] = m_run[g];
+          cw[MG * HD + MG + g] = l_run[g];
         }
       }
     }
@@ -494,13 +562,13 @@ paged_decode_kernel(const Args a) {
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      mx = fmaxf(mx, comb[w * kCombStride + kMaxGroups * HD + g]);
+      mx = fmaxf(mx, comb[w * kCombStride + MG * HD + g]);
     float l = 0.0f, sum = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float* cw = comb + w * kCombStride;
-      const float e = expf(__fsub_rn(cw[kMaxGroups * HD + g], mx));
-      l = __fadd_rn(l, __fmul_rn(e, cw[kMaxGroups * HD + kMaxGroups + g]));
+      const float e = expf(__fsub_rn(cw[MG * HD + g], mx));
+      l = __fadd_rn(l, __fmul_rn(e, cw[MG * HD + MG + g]));
       sum = __fadd_rn(sum, __fmul_rn(e, cw[g * HD + d]));
     }
     if (single) {
@@ -531,8 +599,8 @@ paged_decode_kernel(const Args a) {
   // sum the normalizer per head (a warp per head), then each output's
   // weighted sum over the splits' accumulators
   float* wt = table;                          // (live, gn): m, then weights
-  float* lt = table + a.splits * kMaxGroups;  // (live, gn): l
-  float* norm = lt + a.splits * kMaxGroups;   // (gn,)
+  float* lt = table + a.splits * MG;          // (live, gn): l
+  float* norm = lt + a.splits * MG;           // (gn,)
   for (int i = threadIdx.x; i < live * gn; i += kThreads) {
     const int sp = i / gn, g = i - sp * gn;
     const float* p = parts + sp * pstride + g * (HD + 2);
@@ -579,27 +647,29 @@ Kernel pick_kind(int kind) {
   }
 }
 
-template <bool ONESHOT>
-Kernel pick(int kind, int hd) {
-  switch (hd) {
-    case 32: return pick_kind<ONESHOT, 32>(kind);
-    case 64: return pick_kind<ONESHOT, 64>(kind);
-    default: return nullptr;
-  }
-}
+// The library is built once per head dim (``kernels/build.py``,
+// VARIANTS): -DPAGED_HEAD_DIM=<hd> instantiates that head dim only, so that
+// the six compile in parallel.
+#ifndef PAGED_HEAD_DIM
+#error "build with -DPAGED_HEAD_DIM=<32|64|80|112|128|256>"
+#endif
+constexpr int kHD = PAGED_HEAD_DIM;
 
 }  // namespace
 
 // One decode call: the one-shot contract (B7) when `oneshot`, else the
 // online one (B8). kind: 0 float32, 1 bf16, 2 uint8 8-bit codes, 3 uint8
-// 4-bit codes; hd 32 or 64. All pointers are device memory, contiguous,
-// pools 16-byte aligned; the scale pointers may be null for kinds 0 and 1.
-// workspace: float32 (batch, num_kv, splits, heads / num_kv, hd + 2);
-// tickets: int32 (batch, num_kv, ceil(heads / num_kv / 8)), 0 before the
-// first call (every call leaves them at 0). split_rows is a multiple of 64
-// and splits = ceil(pages_per_seq·ps / split_rows). smem_bytes: the ring,
-// the warps' probabilities, step sizes and merge area, a 16-byte flag and
-// the combine's 2 x splits x 8 + 8 floats (computed by the caller).
+// 4-bit codes; hd the library's head dim (PAGED_HEAD_DIM: 32, 64, 80, 112,
+// 128 or 256). All pointers are device memory, contiguous, pools 16-byte
+// aligned; the scale pointers may be null for kinds 0 and 1. workspace:
+// float32 (batch, num_kv, splits, heads / num_kv, hd + 2); tickets: int32
+// (batch, num_kv, chunks) with chunks = ceil(heads / num_kv / G), G = 8
+// query heads a block up to hd 64 and 4 above it, 0 before the first call
+// (every call leaves them at 0).
+// split_rows is a multiple of 64 and splits = ceil(pages_per_seq·ps /
+// split_rows). smem_bytes: the ring (or the warps' merge area, if larger),
+// the warps' probabilities and step sizes, a 16-byte flag and the
+// combine's 2 x splits x G + G floats (computed by the caller).
 // Launches on `stream`, returns cudaGetLastError() (or the error of setting
 // the shared-memory limit); does not synchronise.
 extern "C" int paged_decode_f32(
@@ -610,12 +680,15 @@ extern "C" int paged_decode_f32(
     int ps, int pages_per_seq, int num_pages, int split_rows, int splits,
     float levels, float scale, int smem_bytes, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  if (split_rows % kTile || splits <= 0 || num_kv <= 0 || heads % num_kv)
+  if (split_rows % 64 || splits <= 0 || num_kv <= 0 || heads % num_kv)
     return (int)cudaErrorInvalidValue;
-  const int chunks = (heads / num_kv + kMaxGroups - 1) / kMaxGroups;
+  if (hd != kHD) return (int)cudaErrorInvalidValue;
+  constexpr int max_groups = Geo<kF32, kHD>::kGroups;
+  const int chunks = (heads / num_kv + max_groups - 1) / max_groups;
   if ((long long)num_kv * chunks > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  Kernel fn = oneshot ? pick<true>(kind, hd) : pick<false>(kind, hd);
+  Kernel fn = oneshot ? pick_kind<true, kHD>(kind)
+                      : pick_kind<false, kHD>(kind);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Args a{(const float*)q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
          (const float*)k_scale, (const float*)v_scale,
@@ -623,8 +696,8 @@ extern "C" int paged_decode_f32(
          (float*)workspace, (int*)tickets, heads, num_kv, ps, pages_per_seq,
          num_pages, split_rows, splits, levels, scale};
   // dynamic shared memory already allowed, bytes, per kernel
-  static int allowed[2][4][2] = {};
-  int& have = allowed[oneshot ? 1 : 0][kind][hd == 32 ? 0 : 1];
+  static int allowed[2][4] = {};
+  int& have = allowed[oneshot ? 1 : 0][kind];
   if (smem_bytes > have) {
     if (smem_bytes > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(

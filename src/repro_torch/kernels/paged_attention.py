@@ -30,36 +30,52 @@ from repro_torch.kernels import build, ref
 SMEM_PER_BLOCK = 232448
 THREADS = 256
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-# 64-slot tiles, 8 rows of each per warp of 8, a 3-stage cp.async ring; at
-# most 8 query heads per block (a KV head with more takes several blocks);
-# the head dims it is built for. SPLIT_ROWS slots per block (a multiple of
-# TILE), chosen on the card (PERF.md, chip_smoke.time_split_rows): from 64,
-# 128, 256 and 512 at the long request's table (online) and from 64, 128 and
-# 256 at the main stream's (one-shot); 128 was fastest at both.
+# 64-slot tiles (32 where a row is wider than 512 bytes), 1/8 of each per
+# warp of 8, a 3-stage cp.async ring; at most 8 query heads per block below
+# head dim 128 and 4 from it (a KV head with more takes several blocks);
+# the head dims it is built for (:func:`geometry`). SPLIT_ROWS slots per
+# block (a multiple of 64), chosen on the card (PERF.md,
+# chip_smoke.time_split_rows): from 64, 128, 256 and 512 at the long
+# request's table (online) and from 64, 128 and 256 at the main stream's
+# (one-shot); 128 was fastest at both.
 TILE = 64
 WARPS = THREADS // 32
 STAGES = 3
 MAX_GROUPS = 8
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 80, 112, 128, 256)
 SPLIT_ROWS = 128
 _levels: Dict[Tuple[int, torch.device], float] = {}
 _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 _SCALES: Dict[int, float] = {}           # 1 / sqrt(hd) in float32, per hd
-_decode = None
+_decode: Dict[int, object] = {}
 
 
-def _fn():
-    """The library's C entry, with its argument types set (resolved
-    once)."""
-    global _decode
-    if _decode is None:
-        fn = build.load("paged_attention").paged_decode_f32
+def _fn(head_dim: int):
+    """The C entry of the library built for this head dim
+    (``build.VARIANTS``), with its argument types set (resolved once)."""
+    fn = _decode.get(head_dim)
+    if fn is None:
+        fn = build.load("paged_attention", f"hd{head_dim}").paged_decode_f32
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
-        _decode = fn
-    return _decode
+        _decode[head_dim] = fn
+    return fn
+
+
+def geometry(head_dim: int, row_bytes: int) -> Tuple[int, int, int]:
+    """``(tile, groups, padded head dim)`` of the kernel built for this head
+    dim and pool row size (bytes of one K or V row of one KV head): slots a
+    tile (64, or 32 where a row is wider than 512 bytes, float32 at 256),
+    query heads a block (8, or 4 from a padded head dim of 128) and the
+    power of two the lane layout works on (32, 64, 128 or 256)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: the kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {head_dim}")
+    hdp = next(p for p in (32, 64, 128, 256) if head_dim <= p)
+    return (32 if row_bytes > 512 else TILE,
+            4 if hdp >= 128 else MAX_GROUPS, hdp)
 
 
 def oneshot_smem_bytes(groups: int, head_dim: int, pages_per_seq: int,
@@ -77,17 +93,19 @@ def oneshot_smem_bytes(groups: int, head_dim: int, pages_per_seq: int,
 def online_smem_bytes(head_dim: int, row_bytes: int, splits: int) -> int:
     """Dynamic shared memory of the split kernel (both contracts): the ring
     of ``STAGES`` stages (a tile of raw K and V rows of ``row_bytes`` each
-    and their float32 ranges), each warp's (G, 8) probabilities and 2 x 8
-    step sizes, the warps' (acc, m, l) for the merge, a 16-byte flag and the
-    combine's (m, l) table of ``splits`` x G entries. Only the table grows
-    with the table width (64 bytes a split). ``ops`` picks the contract
-    with :func:`oneshot_smem_bytes`, not with this."""
-    ring = STAGES * (2 * TILE * row_bytes + 2 * TILE * 4)
-    rows = TILE // WARPS
-    floats = (WARPS * MAX_GROUPS * rows + WARPS * 2 * rows
-              + WARPS * MAX_GROUPS * (head_dim + 2))
-    table = 2 * splits * MAX_GROUPS + MAX_GROUPS
-    return ring + 4 * floats + 16 + 4 * table
+    and their float32 ranges), which the warps' (acc, m, l) merge reuses
+    after the last tile (the larger of the two, rounded up to 16 bytes),
+    each warp's (G, tile/8) probabilities and 2 x tile/8 step sizes, a
+    16-byte flag and the combine's (m, l) table of ``splits`` x G entries.
+    Only the table grows with the table width (8 G bytes a split). ``ops``
+    picks the contract with :func:`oneshot_smem_bytes`, not with this."""
+    tile, groups, _ = geometry(head_dim, row_bytes)
+    ring = STAGES * (2 * tile * row_bytes + 2 * tile * 4)
+    merge = 4 * WARPS * groups * (head_dim + 2)
+    rows = tile // WARPS
+    floats = WARPS * groups * rows + WARPS * 2 * rows
+    table = 2 * splits * groups + groups
+    return -(-max(ring, merge) // 16) * 16 + 4 * floats + 16 + 4 * table
 
 
 def split_count(pages_per_seq: int, page_size: int, split_rows: int) -> int:
@@ -150,8 +168,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     (``online=False``, the contract of ``ref.paged_attention_ref``) or
     online contract (``ref.paged_attention_online_ref``: zeros where
     ctx = 0); returns the (B, H, hd) float32 output. One launch of
-    ``split_count`` blocks per (sequence, KV head, 8 query heads). The
-    kernel clamps the table's ids into the pool."""
+    ``split_count`` blocks per (sequence, KV head, G query heads; G from
+    :func:`geometry`). The kernel clamps the table's ids into the pool."""
     if q.dim() != 3 or not q.is_cuda:
         raise ValueError(f"paged_attention: q must be a CUDA (B, H, hd) "
                          f"tensor, got {tuple(q.shape)} on {q.device}")
@@ -192,14 +210,13 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     _check("block_tables", block_tables, (bsz, pages_per_seq), torch.int32,
            index)
     _check("ctx_lens", ctx_lens, (bsz,), torch.int32, index)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"paged_attention: the kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
-    chunks = -(-groups // MAX_GROUPS)
+    row_bytes = want_store * k_pages.element_size()
+    _, block_groups, _ = geometry(hd, row_bytes)
+    chunks = -(-groups // block_groups)
     if bsz > 65535 or num_kv * chunks > 65535:
         raise ValueError(f"paged_attention: at most 65535 sequences and "
-                         f"65535 (KV head, 8 query heads) blocks, got {bsz} "
-                         f"and {num_kv * chunks}")
+                         f"65535 (KV head, {block_groups} query heads) "
+                         f"blocks, got {bsz} and {num_kv * chunks}")
     if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
         raise ValueError("paged_attention: pools must start on 16-byte "
                          "boundaries")
@@ -208,7 +225,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if scale is None:
         scale = _SCALES[hd] = 1.0 / float(np.sqrt(np.float32(hd)))
     splits = split_count(pages_per_seq, ps, SPLIT_ROWS)
-    smem = online_smem_bytes(hd, want_store * k_pages.element_size(), splits)
+    smem = online_smem_bytes(hd, row_bytes, splits)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"paged_attention: {smem} bytes of shared memory "
                          f"exceed the {SMEM_PER_BLOCK} a block may use")
@@ -218,7 +235,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         bsz * num_kv * chunks)
     stream = torch._C._cuda_getCurrentRawStream(index)
     out = q.new_empty((bsz, heads, hd))
-    err = _fn()(
+    err = _fn(hd)(
         int(not online), kind, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,

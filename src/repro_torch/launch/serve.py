@@ -32,8 +32,14 @@ Without ``--device cpu`` it runs on the CUDA card and raises when there is
 none; ``--full`` serves the full-width model. ``--trace out.json``
 writes a Chrome-trace/Perfetto JSON of the paged scheduler's requests,
 decode steps and page pool (as ``REPRO_TRACE=out.json`` does; the token
-streams are unchanged). ``--swa-recycle`` is not ported yet (ROADMAP.md)
-and exits with a message.
+streams are unchanged). ``--swa-recycle`` frees the pages that fell
+wholly behind the window of a sliding-window stack (h2o-danube-1.8b)
+mid-request; on any other stack it prints that it disables itself, as in
+the JAX package:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --smoke --prompt-lens 90,40,150 --decode-tokens 24 --swa-recycle \
+        [--device cpu]
 """
 from __future__ import annotations
 
@@ -51,9 +57,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import paging
 from repro_torch.serving.scheduler import (Scheduler, ServeConfig,
                                            block_kinds, draw_seed,
-                                           sample_tokens)
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue A: serving)"
+                                           pure_swa, sample_tokens)
 
 
 def make_prompts(cfg, prompt_lens, seed: int, prefix_len: int = 0):
@@ -193,6 +197,7 @@ def run_paged(cfg, params, prompts, decode_tokens: int, *,
             "cow_forks": sched.cow_forks,
             "preemptions": sched.preemptions,
             "forced_preemptions": sched.forced_preemptions,
+            "swa_recycled_pages": sched.swa_recycled_pages,
             "ttft_p50_s": _p50(sched.ttft_s.values()),
             "ttft_queue_p50_s": _p50(sched.ttft_queue_s.values()),
             "scheduler": sched}
@@ -244,7 +249,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "its tokens or restore an NPZ swap of its pages "
                          "and slot state")
     ap.add_argument("--swa-recycle", action="store_true",
-                    help=f"sliding-window page recycling {NOT_PORTED}")
+                    help="sliding-window stacks: free the pages that fell "
+                         "wholly behind the attention window mid-request")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of this run "
                          "to PATH (as REPRO_TRACE=PATH does); it observes "
@@ -255,8 +261,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, *, params=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.swa_recycle:
-        raise SystemExit(f"[serve] --swa-recycle {NOT_PORTED}")
     if args.trace:
         obs_trace.enable(args.trace)
     dev = resolve_device(args.device)
@@ -294,6 +298,10 @@ def main(argv=None, *, params=None) -> dict:
                       f"({sorted(kinds - set(paging._ATTN_KINDS))}): "
                       f"disabling --share-prefix")
                 args.share_prefix = False
+            if args.swa_recycle and not pure_swa(cfg):
+                print(f"[serve] {cfg.name} is not pure sliding-window "
+                      f"attention: disabling --swa-recycle")
+                args.swa_recycle = False
             max_ctx = max(prompt_lens) + args.decode_tokens
             pages_per_seq = paging.pages_needed(max_ctx, args.page_size)
             scfg = ServeConfig(
@@ -304,6 +312,7 @@ def main(argv=None, *, params=None) -> dict:
                 temperature=args.temperature, seed=args.seed,
                 share_prefix=args.share_prefix, preempt=args.preempt,
                 preempt_mode=args.preempt_mode,
+                swa_recycle=args.swa_recycle,
                 **({} if args.kv_bits is None
                    else {"kv_bits": args.kv_bits}))
             out = run_paged(cfg, params, prompts, args.decode_tokens,
@@ -317,6 +326,7 @@ def main(argv=None, *, params=None) -> dict:
               f"cow_forks={out['cow_forks']} "
               f"preemptions={out['preemptions']} "
               f"forced={out['forced_preemptions']} "
+              f"swa_recycled={out['swa_recycled_pages']} "
               f"peak_in_use={out['peak_pages_in_use']} "
               f"final_in_use={out['final_pages_in_use']}")
         print(f"[serve] ttft p50={out['ttft_p50_s'] * 1e3:.1f}ms "

@@ -7,6 +7,11 @@ synthetic token stream; every step runs the engine's head and tail phases
 censor) and the dual update, with the quantize and mix kernels on the
 card. It logs loss, consensus error, transmitted bits and s/step, and
 checkpoints the worker-stacked parameters in the JAX package's npz layout.
+``--arch`` defaults to tinyllama-1.1b, as in the JAX CLI; the attention
+stack takes the engine's worker axis as the xLSTM kinds do:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 1 --workers 2 --batch 2 --seq 16
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --smoke --workers 4 --batch 16 --seq 128 --local-steps 2 \\
@@ -375,7 +380,7 @@ def run_fsdp(cfg, args, *, params=None) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="xlstm-125m",
+    ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=base.list_architectures())
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config")

@@ -1,18 +1,22 @@
-"""Block interface of the ported models (the port of the mLSTM, sLSTM
-and full-attention parts of ``repro.models.blocks``):
+"""Block interface of the ported models (the port of the mLSTM, sLSTM,
+full-attention and sliding-window attention parts of
+``repro.models.blocks``):
 
     init(kind, gen, cfg, device)              -> one block's parameters
     apply(kind, params, cfg, x, ctx=None)     -> x_new
     make_cache(kind, cfg, batch, cache_len)   -> the block's decode cache
 
-x is (W, B, S, D) for the xLSTM kinds in consensus training and (B, S, D)
-in serving (every kind); ``ctx`` carries the positions and the cache,
-which the block writes in place. A cached sLSTM forward (serving) takes
-the fused cell, ``use_kernel=True``, as the JAX package's kernel route;
-training keeps the autograd time loop. Residual connections and pre-norms
-live here.
-The other block kinds of the JAX package (sliding-window attention, MoE,
-Mamba2, cross attention) are not ported yet and raise.
+x is (W, B, S, D) in consensus training and (B, S, D) in serving (every
+kind); ``ctx`` carries the positions, the cache, which the block writes in
+place, and ``window_override`` (a window for every attention layer, the
+JAX package's long-context variant). "swa" is "attn" with the config's
+``sliding_window`` as its attention window; its contiguous cache is a ring
+of ``min(cache_len, window)`` slots. A cached sLSTM forward (serving)
+takes the fused cell, ``use_kernel=True``, as the JAX package's kernel
+route; training keeps the autograd time loop. Residual connections and
+pre-norms live here.
+The other block kinds of the JAX package (MoE, Mamba2, shared and cross
+attention) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ import torch
 
 from repro_torch.models import layers, xlstm
 
-PORTED_KINDS = ("mlstm", "slstm", "attn")
+PORTED_KINDS = ("mlstm", "slstm", "attn", "swa")
+ATTN_KINDS = ("attn", "swa")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCtx:
     positions: Optional[torch.Tensor]      # (B, S) absolute positions
     cache: Optional[dict] = None
+    window_override: Optional[int] = None  # long-context SWA variant
 
 
 def _attn_dims(cfg) -> layers.AttnDims:
@@ -44,7 +50,7 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 
 def init(kind: str, gen, cfg, device):
-    if kind == "attn":
+    if kind in ATTN_KINDS:
         return {"ln1": layers.rmsnorm_init(cfg.d_model, device),
                 "attn": layers.attention_init(gen, _attn_dims(cfg), device),
                 "ln2": layers.rmsnorm_init(cfg.d_model, device),
@@ -61,13 +67,21 @@ def init(kind: str, gen, cfg, device):
     raise _not_ported(kind)
 
 
+def _window_for(kind: str, cfg, ctx: Optional[BlockCtx]) -> Optional[int]:
+    if ctx is not None and ctx.window_override is not None:
+        return ctx.window_override
+    if kind == "swa":
+        return cfg.sliding_window
+    return None
+
+
 def apply(kind: str, params, cfg, x: torch.Tensor,
           ctx: Optional[BlockCtx] = None) -> torch.Tensor:
-    if kind == "attn":
+    if kind in ATTN_KINDS:
         h, _ = layers.attention_apply(
             params["attn"], _attn_dims(cfg),
             layers.rmsnorm(params["ln1"], x, cfg.norm_eps), ctx.positions,
-            rope_theta=cfg.rope_theta,
+            window=_window_for(kind, cfg, ctx), rope_theta=cfg.rope_theta,
             use_rope=cfg.pos_embedding == "rope", cache=ctx.cache)
         x = x + h
         y = layers.mlp_apply(params["mlp"],
@@ -91,12 +105,18 @@ def apply(kind: str, params, cfg, x: torch.Tensor,
 
 
 def make_cache(kind: str, cfg, batch: int, cache_len: int,
-               dtype=torch.bfloat16, device="cpu"):
-    """Decode cache of one block: a contiguous K/V cache for "attn", the
-    float32 recurrent state (fresh, m at -1e30) for the xLSTM kinds, whose
-    size does not grow with ``cache_len``."""
-    if kind == "attn":
-        return layers.init_kv_cache(batch, cache_len, cfg.num_kv_heads,
+               dtype=torch.bfloat16, device="cpu",
+               window_override: Optional[int] = None):
+    """Decode cache of one block: a contiguous K/V ring for the attention
+    kinds, of ``min(cache_len, window)`` slots where the layer has a window
+    (``window_override``, else the config's for "swa"), the float32
+    recurrent state (fresh, m at -1e30) for the xLSTM kinds, whose size
+    does not grow with ``cache_len``."""
+    if kind in ATTN_KINDS:
+        window = window_override if window_override is not None else (
+            cfg.sliding_window if kind == "swa" else None)
+        eff = min(cache_len, window) if window else cache_len
+        return layers.init_kv_cache(batch, eff, cfg.num_kv_heads,
                                     cfg.resolved_head_dim, dtype, device)
     if kind == "mlstm":
         return xlstm.mlstm_cache(cfg, batch, device)

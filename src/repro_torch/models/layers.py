@@ -134,14 +134,14 @@ def _rope_angles(positions: torch.Tensor, head_dim: int,
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
-    """(cos, sin) of the rotary angles at positions (B, S), each
-    (B, S, 1, head_dim/2) float32: computed once per layer for q and k."""
-    angles = _rope_angles(positions, head_dim, theta)[:, :, None, :]
+    """(cos, sin) of the rotary angles at positions (..., S), each
+    (..., S, 1, head_dim/2) float32: computed once per layer for q and k."""
+    angles = _rope_angles(positions, head_dim, theta)[..., None, :]
     return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
-    """Rotary embedding of x (B, S, H, D) with :func:`rope_tables` of its
+    """Rotary embedding of x (..., S, H, D) with :func:`rope_tables` of its
     positions, computed in float32 and returned in x's dtype
     (rotate-half layout)."""
     cos, sin = tables
@@ -234,8 +234,13 @@ def init_kv_cache(batch: int, cache_len: int, num_kv: int, head_dim: int,
 
 def _cache_write(cache, k, v, q_positions):
     """Write S new (k, v) entries at slots positions % cache_len, in
-    place."""
+    place. A chunk longer than the ring (positions increasing along it)
+    writes its last cache_len entries only: its slots would repeat, and
+    which of two writes to one slot an indexed assignment keeps is not
+    defined on the card."""
     w = cache["k"].shape[1]
+    if k.shape[1] > w:
+        k, v, q_positions = k[:, -w:], v[:, -w:], q_positions[:, -w:]
     slots = (q_positions % w).long()
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
     cache["k"][bidx, slots] = k.to(cache["k"].dtype)
@@ -406,6 +411,12 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
     an optional contiguous or paged cache (written in place). Returns
     ``(out (B, S, D), cache)``.
 
+    Consensus training passes x (W, B, S, D) with per-worker weights (a
+    leading W on every parameter) and no cache: each worker's projections
+    take its own weights (:func:`dense`), and the rotary embedding, mask
+    and softmax run on the workers' rows folded into one batch of W·B
+    rows, which is the JAX package's ``vmap`` over workers written out.
+
     Decode route: one new token (S = 1) without a window on a paged cache
     goes through ``kernels.ops.paged_attention_decode`` on every device
     (the plain one-shot version on the CPU, the CUDA kernels on the card).
@@ -413,8 +424,17 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
     ``REPRO_PAGED_ATTN_KERNEL=1`` and otherwise gathers the pages and runs
     :func:`mha`. Prefill chunks (S > 1) gather and run :func:`mha`, as in
     the JAX package."""
-    b, s, _ = x.shape
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    if x.dim() == 4:
+        if cache is not None:
+            raise ValueError("attention_apply: a worker axis (W, B, S, D) "
+                             "takes no decode cache")
+        workers = x.shape[0]
+        b, s = workers * x.shape[1], x.shape[2]
+        positions = torch.broadcast_to(positions, x.shape[:3]).reshape(b, s)
+    else:
+        workers = None
+        b, s, _ = x.shape
     q = dense(params["q"], x).reshape(b, s, h, hd)
     k = dense(params["k"], x).reshape(b, s, kv, hd)
     v = dense(params["v"], x).reshape(b, s, kv, hd)
@@ -429,6 +449,18 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
                 out = _paged_decode(cache, q, positions)
                 return dense(params["o"], out.reshape(b, s, h * hd)), cache
             k, v, kv_positions = paged_gather(cache, head_dim=hd)
+        elif s > 1 and window is not None:
+            # a windowed ring holds min(cache_len, window) slots, and a
+            # chunk's own writes would overwrite entries that its earlier
+            # queries still see: attend over the ring as it was and the
+            # chunk, then write (the JAX package attends over the ring
+            # after the write, which drops those keys: ROADMAP C)
+            k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+            v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+            kv_positions = torch.cat(
+                [cache["kv_pos"], positions.to(torch.int32)], dim=1)
+            _cache_write(cache, k, v, positions)
+            k, v = k_all, v_all
         else:
             _cache_write(cache, k, v, positions)
             k, v, kv_positions = cache["k"], cache["v"], cache["kv_pos"]
@@ -440,4 +472,7 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
     else:
         out = mha(q, k, v, _attn_mask(positions, kv_positions, causal,
                                       window))
-    return dense(params["o"], out.reshape(b, s, h * hd)), cache
+    out = out.reshape(b, s, h * hd)
+    if workers is not None:
+        out = out.reshape(workers, b // workers, s, h * hd)
+    return dense(params["o"], out), cache

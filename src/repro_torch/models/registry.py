@@ -1,6 +1,12 @@
 """Model assembly, forward pass, loss and decode caches (the port of
 ``repro.models.registry`` for the ported block kinds).
 
+``window_override`` (``init_cache``, ``apply_model``, ``lm_loss``,
+``lm_loss_tokens``, ``decode_step``) gives every attention layer that
+window, as the JAX package's long-context variant does
+(``ModelConfig.for_long_context``); "swa" layers otherwise take the
+config's ``sliding_window``.
+
 A config's layer stack is its ``block_unit`` repeated. As in the JAX
 package, the parameters of all full unit repetitions are **stacked**: one
 leaf per unit position with a leading depth axis (``(6, ...)`` for
@@ -65,26 +71,31 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
-               device="cpu") -> Dict[str, Any]:
+               device="cpu", window_override: Optional[int] = None
+               ) -> Dict[str, Any]:
     """Contiguous decode caches in the parameter tree's structure: a
     leading depth axis on the unit positions, one cache per leftover
-    layer."""
+    layer (windowed layers hold a ring of ``min(cache_len, window)``
+    slots)."""
     unit, n_full, rem = segments(cfg)
     caches: Dict[str, Any] = {"units": {}, "rem": {}}
+
+    def one(kind):
+        return blocks.make_cache(kind, cfg, batch, cache_len, dtype, device,
+                                 window_override=window_override)
+
     if n_full > 0:
         for i, kind in enumerate(unit):
             caches["units"][f"p{i}"] = T.tree_map(
                 lambda *xs: torch.stack(xs),
-                *[blocks.make_cache(kind, cfg, batch, cache_len, dtype,
-                                    device) for _ in range(n_full)])
+                *[one(kind) for _ in range(n_full)])
     for i, kind in enumerate(rem):
-        caches["rem"][f"p{i}"] = blocks.make_cache(kind, cfg, batch,
-                                                   cache_len, dtype, device)
+        caches["rem"][f"p{i}"] = one(kind)
     return caches
 
 
 def _run_stack(params, cfg, x: torch.Tensor, positions=None,
-               caches=None) -> torch.Tensor:
+               caches=None, window_override=None) -> torch.Tensor:
     unit, n_full, rem = segments(cfg)
     stack = params["stack"]
     # depth is axis 1 under a worker axis (training), axis 0 without
@@ -93,7 +104,8 @@ def _run_stack(params, cfg, x: torch.Tensor, positions=None,
 
     def ctx(cache):
         return (None if positions is None and cache is None
-                else blocks.BlockCtx(positions=positions, cache=cache))
+                else blocks.BlockCtx(positions=positions, cache=cache,
+                                     window_override=window_override))
 
     for r in range(n_full):
         for i, kind in enumerate(unit):
@@ -109,7 +121,8 @@ def _run_stack(params, cfg, x: torch.Tensor, positions=None,
 
 
 def apply_model(params, cfg, batch: Dict[str, torch.Tensor], *,
-                caches=None) -> torch.Tensor:
+                caches=None, window_override: Optional[int] = None
+                ) -> torch.Tensor:
     """Forward pass: tokens (W, B, S) -> logits (W, B, S, V) for training,
     or tokens (B, S) -> logits (B, S, V) for serving, in the activation
     dtype (``cfg.dtype``). ``batch["positions"]`` (B, S) defaults to
@@ -117,24 +130,25 @@ def apply_model(params, cfg, batch: Dict[str, torch.Tensor], *,
     act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     tokens = batch["tokens"]
     positions = batch.get("positions")
-    if positions is None and "attn" in cfg.block_kinds:
+    if positions is None and set(blocks.ATTN_KINDS) & set(cfg.block_kinds):
         b, s = tokens.shape[-2:]
         positions = torch.broadcast_to(
             torch.arange(s, device=tokens.device)[None], (b, s))
     x = layers.embed(params["embed"], tokens).to(act)
-    x = _run_stack(params, cfg, x, positions, caches)
+    x = _run_stack(params, cfg, x, positions, caches, window_override)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(params["embed"], x)
 
 
 def decode_step(params, cfg, tokens: torch.Tensor, positions: torch.Tensor,
-                caches) -> Tuple[torch.Tensor, Any]:
+                caches, *, window_override: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Any]:
     """One serving step: tokens (B, S) appended at ``positions`` (B, S)
     (-1 = padding or an inactive slot, whose writes are dropped). Returns
     ``(logits (B, S, V), caches)``; the caches are updated in place."""
     logits = apply_model(params, cfg, {"tokens": tokens,
                                        "positions": positions},
-                         caches=caches)
+                         caches=caches, window_override=window_override)
     return logits, caches
 
 
@@ -146,10 +160,12 @@ def build_positions(cfg, positions) -> torch.Tensor:
     return torch.as_tensor(positions, dtype=torch.int32)
 
 
-def _token_ce(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def _token_ce(params, cfg, batch, window_override=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token next-token cross entropy and its mask (labels >= 0), in
     the labels' shape, float32."""
-    logits = apply_model(params, cfg, batch).to(torch.float32)
+    logits = apply_model(params, cfg, batch,
+                         window_override=window_override).to(torch.float32)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1,
@@ -157,11 +173,12 @@ def _token_ce(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     return logz - label_logit, (labels >= 0).to(torch.float32)
 
 
-def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def lm_loss(params, cfg, batch, *, window_override: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy per worker, (W,), over the labels >= 0 of
     each worker's rows (the worker-stacked tree of the consensus
     engine)."""
-    ce, mask = _token_ce(params, cfg, batch)
+    ce, mask = _token_ce(params, cfg, batch, window_override)
     dims = tuple(range(1, mask.dim()))
     ce = (torch.sum(ce * mask, dim=dims)
           / torch.clamp_min(torch.sum(mask, dim=dims), 1.0))
@@ -169,13 +186,14 @@ def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
     return ce, {"ce": ce, "aux": aux}
 
 
-def lm_loss_tokens(params, cfg, batch) -> torch.Tensor:
+def lm_loss_tokens(params, cfg, batch, *,
+                   window_override: Optional[int] = None) -> torch.Tensor:
     """The JAX package's ``lm_loss`` of one unstacked model: the cross
     entropy summed over every valid label of the batch over their count, a
     scalar (the ported block kinds have no router, so JAX's auxiliary term
     is 0). The mean of per-row means equals it only when every row has as
     many valid labels."""
-    ce, mask = _token_ce(params, cfg, batch)
+    ce, mask = _token_ce(params, cfg, batch, window_override)
     return torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 

@@ -41,9 +41,13 @@ Production load (the scheduler's ``share_prefix`` and ``preempt``):
   pages and recurrent slot state to host numpy and back (swap
   preemption), keyed by the cache tree's keystr paths.
 
-SWA page recycling (``unmap_pages``) waits with the sliding-window family
-(ROADMAP.md queue A): :func:`init_paged_cache` raises for block kinds other
-than "attn", "mlstm" and "slstm".
+* :func:`unmap_pages` drops the pages of a sequence that fell behind its
+  sliding window (SWA page recycling).
+
+Attention kinds ("attn", "swa") get the shared page pool: the window is
+enforced by the attention mask, not the pool, as in the JAX package.
+:func:`init_paged_cache` raises for block kinds other than "attn", "swa",
+"mlstm" and "slstm".
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ from repro_torch.core import tree as T
 from repro_torch.models import blocks, layers, registry
 
 _POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale", "kv_pos")
-_ATTN_KINDS = ("attn",)
+_ATTN_KINDS = blocks.ATTN_KINDS
 _RECURRENT_KINDS = ("mlstm", "slstm")
 
 
@@ -353,6 +357,21 @@ def map_pages(cache, slot: int, logicals, pages):
         if "block_tables" in c:
             c["block_tables"][..., slot, li] = pg
             _invalidate(c, np.asarray(pages))
+    return cache
+
+
+def unmap_pages(cache, slot: int, logicals, recycled_row):
+    """Drop logical pages ``logicals`` from slot ``slot``'s block-table row
+    (SWA page recycling: pages wholly behind the attention window are never
+    read again). Only the pages of ``recycled_row`` (those whose refcount
+    reached 0; -1 entries are skipped) get ``kv_pos`` invalidated: a page
+    another sequence still maps keeps its entries. In place."""
+    dev = _device(cache)
+    li = torch.as_tensor(np.asarray(logicals, np.int64), device=dev)
+    for c, _ in _block_caches(cache):
+        if "block_tables" in c:
+            c["block_tables"][..., slot, li] = -1
+            _invalidate(c, np.asarray(recycled_row))
     return cache
 
 

@@ -70,8 +70,14 @@ deterministically, so a replayed run makes the same decisions.
   records host decisions only, so the token streams and kernel launches
   are those of an untraced run.
 
-Not ported (ROADMAP.md queue A): SWA page recycling (the sliding-window
-family is not ported). The JAX package's threefry keys cannot
+* **SWA page recycling** (``swa_recycle=True``, stacks of sliding-window
+  attention only): a page whose last position can never again fall inside
+  the window (``(l+1)*page_size - 1 <= fed - window``) is dropped from the
+  sequence's row after each fed chunk or token and freed through the
+  refcounted pool (``swa_recycled_pages``, a ``swa_recycle`` instant), so a
+  sequence's live pages are bounded by its window.
+
+The JAX package's threefry keys cannot
 be reproduced in PyTorch, so temperature sampling draws other tokens than
 the JAX package's; greedy decoding is what the two are held equal on.
 """
@@ -124,7 +130,7 @@ class ServeConfig:
     wm_low: float = 0.0               # close admission below this free frac
     wm_high: float = 0.0              # ... reopen at/above this free frac
     aging_ticks: int = 64             # waiting ticks per +1 eff. priority
-    swa_recycle: bool = False         # not ported: raises
+    swa_recycle: bool = False         # free pages behind the SWA window
 
     @property
     def max_context(self) -> int:
@@ -142,10 +148,6 @@ class ServeConfig:
             raise ValueError("need 0 <= wm_low <= wm_high < 1")
         if self.decode_watermark < 1 or self.aging_ticks < 1:
             raise ValueError("decode_watermark and aging_ticks must be >=1")
-        if self.swa_recycle:
-            raise NotImplementedError(
-                "swa_recycle is not ported (ROADMAP.md queue A: the "
-                "sliding-window family)")
 
 
 @dataclasses.dataclass
@@ -224,6 +226,13 @@ def block_kinds(model_cfg) -> Set[str]:
     return (set(unit) if n_full else set()) | set(rem)
 
 
+def pure_swa(model_cfg) -> bool:
+    """Every block is sliding-window attention with a set window: the
+    stacks whose pages SWA recycling may free."""
+    return (block_kinds(model_cfg) == {"swa"}
+            and getattr(model_cfg, "sliding_window", None) is not None)
+
+
 class Scheduler:
     """Synchronous continuous-batching core. Drive with ``submit()`` and
     ``step()``, or ``run()`` to drain; results land in ``finished[rid]``
@@ -245,6 +254,10 @@ class Scheduler:
                 "share_prefix requires a pure attention stack: recurrent "
                 "state summarizes the whole prefix, so a shared page "
                 f"cannot skip its prefill (got kinds {sorted(kinds)})")
+        if cfg.swa_recycle and not pure_swa(model_cfg):
+            raise ValueError(
+                "swa_recycle requires every block to be sliding-window "
+                f"attention with a set window (got kinds {sorted(kinds)})")
         dtype = (torch.bfloat16 if cfg.cache_dtype == "bfloat16"
                  else torch.float32)
         self.cache = paging.init_paged_cache(
@@ -269,6 +282,7 @@ class Scheduler:
         self.cow_forks = 0
         self.preemptions = 0
         self.forced_preemptions = 0
+        self.swa_recycled_pages = 0
         self.shared_page_hits = 0           # logical pages mapped via index
         self.pages_alloc_events = 0         # pages physically allocated
         # bounded latency windows (a long-lived server must not grow
@@ -625,7 +639,7 @@ class Scheduler:
                 self.prefill_tokens += chunk
                 ran += 1
                 st.fed += chunk
-                self._after_progress(st)
+                self._after_progress(slot, st)
                 if tid is not None:
                     tr.end("serving", tid)
         return ran
@@ -738,25 +752,43 @@ class Scheduler:
                         tr.instant(
                             "first_token", "serving",
                             tr.track("serving", f"req {st.req.rid}"))
-            self._after_progress(st)
+            self._after_progress(slot, st)
             if len(st.generated) >= st.req.max_new_tokens:
                 self._evict(slot)
         return 1
 
-    def _after_progress(self, st: _Slot):
+    def _after_progress(self, slot: int, st: _Slot):
         """After ``st.fed`` advances: content-index the pages it
-        completed (with sharing on)."""
-        if self.index is None:
-            return
+        completed (with sharing on), then drop the pages that fell wholly
+        behind the SWA window (with ``swa_recycle``)."""
         ps = self.cfg.page_size
-        while (st.next_reg + 1) * ps <= st.fed:
-            l = st.next_reg
-            toks = np.array([st.token_at(i)
-                             for i in range(l * ps, (l + 1) * ps)], np.int32)
-            st.chain = paging.PrefixIndex.chain(st.chain, toks)
-            if l in st.pages and l not in st.shared:
-                self.index.register(st.chain, st.pages[l])
-            st.next_reg += 1
+        if self.index is not None:
+            while (st.next_reg + 1) * ps <= st.fed:
+                l = st.next_reg
+                toks = np.array([st.token_at(i)
+                                 for i in range(l * ps, (l + 1) * ps)],
+                                np.int32)
+                st.chain = paging.PrefixIndex.chain(st.chain, toks)
+                if l in st.pages and l not in st.shared:
+                    self.index.register(st.chain, st.pages[l])
+                st.next_reg += 1
+        if self.cfg.swa_recycle:
+            window = self.model_cfg.sliding_window
+            dead = [l for l in sorted(st.pages)
+                    if (l + 1) * ps - 1 <= st.fed - window]
+            if dead:
+                phys = [st.pages.pop(l) for l in dead]
+                st.shared.difference_update(dead)
+                recycled = self._free(phys)
+                paging.unmap_pages(self.cache, slot, dead,
+                                   paging.build_block_table_row(
+                                       recycled, self.cfg.pages_per_seq))
+                self.swa_recycled_pages += len(dead)
+                tr = obs_trace.tracer()
+                if tr is not None:
+                    tr.instant("swa_recycle", "serving",
+                               tr.track("serving", f"req {st.req.rid}"),
+                               args={"pages": len(dead)})
 
     # ----------------------------------------------------------- eviction --
     def _evict(self, slot: int):

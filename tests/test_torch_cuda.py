@@ -612,9 +612,10 @@ ALIAS_SHARED, ALIAS_WRITE_POS = 32, 31 * 16 + 5
 
 
 def aliased_inputs(kv_bits, pool_dtype=torch.float32, *, poison=False,
-                   seed=21):
+                   seed=21, heads=32, num_kv=4, hd=64):
     """Decode inputs at tinyllama's heads (B 8, H 32, KV 4, hd 64, pages
-    of 16) and the production-load stream's 84-page tables (contexts from
+    of 16; ``heads``, ``num_kv`` and ``hd`` give others) and the
+    production-load stream's 84-page tables (contexts from
     the stream's 529 to its 1,340, and on the split edges at 1,280, where
     the last of 11 splits is half filled) whose block-table rows alias
     physical pages:
@@ -626,7 +627,7 @@ def aliased_inputs(kv_bits, pool_dtype=torch.float32, *, poison=False,
     1e3 instead (codes 255 and ranges 1e3 in code pools): a kernel that
     reads them changes its output. Returns (kwargs for
     ``ops.paged_attention_decode``, max |V| as the kernel reads it)."""
-    bsz, heads, num_kv, hd, ps, pps = 8, 32, 4, 64, 16, 84
+    bsz, ps, pps = 8, 16, 84
     rng = np.random.default_rng(seed)
     num_pages = bsz * pps
     k = rng.standard_normal((num_pages, ps, num_kv, hd)).astype(np.float32)
@@ -706,6 +707,74 @@ def test_paged_attention_on_aliased_and_forked_pages_on_card(
     assert torch.equal(got, poisoned)
 
 
+# (B, H, KV, hd, ps, P) at the wider head dims of the served configs:
+# h2o-danube (80, G 4), zamba2 (112, G 1), mistral-large (128, G 12: three
+# blocks of 4 query heads a KV head), gemma3's global layers (256, G 2)
+WIDE_SHAPES = {"h2o-danube": (4, 32, 8, 80, 16, 32),
+               "zamba2": (4, 32, 32, 112, 16, 32),
+               "mistral-large": (4, 96, 8, 128, 16, 32),
+               "gemma3": (8, 8, 4, 256, 16, 32)}
+WIDE_POOLS = [(32, torch.float32), (32, torch.bfloat16), (8, None),
+              (4, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,pool_dtype", WIDE_POOLS)
+@pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
+@pytest.mark.parametrize("online", [False, True])
+def test_paged_attention_at_wider_head_dims_on_card(cuda, monkeypatch,
+                                                   online, shape, kv_bits,
+                                                   pool_dtype):
+    """B7 and B8 at head dims 80, 112, 128 and 256, every pool kind: ctx
+    0, then on and around the split edges, within 1e-5 of max|V| of the
+    plain version; a repeated call equal bit for bit; the one-shot contract
+    at ctx 0 finite."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    bsz, heads, num_kv, hd, ps, pps = WIDE_SHAPES[shape]
+    edges = [0] + split_edges(pps, ps)
+    for lo in range(0, len(edges), bsz):
+        ctx = (edges[lo:lo + bsz] + [pps * ps] * bsz)[:bsz]
+        kw, vmax = paged_inputs(bsz, heads, num_kv, hd, ps, pps, kv_bits,
+                                seed=31 + lo, ctx=ctx,
+                                pool_dtype=pool_dtype or torch.float32)
+        got = paged_call(ops.paged_attention_decode, kw, cuda)
+        again = paged_call(ops.paged_attention_decode, kw, cuda)
+        plain = (ref.paged_attention_online_ref if online
+                 else ref.paged_attention_ref)
+        want = paged_call(plain, kw, cuda)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * vmax, (shape, ctx, err, vmax)
+        assert torch.equal(got, again)
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,pool_dtype", ALIAS_POOLS)
+@pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
+@pytest.mark.parametrize("online", [False, True])
+def test_paged_attention_aliased_pages_at_wider_head_dims_on_card(
+        cuda, monkeypatch, online, shape, kv_bits, pool_dtype):
+    """The aliased and forked tables of the production-load stream at the
+    wider head dims: within 1e-5 of max|V| of the plain version, and the
+    fork's stale slots never read."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN_ONLINE", "1" if online else "0")
+    _, heads, num_kv, hd, _, _ = WIDE_SHAPES[shape]
+    dims = dict(heads=heads, num_kv=num_kv, hd=hd)
+    kw, vmax = aliased_inputs(kv_bits, pool_dtype or torch.float32, **dims)
+    bad, _ = aliased_inputs(kv_bits, pool_dtype or torch.float32,
+                            poison=True, **dims)
+    got = paged_call(ops.paged_attention_decode, kw, cuda)
+    poisoned = paged_call(ops.paged_attention_decode, bad, cuda)
+    plain = (ref.paged_attention_online_ref if online
+             else ref.paged_attention_ref)
+    want = paged_call(plain, kw, cuda)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * vmax, (err, vmax)
+    assert torch.equal(got, poisoned)
+
+
 @pytest.mark.cuda
 def test_paged_attention_rejects_what_it_does_not_take(cuda):
     kw, _ = paged_inputs(*PAGED_SHAPES["smoke"], 8, seed=5)
@@ -719,6 +788,9 @@ def test_paged_attention_rejects_what_it_does_not_take(cuda):
         ops.paged_attention_decode(kw["q"], kw["k_pages"].double(),
                                    kw["v_pages"].double(),
                                    kw["block_tables"], kw["ctx_lens"])
+    wide, _ = paged_inputs(2, 4, 2, 96, 4, 4, 32, seed=6)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_call(ops.paged_attention_decode, wide, cuda)
 
 
 # ------------------------------------------------------ edge_gather_mix --

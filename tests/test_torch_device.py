@@ -166,6 +166,24 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.build_all()
 
 
+def test_paged_attention_builds_one_library_per_head_dim():
+    """The paged-attention source is compiled once per head dim the
+    wrapper takes (``-DPAGED_HEAD_DIM``), each into a library of its own;
+    the other sources once; a library that is not built is refused."""
+    from repro_torch.kernels import paged_attention
+    units = list(build._units(build.SOURCES))
+    paged = [v for n, v in units if n == "paged_attention"]
+    assert paged == [f"hd{hd}" for hd in paged_attention.HEAD_DIMS]
+    assert all(v is None for n, v in units if n != "paged_attention")
+    assert len({build._target(n, v) for n, v in units}) == len(units)
+    assert "-DPAGED_HEAD_DIM=80" in build._flags("paged_attention", "hd80")
+    for name, variant in (("paged_attention", None),
+                          ("paged_attention", "hd96"),
+                          ("stoch_quant", "hd32")):
+        with pytest.raises(build.KernelBuildError, match="no library"):
+            build.load(name, variant)
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -185,4 +203,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "obs"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
-        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, (
+            path, roots)

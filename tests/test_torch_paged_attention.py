@@ -22,9 +22,13 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, paged_attention, ref
 from test_torch_cuda import PAGED_SHAPES, paged_call, paged_inputs
 
-# (B, H, KV, hd, ps, P): the smoke model's heads, tinyllama's with 4 pages
+# (B, H, KV, hd, ps, P): the smoke model's heads, tinyllama's with 4 pages,
+# and the wider head dims of the served configs at their query heads per
+# KV head (h2o-danube 80, zamba2 112, mistral-large 128, gemma3 256)
 CPU_SHAPES = {"smoke": PAGED_SHAPES["smoke"],
-              "tinyllama-heads": (2, 32, 4, 64, 16, 4)}
+              "tinyllama-heads": (2, 32, 4, 64, 16, 4),
+              "hd80": (2, 8, 2, 80, 4, 4), "hd112": (2, 2, 2, 112, 4, 4),
+              "hd128": (2, 12, 1, 128, 4, 4), "hd256": (2, 4, 2, 256, 4, 4)}
 CASES = [(s, b) for s in sorted(CPU_SHAPES) for b in (32, 8, 4)]
 
 
@@ -118,6 +122,20 @@ def test_variant_threshold_is_the_one_shot_shared_memory():
         64, 2 * 64,
         paged_attention.split_count(256, 16, paged_attention.SPLIT_ROWS))
             < ops.ONESHOT_SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("heads,num_kv,hd,first_online", [
+    (32, 8, 80, 369), (32, 32, 112, 1358), (96, 8, 128, 101),
+    (8, 4, 256, 379)])
+def test_variant_switch_point_at_the_wider_head_dims(heads, num_kv, hd,
+                                                     first_online):
+    """The one-shot/online switch keeps its rule at every head dim: at
+    h2o-danube's (G 4, hd 80), zamba2's (G 1, 112), mistral-large's (G 12,
+    128) and gemma3's global layers (G 2, 256), 16-slot pages, the first
+    table width (pages) that takes the online contract."""
+    pick = ops.paged_attention_online_selected
+    assert not pick(heads, num_kv, hd, first_online - 1, 16)
+    assert pick(heads, num_kv, hd, first_online, 16)
 
 
 def test_variant_override_and_cpu_online_contract(monkeypatch):

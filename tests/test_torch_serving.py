@@ -347,8 +347,6 @@ def test_serve_config_defaults_and_unported_policies(monkeypatch):
     assert ServeConfig(kv_bits=4).kv_bits == 4
     with pytest.raises(ValueError, match="kv_bits"):
         ServeConfig(kv_bits=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(swa_recycle=True)
     # the production-load policies are ported (test_torch_serving_load.py)
     for kw in (dict(share_prefix=True), dict(preempt=True),
                dict(preempt_mode="swap")):
@@ -450,12 +448,6 @@ def test_make_prompts_match_jax():
         want = jserve.make_prompts(jcfg, [9, 3, 17], 4, prefix_len=prefix)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("argv", [["--swa-recycle"]])
-def test_serve_flags_not_ported_exit_naming_roadmap(argv):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        serve.main(["--device", "cpu"] + argv)
 
 
 @pytest.mark.parametrize("argv", [["--share-prefix"], ["--preempt"],

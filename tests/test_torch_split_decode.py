@@ -35,8 +35,6 @@ from repro_torch.kernels import ops, paged_attention, ref
 from repro_torch.launch import serve
 from test_torch_cuda import paged_inputs
 
-WARP_ROWS = paged_attention.TILE // paged_attention.WARPS
-
 
 def _merge(states):
     """Merge (m, l, acc) partials: M = max m, weights e^(m - M)."""
@@ -53,7 +51,9 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
                        kv_bits=32, oneshot=False):
     """The split kernel's arithmetic, float32: splits of ``split_rows``
     slots up to n_rows = ceil(ctx / ps)·ps (splits past it leave nothing),
-    64-row tiles, 8 rows of each tile per warp with its own online softmax
+    tiles of ``paged_attention.geometry``'s size for this head dim and pool
+    row (64 rows, 32 for float32 at 256), 1/8 of each tile per warp with
+    its own online softmax
     (probabilities past ctx masked to 0), the warps merged per split, the
     live splits merged per (sequence, KV head). Where ctx = 0: zeros
     (online), or (``oneshot``) every slot of the table with logit 0, so
@@ -63,6 +63,9 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
     num_pages, ps, num_kv, _ = k_pages.shape
     groups = heads // num_kv
     pps = block_tables.shape[1]
+    row_bytes = k_pages.shape[-1] * k_pages.element_size()
+    tile, _, _ = paged_attention.geometry(hd, row_bytes)
+    warp_rows = tile // paged_attention.WARPS
     scale = 1.0 / float(np.sqrt(np.float32(hd)))
     bt = torch.clamp(block_tables.to(torch.int64), 0, num_pages - 1)
 
@@ -93,9 +96,9 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
                 m = torch.full((num_kv, groups), -1e30)
                 l = torch.zeros((num_kv, groups))
                 acc = torch.zeros((num_kv, groups, hd))
-                for t0 in range(lo, hi, paged_attention.TILE):
-                    r0 = t0 + w * WARP_ROWS
-                    r1 = min(r0 + WARP_ROWS, hi)
+                for t0 in range(lo, hi, tile):
+                    r0 = t0 + w * warp_rows
+                    r1 = min(r0 + warp_rows, hi)
                     if r1 <= r0:
                         continue
                     idx = torch.arange(r0, r1)
@@ -123,14 +126,32 @@ def split_decode_model(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 
 # (H, KV, hd, ps, P): the smoke model's heads (G 4) and tinyllama's (G 8),
-# 256 table slots each
-HEADS = {"smoke": (8, 2, 32, 4, 64), "tinyllama": (32, 4, 64, 16, 16)}
+# 256 table slots each; the wider head dims at the served configs' groups
+# (h2o-danube G 4, zamba2 G 1, mistral-large G 12, gemma3 G 2), 192 slots
+HEADS = {"smoke": (8, 2, 32, 4, 64), "tinyllama": (32, 4, 64, 16, 16),
+         "hd80": (8, 2, 80, 16, 12), "hd112": (2, 2, 112, 16, 12),
+         "hd128": (12, 1, 128, 16, 12), "hd256": (4, 2, 256, 16, 12)}
 POOLS = [(32, torch.float32), (32, torch.bfloat16), (8, None), (4, None)]
 
 
-@pytest.mark.parametrize("split_rows", [64, 128])
+# both split sizes at the first two head sets, the wider head dims at the
+# kernel's 128
+SPLITS = [(h, r) for h in ("smoke", "tinyllama") for r in (64, 128)] + [
+    (h, 128) for h in sorted(HEADS) if h.startswith("hd")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small-op loops: one intra-op thread (the suite runs several files
+    at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kv_bits,pool_dtype", POOLS)
-@pytest.mark.parametrize("heads", sorted(HEADS))
+@pytest.mark.parametrize("heads,split_rows", SPLITS)
 @pytest.mark.parametrize("oneshot", [False, True])
 def test_split_decode_model_equals_online_contract(oneshot, heads, kv_bits,
                                                    pool_dtype, split_rows):
@@ -173,12 +194,17 @@ def test_online_wrapper_helpers(pages):
     assert paged_attention.split_count(pages, ps, 64) == -(-pages * ps // 64)
     assert (paged_attention.online_workspace_shape(8, 4, splits, 8, 64)
             == (8, 4, splits, 8, 66))
-    for hd in (32, 64):
+    for hd in paged_attention.HEAD_DIMS:
         for row_bytes in (4 * hd, 2 * hd, hd, hd // 2):    # f32 .. 4-bit
+            tile, groups, hdp = paged_attention.geometry(hd, row_bytes)
+            assert tile == (32 if row_bytes > 512 else 64)
+            assert groups == (8 if hd <= 64 else 4) and hd <= hdp
             smem = paged_attention.online_smem_bytes(hd, row_bytes, splits)
             assert smem <= paged_attention.SMEM_PER_BLOCK
             assert (smem - paged_attention.online_smem_bytes(hd, row_bytes, 1)
-                    == 64 * (splits - 1))
+                    == 8 * groups * (splits - 1))
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention.geometry(96, 384)
     # bf16 pools at tinyllama's heads: far below the one-shot kernel's
     # footprint at this table width once it passes the switch
     if ops.paged_attention_online_selected(32, 4, 64, pages, ps):
