@@ -96,9 +96,10 @@ with its time printed:
    seed 0, bf16 activations) through the paged scheduler: 16 greedy
    requests (prompt lengths 17..700, 128 new tokens, max_seqs 8, pages of
    16, 64-page tables, 64-token prefill chunks), exactly 22 one-shot
-   launches per decode tick, held against the lockstep engine's
-   contiguous decode (each parting only at a near-tie), again with float32
-   activations and pools; kv_bits 8 and 4 streams; one request at ~4000
+   launches per decode tick, the first 8 requests (each length once) held
+   against the lockstep engine's contiguous decode (each parting only at a
+   near-tie), those 8 again with float32 activations and pools; kv_bits 8
+   and 4 streams; one request at ~4000
    tokens, where the shared-memory threshold picks the online kernel; 0
    pages in use after each; decode ms per tick, tokens/s, peak memory and
    the top device activities of one profiled tick;
@@ -181,7 +182,39 @@ with its time printed:
    no B7/B8 launch (windowed decode gathers its pages);
 24. consensus training of an attention model: ``train.main`` on
    tinyllama-smoke (2 workers, batch 2, seq 16, 2 steps): a finite loss,
-   2 B3 and 3 B2 launches per step.
+   2 B3 and 3 B2 launches per step;
+25. serving olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads,
+   kv 16, head dim 128, 64 experts top-8 of d_ff 1024, vocab 50,304;
+   6,816,073,728 random float32 parameters, bf16 activations and pages): 8
+   greedy requests (prompts 17 to 2,000, 64 new tokens, ``max_seqs`` 8,
+   pages of 16, 64-token chunks): exactly 16 B7 launches per decode tick, 0
+   pages in use; the first 4 requests' lockstep agreement at
+   ``capacity_factor`` 1.25 printed, not a gate (expert capacity depends
+   on a step's token count: ROADMAP C18); one decode tick profiled; the
+   first 4 requests rerun with ``capacity_factor`` = E/k (C = T: nothing
+   dropped) in float32, held against the lockstep engine (equal, or parting
+   at a 1e-3 near-tie); B7 at olmoe's geometry (B 4, H 16, KV 16, hd 128)
+   is in phase 14's and 21's checks;
+26. serving zamba2-7b at full width (81 layers: 13 x (5 Mamba2 + the shared
+   attention block) + 3 Mamba2, d_model 3584, 32 heads, head dim 112, SSM
+   state 64, 112 SSM heads; 5,622,231,872 random float32 parameters): the
+   same stream shape, exactly 13 B7 launches per decode tick, 0 pages in
+   use; the first 4 requests' lockstep agreement printed (the two engines
+   split the SSD scan at other points, and 81 bf16 layers carry that past a
+   bf16 step of the top logit); one decode tick profiled; the first 4 requests
+   in float32 held against the lockstep engine (equal, or parting at a 1e-3
+   near-tie);
+27. consensus training of olmoe-smoke and zamba2-smoke through
+   ``train.main`` (2 workers, batch 2, seq 16, 2 steps): finite losses, 2
+   B3 and 3 B2 launches per step, the trained workers' loss equal to ce +
+   0.01 x aux (aux > 0 with experts, 0 without).
+
+Phases 25-27 run in a child process (``--child-phases family``, output
+in ``build/chip_smoke_family.log``, printed when it ends) beside phases
+15, 17 and 18 (phase 16 runs before 15), and phases 22-23 in another
+(``--child-phases sliding``) beside phase 19, to keep the script inside
+its time limit: all of them are host-paced, and the phases that time
+kernels (3, 8, 9, 14, 16, 21) run while no child does.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -189,6 +222,7 @@ that path ran), parity error, times and bound, then nvidia-smi's
 name/power-limit line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
 """
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -1337,6 +1371,7 @@ def lm_fleet_full_width(ops, dev):
 # stream of the paged scheduler and the contiguous lockstep reference
 SERVE_LENS = (17, 96, 255, 512, 700, 33, 384, 128)
 SERVE_REQUESTS, SERVE_NEW = 16, 128
+SERVE_HELD = 8   # requests held to the lockstep engine (each length once)
 SERVE_GEOM = dict(max_seqs=8, page_size=16, pages_per_seq=64,
                   prefill_chunk=64)
 SHORT_REQUESTS, SHORT_NEW = 4, 32
@@ -1367,10 +1402,12 @@ PAGED_CHECKS = {
                             (0, 529, 1024, 1212, 1279, 1280, 1281, 1340)),
 }
 # the wider head dims (B, H, KV, hd, ps, P): h2o-danube (80, G 4), zamba2
-# (112, G 1), mistral-large (128, G 12 over three blocks), gemma3's global
-# layers (256, G 2); 84-page tables, ctx 0 and on the split edges
+# (112, G 1), olmoe (128, G 1), mistral-large (128, G 12 over three
+# blocks), gemma3's global layers (256, G 2); 84-page tables, ctx 0 and on
+# the split edges
 WIDE_SHAPES = {"h2o-danube hd 80": (4, 32, 8, 80, 16, 84),
                "zamba2 hd 112": (4, 32, 32, 112, 16, 84),
+               "olmoe hd 128": (4, 16, 16, 128, 16, 84),
                "mistral-large hd 128": (4, 96, 8, 128, 16, 84),
                "gemma3 hd 256": (8, 8, 4, 256, 16, 84)}
 for _label, _shape in WIDE_SHAPES.items():
@@ -1851,22 +1888,26 @@ def serve_full_width(ops, dev):
     log(f"serve launches {launches} (= {cfg.num_layers} x "
         f"{sched.decode_steps} decode ticks, one variant: B7)")
 
-    compare_with_lockstep("serve", cfg, params, dev, prompts, SERVE_NEW,
-                          sched, outs, 2)
+    # the lockstep references cover the first SERVE_HELD requests (each
+    # of the eight lengths once), to keep the script inside its limit
+    held = prompts[:SERVE_HELD]
+    compare_with_lockstep("serve", cfg, params, dev, held, SERVE_NEW,
+                          sched, outs[:SERVE_HELD], 2)
     del sched
 
-    # the same stream with float32 activations and pools: paged (B7 on
+    # those requests with float32 activations and pools: paged (B7 on
     # float32 pages) against lockstep at GAP_TOL
     cfg32 = cfg.with_overrides(dtype="float32")
     s32cfg = ServeConfig(num_pages=2 * worst, kv_bits=32,
                          cache_dtype="float32", **geom)
     s32, outs32, l32, w32 = serve_stream(
-        Scheduler, cfg32, params, dev, prompts, SERVE_NEW, s32cfg, ops,
+        Scheduler, cfg32, params, dev, held, SERVE_NEW, s32cfg, ops,
         record_top=TOP_K)
     assert l32["paged_attention_decode"] == cfg.num_layers * s32.decode_steps
-    log(f"serve float32 stream: {w32:.2f} s wall, {s32.decode_steps} decode "
-        f"ticks (median {np.median(list(s32.decode_step_s)) * 1e3:.3f} ms)")
-    compare_with_lockstep("serve float32", cfg32, params, dev, prompts,
+    log(f"serve float32 stream ({SERVE_HELD} requests): {w32:.2f} s wall, "
+        f"{s32.decode_steps} decode ticks (median "
+        f"{np.median(list(s32.decode_step_s)) * 1e3:.3f} ms)")
+    compare_with_lockstep("serve float32", cfg32, params, dev, held,
                           SERVE_NEW, s32, outs32, 2, torch.float32)
     del s32
 
@@ -3116,6 +3157,276 @@ def attention_consensus(ops, dev):
         f"{launches}")
 
 
+# the MoE and Mamba2-hybrid families at full width: olmoe-1b-7b
+# (arXiv:2409.02060, 64 experts top-8) and zamba2-7b (arXiv:2411.15242,
+# 13 x (5 Mamba2 + the shared attention block) + 3 Mamba2), random float32
+# weights from seed 0, bf16 activations and pages
+FAMILY_LENS, FAMILY_NEW = (17, 300, 700, 1000, 1200, 1500, 1800, 2000), 64
+FAMILY_GATED = 4         # requests held to the lockstep engine
+
+
+def family_stream(ops, dev, cfg, params, prompts, new, cache_dtype,
+                  label):
+    """``prompts`` through the paged scheduler (8 slots, pages of 16,
+    64-token chunks): exactly one B7 launch per attention-family layer per
+    decode tick and no other kernel, 0 pages in use after; prints the
+    stream's times. Returns (scheduler, outputs, launches)."""
+    from repro_torch.models import blocks
+    from repro_torch.serving import paging
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    pps = paging.pages_needed(max(len(p) for p in prompts) + new, 16)
+    scfg = ServeConfig(max_seqs=8, page_size=16, pages_per_seq=pps,
+                       prefill_chunk=64, num_pages=8 * pps, kv_bits=32,
+                       cache_dtype=cache_dtype)
+    sched, outs, launches, wall = serve_stream(
+        Scheduler, cfg, params, dev, prompts, new, scfg, ops,
+        record_top=TOP_K)
+    n_attn = sum(k in blocks.ATTN_KINDS for k in cfg.block_kinds)
+    want = {k: 0 for k in ops.KERNELS}
+    want["paged_attention_decode"] = n_attn * sched.decode_steps
+    assert launches == want, (launches, n_attn, sched.decode_steps)
+    ticks = np.asarray(list(sched.decode_step_s)) * 1e3
+    chunks = list(sched.prefill_chunk_s) or [0.0]
+    pre = max(float(np.sum(chunks)), 1e-9)
+    log(f"{label}: {wall:.2f} s wall, {sched.decode_steps} decode ticks "
+        f"(median {np.median(ticks):.3f} ms, p90 "
+        f"{np.percentile(ticks, 90):.3f} ms), "
+        f"{len(prompts) * new / wall:.1f} generated tokens/s end to end, "
+        f"prefill {sched.prefill_tokens} tokens in {sched.prefill_chunks} "
+        f"chunks ({np.median(chunks) * 1e3:.3f} ms median), {sched.prefill_tokens / pre:.1f} prefill tokens/s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"peak pages {sched.peak_pages_in_use} of {scfg.num_pages}, final "
+        f"0; launches {launches} (= {n_attn} x {sched.decode_steps} decode "
+        f"ticks)")
+    return sched, outs, launches
+
+
+def profile_family_tick(cfg, params, dev, prompts, label):
+    """One steady decode tick of 8 sequences under the profiler: its wall
+    time beside the device's busy time, and the top device activities."""
+    from repro_torch.serving.scheduler import Scheduler, ServeConfig
+
+    short = [p[:64] for p in prompts[:8]]
+    scfg = ServeConfig(max_seqs=8, page_size=16, pages_per_seq=8,
+                       prefill_chunk=64, num_pages=64, kv_bits=32)
+    sched = Scheduler(cfg, params, scfg, device=dev)
+    for p in short:
+        sched.submit(p, 8)
+    with torch.no_grad():
+        while sched.decode_steps < 2:
+            sched.step()
+        wall_ms, acts = device_times(sched.step)
+        sched.run()
+    assert sched.pool.in_use == 0
+    busy_ms = sum(t for _, t in acts.values())
+    share = 100.0 * busy_ms / wall_ms
+    log(f"profile {label} 1 decode tick (8 sequences): wall {wall_ms:.3f} "
+        f"ms, device activities {busy_ms:.3f} ms ({share:.1f}% of wall), "
+        f"{sum(c for c, _ in acts.values())} device activities")
+    for key, (c, t) in sorted(acts.items(), key=lambda r: -r[1][1])[:8]:
+        log(f"profile   {t:10.3f} ms  x{c:<6d} {key[:80]}")
+
+
+def serve_family_full_width(ops, dev, cfg, params, exact):
+    """The 8-request stream through the paged scheduler in bf16 (exactly
+    one B7 launch per attention-family layer a decode tick), the agreement
+    of its first ``FAMILY_GATED`` requests with the lockstep engine
+    printed, not a gate; one decode tick profiled; those requests rerun with
+    ``exact`` (float32 activations and pools) and held to the lockstep
+    engine (equal, or parting at a near-tie). Returns the bf16 stream's
+    launches."""
+    from repro_torch.launch import serve
+
+    def tag(c):
+        return c.dtype + (f", capacity_factor {c.capacity_factor}"
+                          if c.num_experts else "")
+
+    prompts = serve.make_prompts(cfg, list(FAMILY_LENS), 0)
+    sched, outs, launches = family_stream(
+        ops, dev, cfg, params, prompts, FAMILY_NEW, "bfloat16",
+        f"serve {cfg.name} paged stream")
+    sub = prompts[:FAMILY_GATED]
+    compare_with_lockstep(f"serve {cfg.name} ({tag(cfg)})", cfg, params,
+                          dev, sub, FAMILY_NEW, sched, outs[:FAMILY_GATED],
+                          1, gate=False)
+    del sched
+    profile_family_tick(cfg, params, dev, prompts, cfg.name)
+    s2, outs2, _ = family_stream(
+        ops, dev, exact, params, sub, FAMILY_NEW, "float32",
+        f"serve {cfg.name} ({tag(exact)}) paged stream")
+    compare_with_lockstep(f"serve {cfg.name} ({tag(exact)})", exact, params,
+                          dev, sub, FAMILY_NEW, s2, outs2, 1, torch.float32)
+    return launches
+
+
+def serve_olmoe_full_width(ops, dev):
+    """olmoe-1b-7b at full width (B7 16 times a decode tick). Expert
+    capacity depends on a step's token count (ROADMAP C18), and bf16
+    router logits tie often, so the bf16 stream's agreement with the
+    lockstep engine is printed only; the gated rerun takes
+    ``capacity_factor`` = E/k (C = T: nothing dropped in either engine)."""
+    from repro_torch.configs import base
+    from repro_torch.models import moe, registry
+
+    cfg = base.get_config("olmoe-1b-7b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    e, k = cfg.num_experts, cfg.experts_per_token
+    experts = cfg.num_layers * 3 * e * cfg.d_model * cfg.d_ff
+    log(f"serve olmoe-1b-7b: {registry.count_params(cfg)} float32 "
+        f"parameters ({registry.count_params(cfg, active_only=True)} "
+        f"active) in {time.perf_counter() - t0:.1f} s; {experts} expert "
+        f"weights cast to bf16 each decode tick ({experts * 8 / 1e9:.1f} GB "
+        f"read and written); capacity at a 64-token chunk "
+        f"{moe.capacity(64, e, k, cfg.capacity_factor)}, at an 8-slot tick "
+        f"{moe.capacity(8, e, k, cfg.capacity_factor)}; prompts "
+        f"{FAMILY_LENS}, {FAMILY_NEW} new tokens")
+    exact = cfg.with_overrides(dtype="float32", capacity_factor=e / k)
+    assert moe.capacity(64, e, k, exact.capacity_factor) == 64
+    launches = serve_family_full_width(ops, dev, cfg, params, exact)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_zamba2_full_width(ops, dev):
+    """zamba2-7b at full width (B7 13 times a decode tick, the Mamba2
+    layers' state per slot). The paged engine's 64-token chunks and the
+    lockstep engine's whole prompts split the SSD scan at other points,
+    and 81 bf16 layers carry the difference past a bf16 step of the top
+    logit, so the bf16 stream's agreement is printed only; the float32
+    rerun is gated."""
+    from repro_torch.configs import base
+    from repro_torch.models import registry, ssm
+
+    cfg = base.get_config("zamba2-7b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    d_inner, heads, n = ssm.dims(cfg)
+    n_mamba = cfg.block_kinds.count("mamba2")
+    state_mb = n_mamba * heads * cfg.ssm_head_dim * n * 4 / 1e6
+    log(f"serve zamba2-7b: {registry.count_params(cfg)} float32 parameters "
+        f"in {time.perf_counter() - t0:.1f} s ({len(params['stack']['shared'])}"
+        f" shared-block leaves stored once); {n_mamba} Mamba2 layers, "
+        f"d_inner {d_inner}, {heads} SSM heads, {state_mb:.1f} MB of float32 "
+        f"SSM state a slot; prompts {FAMILY_LENS}, {FAMILY_NEW} new tokens")
+    launches = serve_family_full_width(
+        ops, dev, cfg, params, cfg.with_overrides(dtype="float32"))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_consensus(ops, dev):
+    """Consensus training of olmoe-smoke and zamba2-smoke through
+    ``train.main``, 2 workers, 2 steps: finite losses, 2 B3 and 3 B2
+    launches a step, and the trained workers' loss equal to ce + 0.01·aux
+    (aux > 0 with experts, 0 without)."""
+    from repro_torch.configs import base
+    from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    for arch in ("olmoe-1b-7b", "zamba2-7b"):
+        ops.reset_launches()
+        out = train.main(["--arch", arch, "--smoke", "--workers", "2",
+                          "--batch", "2", "--seq", "16", "--steps", "2",
+                          "--log-every", "1"])
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        assert np.isfinite(out["history"]).all(), out["history"]
+        want = {k: 0 for k in ops.KERNELS}
+        want.update(stoch_quantize_grouped_fused=4, bipartite_mix=6)
+        assert launches == want, launches
+        cfg = base.get_smoke_config(arch)
+        data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, 16, seed=0))
+        batch = model_batch(cfg, data.worker_batch(0, 2, 1), dev)
+        with torch.no_grad():
+            loss, m = registry.lm_loss(out["state"].theta, cfg, batch)
+        assert torch.isfinite(loss).all()
+        assert torch.equal(loss, m["ce"] + 0.01 * m["aux"])
+        assert bool((m["aux"] > 0).all()) == (arch == "olmoe-1b-7b")
+        log(f"train {cfg.name} consensus (2 workers): loss "
+            f"{' -> '.join(f'{x:.4f}' for x in out['history'])}; trained "
+            f"workers' loss {loss.tolist()} = ce {m['ce'].tolist()} + 0.01 x "
+            f"aux {m['aux'].tolist()}; launches {launches}")
+
+
+# phases run in a child process (this script with ``--child-phases
+# <group>``) beside host-paced phases of the main one: the card has room
+# for both and the kernels are built. Each phase sets and reads its own
+# process's launch counts.
+CHILD_GROUPS = {
+    # phases 25-27 beside 15, 17, 18 (olmoe's 29.8 GB beside FSDP's 35.9)
+    "family": (("olmoe-1b-7b serving", "serve_olmoe_full_width"),
+               ("zamba2-7b serving", "serve_zamba2_full_width"),
+               ("olmoe-smoke and zamba2-smoke consensus training",
+                "family_consensus")),
+    # phases 22-23 beside 19 and the figures (gemma3's 19.9 GB)
+    "sliding": (("gemma3-4b serving", "serve_gemma3_full_width"),
+                ("h2o-danube-1.8b recycling", "serve_danube_recycling")),
+}
+
+
+def child_log(group: str) -> Path:
+    return (Path(__file__).resolve().parent / "build"
+            / f"chip_smoke_{group}.log")
+
+
+def start_child_phases(group: str):
+    """Start the phases of ``CHILD_GROUPS[group]`` in a child process, its
+    output to :func:`child_log`; :func:`finish_child_phases` waits and
+    prints it."""
+    path = child_log(group)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--child-phases",
+         group], cwd=Path(__file__).resolve().parent, stdout=out,
+        stderr=subprocess.STDOUT, text=True)
+    # a failure in this process must not leave the child running
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return group, proc, out, time.perf_counter()
+
+
+def finish_child_phases(started) -> None:
+    group, proc, out, t0 = started
+    try:
+        rc = proc.wait(timeout=1100)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        out.close()
+    text = child_log(group).read_text()
+    for line in text.splitlines():
+        if not line.startswith(("  ", "/", "[train]", "step ")):
+            print(line, flush=True)
+    log(f"phases {[n for n, _ in CHILD_GROUPS[group]]} in a child process: "
+        f"done within {time.perf_counter() - t0:.1f} s")
+    assert rc == 0, text[-4000:]
+
+
+def child_main(group: str) -> int:
+    """``--child-phases <group>``: the phases of ``CHILD_GROUPS[group]``
+    in order."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+
+    dev = resolve_device("cuda")
+    for name, fn in CHILD_GROUPS[group]:
+        t0 = time.perf_counter()
+        globals()[fn](ops, dev)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def start_card_case(name: str):
     """Start one card test of tests/test_torch_cuda.py in a child pytest;
     :func:`finish_card_case` waits for it."""
@@ -3213,20 +3524,24 @@ def main() -> int:
     times.update(time_paged(ref, dev))
     time_split_rows(dev)
     log(f"phase paged-attention kernels: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    served = serve_full_width(ops, dev)
-    log(f"phase serving full width: {time.perf_counter() - t0:.1f} s")
-    launches.update(served)
+    # phase 16 times a kernel: it runs before the child starts
     t0 = time.perf_counter()
     errs["slstm_cell"] = check_slstm_parity(ref, dev)
     times["slstm_cell"] = time_slstm(ref, dev)
     log(f"phase slstm_cell kernel: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    family = start_child_phases("family")
+    t0 = time.perf_counter()
+    served = serve_full_width(ops, dev)
+    log(f"phase serving full width: {time.perf_counter() - t0:.1f} s")
+    launches.update(served)
     t0 = time.perf_counter()
     launches["slstm_cell"] = serve_xlstm_full_width(ops, dev)["slstm_cell"]
     log(f"phase xlstm serving full width: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fsdp_full_width(ops, dev)
     log(f"phase fsdp full width: {time.perf_counter() - t0:.1f} s")
+    finish_child_phases(family)
     # host-paced work that needs neither this process nor a quiet card runs
     # beside the production-load phase: the paper's figures (one process a
     # figure) and the aliased-table card case at the wider head dims; the
@@ -3237,9 +3552,11 @@ def main() -> int:
     cases = [start_card_case(f"test_paged_attention_{name}_on_card")
              for name in ("on_aliased_and_forked_pages",
                           "aliased_pages_at_wider_head_dims")]
+    sliding = start_child_phases("sliding")
     launches["paged_attention_decode"] = serve_production_load(ops, dev)
-    log(f"phase production-load serving (the figures and the aliased-table "
-        f"card cases beside it): {time.perf_counter() - t0:.1f} s")
+    log(f"phase production-load serving (the figures, the aliased-table "
+        f"card cases and phases 22-23 beside it): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     finish_figures(figure_procs, dev)
     log(f"phase figures and theorem 3 (after the load phase): "
@@ -3247,15 +3564,11 @@ def main() -> int:
     t0 = time.perf_counter()
     for case in cases:
         finish_card_case(case)
+    finish_child_phases(sliding)
+    # timed on a quiet card, after every child has ended
     time_paged_wide(ref, dev)
     log(f"phase paged attention at the wider head dims: "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serve_gemma3_full_width(ops, dev)
-    log(f"phase gemma3-4b serving: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serve_danube_recycling(ops, dev)
-    log(f"phase h2o-danube-1.8b recycling: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     attention_consensus(ops, dev)
     log(f"phase attention consensus training: "
@@ -3309,4 +3622,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child-phases"]:
+        sys.exit(child_main(sys.argv[2]))
     sys.exit(main())

@@ -2,11 +2,13 @@
 cut to the fields and the architectures the ported path reads.
 
 Registered so far: xlstm-125m (``configs/xlstm_125m.py``), tinyllama-1.1b
-(``configs/tinyllama_1_1b.py``) and the sliding-window family's
-h2o-danube-1.8b, gemma3-4b and mistral-large-123b (the last served at smoke
-size only: its 123B parameters fit on no one card). The other
-architectures of the JAX package wait for their block kinds (MoE, Mamba2,
-encoder-decoder) to be ported (ROADMAP.md).
+(``configs/tinyllama_1_1b.py``), the sliding-window family's
+h2o-danube-1.8b, gemma3-4b and mistral-large-123b, the mixture-of-experts
+olmoe-1b-7b and grok-1-314b, and the Mamba2 hybrid zamba2-7b
+(mistral-large-123b and grok-1-314b are served at smoke size only: their
+123B and 314B parameters fit on no one card). qwen2-vl-7b (M-RoPE) and
+whisper-small (encoder-decoder) wait for their parts to be ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,6 +32,15 @@ class ModelConfig:
     # attention
     sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
     lstm_heads: int = 4                 # xLSTM heads
     pos_embedding: str = "rope"         # rope | sinusoidal
     tie_embeddings: bool = True
@@ -62,7 +73,7 @@ class ModelConfig:
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _MODULES = ("xlstm_125m", "tinyllama_1_1b", "h2o_danube_1_8b", "gemma3_4b",
-            "mistral_large_123b")
+            "mistral_large_123b", "olmoe_1b_7b", "grok_1_314b", "zamba2_7b")
 
 
 def register(name: str, full: Callable[[], ModelConfig],

@@ -1,9 +1,8 @@
-"""Block interface of the ported models (the port of the mLSTM, sLSTM,
-full-attention and sliding-window attention parts of
-``repro.models.blocks``):
+"""Block interface of the ported models (the port of
+``repro.models.blocks`` without cross-attention):
 
     init(kind, gen, cfg, device)              -> one block's parameters
-    apply(kind, params, cfg, x, ctx=None)     -> x_new
+    apply(kind, params, cfg, x, ctx=None)     -> (x_new, aux)
     make_cache(kind, cfg, batch, cache_len)   -> the block's decode cache
 
 x is (W, B, S, D) in consensus training and (B, S, D) in serving (every
@@ -13,10 +12,14 @@ JAX package's long-context variant). "swa" is "attn" with the config's
 ``sliding_window`` as its attention window; its contiguous cache is a ring
 of ``min(cache_len, window)`` slots. A cached sLSTM forward (serving)
 takes the fused cell, ``use_kernel=True``, as the JAX package's kernel
-route; training keeps the autograd time loop. Residual connections and
-pre-norms live here.
-The other block kinds of the JAX package (MoE, Mamba2, shared and cross
-attention) are not ported yet and raise.
+route; training keeps the autograd time loop. "moe" is attention followed
+by the mixture-of-experts MLP (``models/moe.py``), "mamba2" the SSD block
+(``models/ssm.py``), and "shared_attn" an "attn" block whose one set of
+weights the registry hands to every occurrence (zamba2). ``aux`` is the
+block's side loss: the router's load-balance term for "moe" (per worker
+under a worker axis), 0.0 for every other kind. Residual connections and
+pre-norms live here. Cross-attention ("xattn", whisper's decoder) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import layers, xlstm
+from repro_torch.models import layers, moe, ssm, xlstm
 
-PORTED_KINDS = ("mlstm", "slstm", "attn", "swa")
-ATTN_KINDS = ("attn", "swa")
+PORTED_KINDS = ("mlstm", "slstm", "attn", "swa", "moe", "mamba2",
+                "shared_attn")
+ATTN_KINDS = ("attn", "swa", "moe", "shared_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,16 +49,24 @@ def _attn_dims(cfg) -> layers.AttnDims:
 
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP.md queue A: "
-        f"attention models); ported kinds: {PORTED_KINDS}")
+        f"block kind {kind!r} is not ported yet (ROADMAP.md queue A); "
+        f"ported kinds: {PORTED_KINDS}")
 
 
 def init(kind: str, gen, cfg, device):
     if kind in ATTN_KINDS:
-        return {"ln1": layers.rmsnorm_init(cfg.d_model, device),
-                "attn": layers.attention_init(gen, _attn_dims(cfg), device),
-                "ln2": layers.rmsnorm_init(cfg.d_model, device),
-                "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, device)}
+        p = {"ln1": layers.rmsnorm_init(cfg.d_model, device),
+             "attn": layers.attention_init(gen, _attn_dims(cfg), device),
+             "ln2": layers.rmsnorm_init(cfg.d_model, device)}
+        if kind == "moe":
+            p["moe"] = moe.moe_init(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.num_experts, device)
+        else:
+            p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+        return p
+    if kind == "mamba2":
+        return {"ln": layers.rmsnorm_init(cfg.d_model, device),
+                "mamba": ssm.mamba2_init(gen, cfg, device)}
     if kind == "mlstm":
         return {"ln": layers.rmsnorm_init(cfg.d_model, device),
                 "cell": xlstm.mlstm_init(gen, cfg, device)}
@@ -76,7 +88,12 @@ def _window_for(kind: str, cfg, ctx: Optional[BlockCtx]) -> Optional[int]:
 
 
 def apply(kind: str, params, cfg, x: torch.Tensor,
-          ctx: Optional[BlockCtx] = None) -> torch.Tensor:
+          ctx: Optional[BlockCtx] = None):
+    """One block: ``(x_new, aux)``. aux is the router's float32 aux loss
+    for "moe" (a scalar, or (W,) under a worker axis) and the Python float
+    0.0 for every other kind, so that a stack without experts adds no
+    device work for it."""
+    zero = 0.0
     if kind in ATTN_KINDS:
         h, _ = layers.attention_apply(
             params["attn"], _attn_dims(cfg),
@@ -84,15 +101,25 @@ def apply(kind: str, params, cfg, x: torch.Tensor,
             window=_window_for(kind, cfg, ctx), rope_theta=cfg.rope_theta,
             use_rope=cfg.pos_embedding == "rope", cache=ctx.cache)
         x = x + h
-        y = layers.mlp_apply(params["mlp"],
-                             layers.rmsnorm(params["ln2"], x, cfg.norm_eps))
-        return x + y
+        xn = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
+        if kind == "moe":
+            y, aux = moe.moe_apply(
+                params["moe"], xn, num_experts=cfg.num_experts,
+                experts_per_token=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor)
+            return x + y, aux
+        return x + layers.mlp_apply(params["mlp"], xn), zero
     cache = None if ctx is None else ctx.cache
+    if kind == "mamba2":
+        h = ssm.mamba2_apply(params["mamba"], cfg,
+                             layers.rmsnorm(params["ln"], x, cfg.norm_eps),
+                             cache=cache)
+        return x + h, zero
     if kind == "mlstm":
         h = xlstm.mlstm_apply(params["cell"], cfg,
                               layers.rmsnorm(params["ln"], x, cfg.norm_eps),
                               cache=cache)
-        return x + h
+        return x + h, zero
     if kind == "slstm":
         h = xlstm.slstm_apply(params["cell"], cfg,
                               layers.rmsnorm(params["ln"], x, cfg.norm_eps),
@@ -100,7 +127,7 @@ def apply(kind: str, params, cfg, x: torch.Tensor,
         x = x + h
         y = layers.mlp_apply(params["mlp"],
                              layers.rmsnorm(params["ln2"], x, cfg.norm_eps))
-        return x + y
+        return x + y, zero
     raise _not_ported(kind)
 
 
@@ -110,14 +137,17 @@ def make_cache(kind: str, cfg, batch: int, cache_len: int,
     """Decode cache of one block: a contiguous K/V ring for the attention
     kinds, of ``min(cache_len, window)`` slots where the layer has a window
     (``window_override``, else the config's for "swa"), the float32
-    recurrent state (fresh, m at -1e30) for the xLSTM kinds, whose size
-    does not grow with ``cache_len``."""
+    recurrent state (fresh, m at -1e30) for the xLSTM kinds and the SSD
+    state and conv tail (in ``dtype``) for "mamba2", whose size does not
+    grow with ``cache_len``."""
     if kind in ATTN_KINDS:
         window = window_override if window_override is not None else (
             cfg.sliding_window if kind == "swa" else None)
         eff = min(cache_len, window) if window else cache_len
         return layers.init_kv_cache(batch, eff, cfg.num_kv_heads,
                                     cfg.resolved_head_dim, dtype, device)
+    if kind == "mamba2":
+        return ssm.mamba2_cache(cfg, batch, dtype, device)
     if kind == "mlstm":
         return xlstm.mlstm_cache(cfg, batch, device)
     if kind == "slstm":

@@ -1,11 +1,12 @@
 """Paged KV cache around the registry's cache trees (the port of
-``repro.serving.paging`` for attention and xLSTM stacks).
+``repro.serving.paging`` for attention, MoE, xLSTM and Mamba2 stacks).
 
 The physical layout lives in ``models/layers.py`` (``init_paged_kv_cache``:
 a shared (num_pages, page_size, KV, hd) pool and per-sequence block
-tables). Recurrent blocks (mLSTM, sLSTM) keep their fixed-size state
-indexed by sequence slot, one trivial "page" per sequence, as in the JAX
-package. Every helper sorts a cache leaf as the JAX package's leaf
+tables). Recurrent blocks (mLSTM, sLSTM, Mamba2) keep their fixed-size
+state indexed by sequence slot, one trivial "page" per sequence, as in the
+JAX package (Mamba2's float32 SSD state and its conv tail in the cache
+dtype). Every helper sorts a cache leaf as the JAX package's leaf
 taxonomy does: a **pool** leaf (``k_pages``, ``v_pages``, their scales,
 ``kv_pos``), a **block table**, or a **per-sequence** leaf (recurrent
 state, slot on the batch axis). This module owns:
@@ -21,8 +22,8 @@ state, slot on the batch axis). This module owns:
   **in place** (the JAX package returns new arrays) and invalidate
   ``kv_pos`` on every (re)allocated or freed page, so a recycled page never
   leaks its previous owner's entries into attention. Admission zeroes the
-  slot's recurrent state, the stabilizer ``m`` too, as the JAX package
-  does (a fresh contiguous cache starts ``m`` at -1e30 instead; ROADMAP C
+  slot's recurrent state (Mamba2's state and conv tail; xLSTM's, the
+  stabilizer ``m`` too), as the JAX package does (a fresh contiguous cache starts ``m`` at -1e30 instead; ROADMAP C
   notes where the two part).
 
 Production load (the scheduler's ``share_prefix`` and ``preempt``):
@@ -44,10 +45,11 @@ Production load (the scheduler's ``share_prefix`` and ``preempt``):
 * :func:`unmap_pages` drops the pages of a sequence that fell behind its
   sliding window (SWA page recycling).
 
-Attention kinds ("attn", "swa") get the shared page pool: the window is
-enforced by the attention mask, not the pool, as in the JAX package.
-:func:`init_paged_cache` raises for block kinds other than "attn", "swa",
-"mlstm" and "slstm".
+Attention kinds ("attn", "swa", "moe", "shared_attn": ``blocks.ATTN_KINDS``)
+get the shared page pool: the window is enforced by the attention mask, not
+the pool, as in the JAX package. A "shared_attn" cache is per occurrence
+(its weights are shared, its K/V are not). :func:`init_paged_cache` raises
+for the kinds not ported ("xattn").
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from repro_torch.models import blocks, layers, registry
 
 _POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale", "kv_pos")
 _ATTN_KINDS = blocks.ATTN_KINDS
-_RECURRENT_KINDS = ("mlstm", "slstm")
+_RECURRENT_KINDS = ("mlstm", "slstm", "mamba2")
 
 
 def pages_needed(total_len: int, page_size: int) -> int:
@@ -245,7 +247,7 @@ def make_paged_block_cache(kind: str, cfg, max_seqs: int, num_pages: int,
                            device="cpu") -> Dict:
     """Paged decode state of one block: the shared page pool and block
     tables for attention; the slot-indexed recurrent state (never
-    quantized: it is O(1) per sequence) for mLSTM and sLSTM."""
+    quantized: it is O(1) per sequence) for mLSTM, sLSTM and Mamba2."""
     if kind in _ATTN_KINDS:
         return layers.init_paged_kv_cache(
             max_seqs, num_pages, page_size, pages_per_seq, cfg.num_kv_heads,
@@ -413,8 +415,10 @@ def _leaf_items(cache):
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
     """A host copy numpy can save: bfloat16 (which numpy lacks) as its raw
-    bits, uint16, as the JAX package's ``_npz_safe`` stores it."""
-    x = x.detach().cpu()
+    bits, uint16, as the JAX package's ``_npz_safe`` stores it. Always a
+    copy: on the CPU ``.cpu()`` of a slot's view would alias the cache,
+    and the next step's in-place writes would show through."""
+    x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
     return x.numpy()

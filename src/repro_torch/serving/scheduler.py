@@ -1,6 +1,7 @@
 """Request scheduler with continuous batching over the paged cache (the
-port of ``repro.serving.scheduler``), for attention stacks (KV pages) and
-xLSTM stacks (per-slot recurrent state, zeroed at admission).
+port of ``repro.serving.scheduler``), for attention and MoE stacks (KV
+pages) and xLSTM and Mamba2 stacks (per-slot recurrent state, zeroed at
+admission).
 
 ``max_seqs`` sequence slots share one page pool; a sequence that finishes
 releases its slot and drops its page references at once, and the next

@@ -138,4 +138,4 @@ def test_init_params_draws_the_jax_distributions():
 def test_unported_block_kinds_raise():
     cfg = base.get_smoke_config("xlstm-125m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.apply("moe", {}, cfg, torch.zeros(1, 1, 1, 1))
+        blocks.apply("xattn", {}, cfg, torch.zeros(1, 1, 1, 1))
