@@ -207,14 +207,38 @@ with its time printed:
 27. consensus training of olmoe-smoke and zamba2-smoke through
    ``train.main`` (2 workers, batch 2, seq 16, 2 steps): finite losses, 2
    B3 and 3 B2 launches per step, the trained workers' loss equal to ce +
-   0.01 x aux (aux > 0 with experts, 0 without).
+   0.01 x aux (aux > 0 with experts, 0 without);
+28. serving qwen2-vl-7b at full width (28 layers, d_model 3584, 28 heads,
+   kv 4, head dim 128, M-RoPE sections (16, 24, 24), vocab 152,064;
+   7,070,490,112 random float32 parameters, bf16 activations and pages),
+   text only (three-plane positions, no vision embeds, as in the JAX
+   package): phase 25's stream (8 greedy requests of 17 to 2,000 prompt
+   tokens, 64 new, 129-page tables): exactly 28 B7 launches per decode
+   tick, 0 pages in use; the first 4 requests' bf16 lockstep agreement
+   printed; one decode tick profiled; those 4 in float32 held against the
+   lockstep engine (equal, or parting at a 1e-3 near-tie); B7/B8 at its
+   geometry (H 28, KV 4, hd 128: G 7) are in phase 14's and 21's checks;
+29. serving whisper-small at full width (12 encoder and 12 decoder
+   layers, d_model 768, 12 heads, vocab 51,865, 1,500 stub frames;
+   294,683,904 random float32 parameters) through the lockstep engine
+   (its caches are not paged, as in the JAX package): 8 requests of 8 to
+   384 prompt tokens, 64 new, waves of 4 (within the decoder's 448
+   positions), each wave encoding its frames and filling the cross K/V
+   first; no kernel launch; in bf16 (printed) and float32, where every
+   generated token is the argmax of the uncached forward given the same
+   history, or within a 1e-3 near-tie of it;
+30. consensus training of qwen2-vl-smoke (stub vision embeds, three-plane
+   positions) and whisper-smoke (stub frames; each worker's encoder on its
+   own weights) through ``train.main`` (2 workers, batch 2, seq 32, 2
+   steps): finite losses, 2 B3 and 3 B2 launches per step, the trained
+   workers' loss equal to ce (aux 0).
 
 Phases 25-27 run in a child process (``--child-phases family``, output
 in ``build/chip_smoke_family.log``, printed when it ends) beside phases
-15, 17 and 18 (phase 16 runs before 15), and phases 22-23 in another
-(``--child-phases sliding``) beside phase 19, to keep the script inside
-its time limit: all of them are host-paced, and the phases that time
-kernels (3, 8, 9, 14, 16, 21) run while no child does.
+15, 17 and 18 (phase 16 runs before 15), and phases 22-23 and 28-30 in
+another (``--child-phases sliding``) beside phase 19, to keep the script
+inside its time limit: all of them are host-paced, and the phases that
+time kernels (3, 8, 9, 14, 16, 21) run while no child does.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -1403,12 +1427,13 @@ PAGED_CHECKS = {
 }
 # the wider head dims (B, H, KV, hd, ps, P): h2o-danube (80, G 4), zamba2
 # (112, G 1), olmoe (128, G 1), mistral-large (128, G 12 over three
-# blocks), gemma3's global layers (256, G 2); 84-page tables, ctx 0 and on
-# the split edges
+# blocks), qwen2-vl (128, G 7 over two), gemma3's global layers (256, G 2);
+# 84-page tables, ctx 0 and on the split edges
 WIDE_SHAPES = {"h2o-danube hd 80": (4, 32, 8, 80, 16, 84),
                "zamba2 hd 112": (4, 32, 32, 112, 16, 84),
                "olmoe hd 128": (4, 16, 16, 128, 16, 84),
                "mistral-large hd 128": (4, 96, 8, 128, 16, 84),
+               "qwen2-vl hd 128": (4, 28, 4, 128, 16, 84),
                "gemma3 hd 256": (8, 8, 4, 256, 16, 84)}
 for _label, _shape in WIDE_SHAPES.items():
     _edges = (0, 1, 127, 128, 129, 1279, 1280, 1340)
@@ -3324,20 +3349,20 @@ def serve_zamba2_full_width(ops, dev):
     return launches
 
 
-def family_consensus(ops, dev):
-    """Consensus training of olmoe-smoke and zamba2-smoke through
-    ``train.main``, 2 workers, 2 steps: finite losses, 2 B3 and 3 B2
-    launches a step, and the trained workers' loss equal to ce + 0.01·aux
-    (aux > 0 with experts, 0 without)."""
+def smoke_consensus(ops, dev, archs, seq):
+    """Consensus training of the smoke configs of ``archs`` through
+    ``train.main``, 2 workers, batch 2, ``seq`` tokens, 2 steps: finite
+    losses, 2 B3 and 3 B2 launches a step, and the trained workers' loss
+    equal to ce + 0.01·aux (aux > 0 with experts, 0 without)."""
     from repro_torch.configs import base
     from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
     from repro_torch.launch import train
     from repro_torch.models import registry
 
-    for arch in ("olmoe-1b-7b", "zamba2-7b"):
+    for arch in archs:
         ops.reset_launches()
         out = train.main(["--arch", arch, "--smoke", "--workers", "2",
-                          "--batch", "2", "--seq", "16", "--steps", "2",
+                          "--batch", "2", "--seq", str(seq), "--steps", "2",
                           "--log-every", "1"])
         torch.cuda.synchronize()
         launches = dict(ops.launches)
@@ -3346,17 +3371,154 @@ def family_consensus(ops, dev):
         want.update(stoch_quantize_grouped_fused=4, bipartite_mix=6)
         assert launches == want, launches
         cfg = base.get_smoke_config(arch)
-        data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, 16, seed=0))
+        data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq, seed=0))
         batch = model_batch(cfg, data.worker_batch(0, 2, 1), dev)
         with torch.no_grad():
             loss, m = registry.lm_loss(out["state"].theta, cfg, batch)
         assert torch.isfinite(loss).all()
         assert torch.equal(loss, m["ce"] + 0.01 * m["aux"])
-        assert bool((m["aux"] > 0).all()) == (arch == "olmoe-1b-7b")
-        log(f"train {cfg.name} consensus (2 workers): loss "
+        assert bool((m["aux"] > 0).all()) == (cfg.num_experts > 0)
+        log(f"train {cfg.name} consensus (2 workers, seq {seq}; stub "
+            f"inputs {sorted(set(batch) - {'tokens', 'labels'})}): loss "
             f"{' -> '.join(f'{x:.4f}' for x in out['history'])}; trained "
             f"workers' loss {loss.tolist()} = ce {m['ce'].tolist()} + 0.01 x "
             f"aux {m['aux'].tolist()}; launches {launches}")
+
+
+def family_consensus(ops, dev):
+    smoke_consensus(ops, dev, ("olmoe-1b-7b", "zamba2-7b"), 16)
+
+
+def vlm_audio_consensus(ops, dev):
+    smoke_consensus(ops, dev, ("qwen2-vl-7b", "whisper-small"), 32)
+
+
+def serve_qwen2_vl_full_width(ops, dev):
+    """qwen2-vl-7b at full width, text only (three-plane M-RoPE positions,
+    no vision embeds, as both engines of the JAX package serve it): B7 on
+    all 28 layers every decode tick at hd 128 and G 7 (a 129-page table,
+    below the 178 pages where B8 takes over at G 7); the bf16 stream's
+    lockstep agreement printed, 4 requests in float32 gated."""
+    from repro_torch.configs import base
+    from repro_torch.models import registry
+
+    cfg = base.get_config("qwen2-vl-7b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    log(f"serve qwen2-vl-7b: {registry.count_params(cfg)} float32 "
+        f"parameters in {time.perf_counter() - t0:.1f} s; M-RoPE sections "
+        f"{cfg.mrope_sections}, theta {cfg.rope_theta:g}, G "
+        f"{cfg.num_heads // cfg.num_kv_heads}; text only; prompts "
+        f"{FAMILY_LENS}, {FAMILY_NEW} new tokens")
+    launches = serve_family_full_width(
+        ops, dev, cfg, params, cfg.with_overrides(dtype="float32"))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# whisper-small at full width (arXiv:2212.04356; 12 + 12 layers, d_model
+# 768): prompts of 8-384 tokens and 64 new stay within the decoder's 448
+# positions (the lockstep engine pads every wave to the longest prompt)
+WHISPER_LENS = (8, 384, 100, 256, 33, 200, 64, 300)
+WHISPER_NEW, WHISPER_BATCH = 64, 4
+
+
+def lockstep_against_uncached(cfg, params, dev, prompts, new, engine,
+                              outs):
+    """Teacher-forced check of the lockstep engine's greedy streams: the
+    uncached forward (encoder over the engine's frames, then the decoder
+    over each padded prompt and the engine's tokens) at every generated
+    position; returns (positions where the engine's token is not the
+    argmax, the largest gap between the top logit and the engine's
+    token's)."""
+    from repro_torch.models import registry
+
+    plen = max(len(p) for p in prompts)
+    frames = engine.wave_frames(engine.batch)
+    parted, worst = 0, 0.0
+    for w0 in range(0, len(prompts), engine.batch):
+        idx = range(w0, min(w0 + engine.batch, len(prompts)))
+        toks = np.zeros((len(idx), plen + new - 1), np.int32)
+        for j, i in enumerate(idx):
+            toks[j, :len(prompts[i])] = prompts[i]
+            toks[j, len(prompts[i]):plen] = prompts[i][-1]
+            toks[j, plen:] = outs[i][:-1]
+        with torch.no_grad():
+            logits = registry.apply_model(params, cfg, {
+                "tokens": torch.as_tensor(toks, device=dev),
+                "frames": frames[:len(idx)]})[:, plen - 1:].float()
+        gen = torch.as_tensor(np.stack([outs[i] for i in idx]),
+                              device=dev).long()
+        gaps = (logits.max(-1).values
+                - torch.gather(logits, -1, gen[..., None])[..., 0])
+        parted += int((gaps > 0).sum())
+        worst = max(worst, float(gaps.max()))
+        del logits
+    return parted, worst
+
+
+def serve_whisper_full_width(ops, dev):
+    """whisper-small at full width through the lockstep engine (its caches
+    are not paged): each wave runs the encoder over 1,500 stub frames and
+    fills every layer's cross K/V, then prefills and decodes; no kernel of
+    the port. bf16 (printed) and float32 (gated: every generated token the
+    argmax of the uncached forward given the same history, or within a
+    1e-3 near-tie of it)."""
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = base.get_config("whisper-small")
+    torch.cuda.empty_cache()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = serve.make_prompts(cfg, list(WHISPER_LENS), 0)
+    assert max(WHISPER_LENS) + WHISPER_NEW <= 448
+    cross_mb = (2 * cfg.num_layers * cfg.source_positions
+                * cfg.num_kv_heads * cfg.resolved_head_dim * 2 / 1e6)
+    log(f"serve whisper-small: {registry.count_params(cfg)} float32 "
+        f"parameters ({cfg.encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers), {cross_mb:.1f} MB of bf16 cross K/V a request; "
+        f"prompts {WHISPER_LENS}, {WHISPER_NEW} new tokens, waves of "
+        f"{WHISPER_BATCH}")
+    for exact in (False, True):
+        c = cfg.with_overrides(dtype="float32") if exact else cfg
+        engine = serve.LockstepEngine(
+            c, params, batch=WHISPER_BATCH, device=dev,
+            cache_dtype=torch.float32 if exact else torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = engine.run(prompts, WHISPER_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        assert all(n == 0 for n in launches.values()), launches
+        outs = [out["outputs"][i] for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        parted, worst = lockstep_against_uncached(
+            c, params, dev, prompts, WHISPER_NEW, engine, outs)
+        log(f"serve whisper-small lockstep ({c.dtype}): {wall:.2f} s wall "
+            f"for {len(prompts)} x {WHISPER_NEW} tokens "
+            f"({len(prompts) * WHISPER_NEW / wall:.1f} tokens/s, "
+            f"{out['decode_steps']} decode steps, "
+            f"{wall / out['decode_steps'] * 1e3:.2f} ms a step with the "
+            f"waves' encoder and prefill), "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB; against the uncached forward ({time.perf_counter() - t1:.1f}"
+            f" s): {parted} of {len(prompts) * WHISPER_NEW} tokens not its "
+            f"argmax, largest gap {worst:.4e}"
+            + ("" if exact else " (not a gate)"))
+        if exact:
+            assert worst <= GAP_TOL, (parted, worst)
+    del params
+    torch.cuda.empty_cache()
 
 
 # phases run in a child process (this script with ``--child-phases
@@ -3369,9 +3531,14 @@ CHILD_GROUPS = {
                ("zamba2-7b serving", "serve_zamba2_full_width"),
                ("olmoe-smoke and zamba2-smoke consensus training",
                 "family_consensus")),
-    # phases 22-23 beside 19 and the figures (gemma3's 19.9 GB)
+    # phases 22-23 and 28-30 beside 19 and the figures (gemma3's 19.9 GB,
+    # then qwen2-vl-7b's 28.3 GB of weights)
     "sliding": (("gemma3-4b serving", "serve_gemma3_full_width"),
-                ("h2o-danube-1.8b recycling", "serve_danube_recycling")),
+                ("h2o-danube-1.8b recycling", "serve_danube_recycling"),
+                ("qwen2-vl-7b serving", "serve_qwen2_vl_full_width"),
+                ("whisper-small serving", "serve_whisper_full_width"),
+                ("qwen2-vl-smoke and whisper-smoke consensus training",
+                 "vlm_audio_consensus")),
 }
 
 
@@ -3555,7 +3722,7 @@ def main() -> int:
     sliding = start_child_phases("sliding")
     launches["paged_attention_decode"] = serve_production_load(ops, dev)
     log(f"phase production-load serving (the figures, the aliased-table "
-        f"card cases and phases 22-23 beside it): "
+        f"card cases and phases 22-23 and 28-30 beside it): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     finish_figures(figure_procs, dev)

@@ -1,14 +1,15 @@
 """Model configuration and registry: the port of ``repro.configs.base``,
 cut to the fields and the architectures the ported path reads.
 
-Registered so far: xlstm-125m (``configs/xlstm_125m.py``), tinyllama-1.1b
-(``configs/tinyllama_1_1b.py``), the sliding-window family's
-h2o-danube-1.8b, gemma3-4b and mistral-large-123b, the mixture-of-experts
-olmoe-1b-7b and grok-1-314b, and the Mamba2 hybrid zamba2-7b
-(mistral-large-123b and grok-1-314b are served at smoke size only: their
-123B and 314B parameters fit on no one card). qwen2-vl-7b (M-RoPE) and
-whisper-small (encoder-decoder) wait for their parts to be ported
-(ROADMAP.md).
+Registered: all ten architectures of the JAX package. xlstm-125m
+(``configs/xlstm_125m.py``), tinyllama-1.1b (``configs/tinyllama_1_1b.py``),
+the sliding-window family's h2o-danube-1.8b, gemma3-4b and
+mistral-large-123b, the mixture-of-experts olmoe-1b-7b and grok-1-314b,
+the Mamba2 hybrid zamba2-7b, the M-RoPE decoder qwen2-vl-7b (three-plane
+positions, stubbed vision patch embeddings) and the encoder-decoder
+whisper-small (stubbed audio frames, sinusoidal positions, cross-attention
+decoder blocks). mistral-large-123b and grok-1-314b are served at smoke
+size only: their 123B and 314B parameters fit on no one card.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                      # dense | moe | ssm | hybrid | ...
+    arch_type: str                      # dense|moe|ssm|hybrid|vlm|audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -32,6 +33,7 @@ class ModelConfig:
     # attention
     sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
     # MoE
     num_experts: int = 0
     experts_per_token: int = 0
@@ -42,6 +44,11 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     lstm_heads: int = 4                 # xLSTM heads
+    # encoder-decoder (audio)
+    encoder_layers: int = 0
+    source_positions: int = 0           # encoder sequence length (stub frames)
+    # vlm stub
+    vision_tokens: int = 0              # patch embeddings provided per sample
     pos_embedding: str = "rope"         # rope | sinusoidal
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -61,6 +68,10 @@ class ModelConfig:
         reps = -(-self.num_layers // len(unit))
         return (unit * reps)[: self.num_layers]
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -73,7 +84,8 @@ class ModelConfig:
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _MODULES = ("xlstm_125m", "tinyllama_1_1b", "h2o_danube_1_8b", "gemma3_4b",
-            "mistral_large_123b", "olmoe_1b_7b", "grok_1_314b", "zamba2_7b")
+            "mistral_large_123b", "olmoe_1b_7b", "grok_1_314b", "zamba2_7b",
+            "qwen2_vl_7b", "whisper_small")
 
 
 def register(name: str, full: Callable[[], ModelConfig],

@@ -12,7 +12,7 @@ worker): every worker of a decentralized run draws a disjoint shard.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,11 +69,46 @@ class SyntheticLM:
         return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
 
 
-def model_batch(cfg, data: Dict[str, np.ndarray],
-                device) -> Dict[str, torch.Tensor]:
-    """The batch as tensors on ``device``. The ported architectures need
-    no stub inputs (the JAX package adds M-RoPE positions, vision patch and
-    audio frame stubs for the models that read them)."""
-    del cfg
-    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
-            for k, v in data.items()}
+def model_batch(cfg, data: Dict[str, np.ndarray], device, *, step: int = 0,
+                stubs: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The batch as tensors on ``device``, with the stub inputs the
+    architecture reads (the backbone is real, the frontend is not):
+    M-RoPE positions 0..S-1 on all three planes, ``(..., S, 3)``
+    (qwen2-vl); patch embeddings ``vision_embeds`` ``(..., V, D)``
+    (qwen2-vl) and audio frame embeddings ``frames`` ``(..., S_enc, D)``
+    (whisper), 0.02 times standard normal draws in bf16 from a
+    ``torch.Generator`` on ``device`` seeded with ``step`` (the JAX package
+    keys them with ``PRNGKey(step)``; threefry's bits are not
+    reproducible here). ``stubs`` (name -> tensor) replaces those draws,
+    so that parity tests can pass in the JAX package's
+    (``interop.tensor_from_numpy``). ``cfg`` None
+    converts the arrays only."""
+    out = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+           for k, v in data.items()}
+    if cfg is None:
+        return out
+    tokens = out["tokens"]
+    lead, s = tuple(tokens.shape[:-1]), tokens.shape[-1]
+    if cfg.mrope_sections is not None:
+        pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        out["positions"] = pos[:, None].expand(
+            lead + (s, 3)).contiguous()
+    shapes = {}
+    if cfg.vision_tokens:
+        shapes["vision_embeds"] = lead + (cfg.vision_tokens, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        shapes["frames"] = lead + (cfg.source_positions, cfg.d_model)
+    for name, shape in shapes.items():
+        if stubs is not None and name in stubs:
+            out[name] = stubs[name].to(tokens.device)
+        else:
+            gen = torch.Generator(device=tokens.device).manual_seed(step)
+            out[name] = 0.02 * torch.randn(shape, generator=gen,
+                                           dtype=torch.bfloat16,
+                                           device=tokens.device)
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"stub {name}: shape {tuple(out[name].shape)},"
+                             f" expected {shape}")
+    return out
+

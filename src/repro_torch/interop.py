@@ -40,7 +40,10 @@ TREE_FIELDS = ("theta", "theta_hat", "alpha", "quant.q_hat", "opt_mu",
 SIDE_FIELDS = ("range_prev", "bits_prev", "delta_prev", "initialized")
 
 
-def _tensor(a, dev: torch.device) -> torch.Tensor:
+def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
+    """One float32, float16 or bfloat16 array (a JAX array, or its numpy
+    copy) as a tensor on ``device``."""
+    dev = resolve_device(device)
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.uint16)
@@ -67,7 +70,7 @@ def tree_from_numpy(flat: Mapping[str, np.ndarray],
     """A keystr-path -> array mapping (e.g. a JAX params tree flattened
     with ``jax.tree_util.keystr``) as the port's tree."""
     dev = resolve_device(device)
-    return T.from_paths({k: _tensor(v, dev) for k, v in flat.items()})
+    return T.from_paths({k: tensor_from_numpy(v, dev) for k, v in flat.items()})
 
 
 def model_params_from_numpy(flat: Mapping[str, np.ndarray], cfg,
@@ -75,7 +78,9 @@ def model_params_from_numpy(flat: Mapping[str, np.ndarray], cfg,
     """One model's parameters (no worker axis) from the JAX package's
     ``registry.init_params(cfg, key)`` tree flattened to keystr paths, e.g.
     ``['stack']['units']['p0']['attn']['q']['w']`` (22, 2048, 2048) for
-    tinyllama-1.1b. Every leaf must have the port's shape for ``cfg``."""
+    tinyllama-1.1b, or whisper's ``['encoder']...`` and
+    ``['enc_final_norm']['scale']`` leaves beside its "xattn" stack. Every
+    leaf must have the port's shape for ``cfg``."""
     from repro_torch.models import registry
 
     want = T.to_paths(registry.init_params(cfg, None, device="meta"))
@@ -112,13 +117,13 @@ def engine_state_from_numpy(d: Mapping[str, np.ndarray],
     trees = {}
     for name in TREE_FIELDS:
         sub = _field(d, name)
-        trees[name] = (T.from_paths({k: _tensor(v, dev)
+        trees[name] = (T.from_paths({k: tensor_from_numpy(v, dev)
                                      for k, v in sub.items()})
                        if sub else ())
     first = T.leaves(trees["theta"])[0]
     if first.dim() < 2 and not isinstance(trees["theta"], dict):
         raise ValueError(f"theta must be (N, d), got {tuple(first.shape)}")
-    side = {f: _tensor(d[f"quant.{f}"], dev) for f in SIDE_FIELDS}
+    side = {f: tensor_from_numpy(d[f"quant.{f}"], dev) for f in SIDE_FIELDS}
     n = first.shape[0]
     for f, x in side.items():
         if x.dim() != 2 or x.shape[0] != n:

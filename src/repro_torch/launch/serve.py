@@ -9,7 +9,18 @@ prefill, eviction mid-flight; its single-token decode attention runs the
 paged-attention kernels, and an xLSTM prefill chunk the sLSTM cell
 kernel. ``--engine lockstep`` is the fixed-batch baseline with one
 contiguous cache per wave: no admission until the whole wave has
-finished.
+finished. qwen2-vl-7b is served text-only (three-plane M-RoPE positions
+from ``registry.build_positions``, no vision embeds), as in the JAX
+package. whisper-small, the encoder-decoder, is served by the lockstep
+engine only: its caches are not paged, and ``--engine paged`` switches to
+lockstep with a printed line, as the JAX CLI does; each wave runs the
+encoder over stub audio frames and fills the cross K/V
+(``registry.prefill_cross_cache``) before its prefill:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+        --smoke --prompt-lens 9,17,5 --decode-tokens 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --smoke --prompt-lens 9,17,5 --decode-tokens 8 [--device cpu]
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --prompt-lens 9,17,5 --decode-tokens 8 [--device cpu]
@@ -83,16 +94,39 @@ class LockstepEngine:
     stream of equal-length prompts carries no padding and is the
     per-request contiguous reference of the paged path. The cache holds
     bf16 K/V, as the JAX package's does; ``cache_dtype`` float32 makes it
-    the reference of a float32 paged cache."""
+    the reference of a float32 paged cache.
+
+    An encoder-decoder wave first runs :func:`registry.prefill_cross_cache`
+    over stub audio frames: 0.02 times bf16 standard normal draws of
+    ``(wave, source_positions, d_model)`` from a generator seeded with
+    ``draw_seed(seed, 99)``, the same for every wave (the JAX engine draws
+    them from ``fold_in(key, 99)``); ``frames`` (a tensor of ``(batch,
+    source_positions, d_model)``, a wave taking its first rows) replaces
+    the draws, for parity tests."""
 
     def __init__(self, cfg, params, *, sample: str = "greedy",
                  temperature: float = 1.0, batch: int = 4, seed: int = 0,
-                 device=None, cache_dtype=torch.bfloat16):
+                 device=None, cache_dtype=torch.bfloat16, frames=None):
         self.cfg, self.params = cfg, params
         self.cache_dtype = cache_dtype
         self.sample, self.temperature = sample, temperature
         self.batch, self.seed = batch, seed
         self.device = resolve_device(device)
+        self._given_frames = frames
+
+    def wave_frames(self, wb: int) -> torch.Tensor:
+        """The stub audio frames of a wave of ``wb`` requests, (wb,
+        source_positions, d_model) bf16 on the engine's device."""
+        cfg, dev = self.cfg, self.device
+        if self._given_frames is not None:
+            frames = self._given_frames.to(dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(
+                draw_seed(self.seed, 99))
+            frames = 0.02 * torch.randn(
+                (self.batch, cfg.source_positions, cfg.d_model),
+                generator=gen, dtype=torch.bfloat16, device=dev)
+        return frames[:wb]
 
     def _next(self, logits, wave: int, step: int) -> torch.Tensor:
         seeds = [draw_seed(self.seed, wave, step, j)
@@ -120,9 +154,11 @@ class LockstepEngine:
                 toks[j, len(prompts[i]):] = prompts[i][-1]
             cache = registry.init_cache(cfg, wb, plen + decode_tokens,
                                         dtype=self.cache_dtype, device=dev)
-            positions = torch.broadcast_to(
-                torch.arange(plen, dtype=torch.int32, device=dev)[None],
-                (wb, plen))
+            if cfg.is_encoder_decoder:
+                registry.prefill_cross_cache(self.params, cfg,
+                                             self.wave_frames(wb), cache)
+            positions = registry.build_positions(cfg, torch.arange(
+                plen, dtype=torch.int32, device=dev).expand(wb, plen))
             logits = registry.apply_model(
                 self.params, cfg,
                 {"tokens": torch.as_tensor(toks, device=dev),
@@ -163,10 +199,12 @@ class LockstepEngine:
 
 def run_lockstep(cfg, params, prompts, decode_tokens: int, *,
                  sample: str = "greedy", temperature: float = 1.0,
-                 batch: int = 4, seed: int = 0, device=None) -> dict:
+                 batch: int = 4, seed: int = 0, device=None,
+                 frames=None) -> dict:
     return LockstepEngine(cfg, params, sample=sample,
                           temperature=temperature, batch=batch, seed=seed,
-                          device=device).run(prompts, decode_tokens)
+                          device=device, frames=frames).run(prompts,
+                                                            decode_tokens)
 
 
 # ---------------------------------------------------------------- paged --
@@ -266,6 +304,12 @@ def main(argv=None, *, params=None) -> dict:
     dev = resolve_device(args.device)
     cfg = (base.get_smoke_config(args.arch) if args.smoke
            else base.get_config(args.arch))
+    if cfg.is_encoder_decoder and args.engine == "paged":
+        # encoder-decoder caches are not paged: the JAX package's engine
+        # choice for this architecture, not a device fall-back
+        print(f"[serve] {cfg.name} is encoder-decoder: falling back to "
+              f"--engine lockstep")
+        args.engine = "lockstep"
     if args.prompt_lens:
         prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
     else:

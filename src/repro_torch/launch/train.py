@@ -7,8 +7,11 @@ synthetic token stream; every step runs the engine's head and tail phases
 censor) and the dual update, with the quantize and mix kernels on the
 card. It logs loss, consensus error, transmitted bits and s/step, and
 checkpoints the worker-stacked parameters in the JAX package's npz layout.
-``--arch`` defaults to tinyllama-1.1b, as in the JAX CLI; the attention
-stack takes the engine's worker axis as the xLSTM kinds do:
+``--arch`` defaults to tinyllama-1.1b, as in the JAX CLI; every block
+kind takes the engine's worker axis. qwen2-vl's and whisper's batches
+carry their stub inputs (``data.lm.model_batch``: M-RoPE positions, vision
+patch embeddings, audio frames, drawn with the step as their seed), and
+whisper's encoder runs once per worker, on that worker's weights:
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 1 --workers 2 --batch 2 --seq 16
@@ -126,13 +129,15 @@ def parse_churn(spec: str):
 
 
 def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
-              uniforms=None) -> dict:
+              uniforms=None, stubs=None) -> dict:
     """Drive the consensus run through FleetSim: straggler timeouts fold
     into the censor mask, late updates land through the bounded-staleness
     buffer, churn redraws the graph and remaps the state. Rounds without a
     fault run the plain synchronous step; per-round draws derive from
     ``(--seed, round)`` (or ``uniforms(round, phase)``), so the trajectory
-    differs from :func:`run_admm`'s loop through its draws only."""
+    differs from :func:`run_admm`'s loop through its draws only. A round's
+    stub inputs are drawn with the round as their seed (or taken from
+    ``stubs(round)``), as the JAX package keys them."""
     fcfg = FleetConfig(
         rounds=args.steps,
         faults=FaultConfig(participation=args.fleet_participation,
@@ -144,7 +149,8 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
     per = args.batch // args.workers
 
     def batch_fn(r, members):
-        return model_batch(cfg, data.worker_batch(r, len(members), per), dev)
+        return model_batch(cfg, data.worker_batch(r, len(members), per), dev,
+                           step=r, stubs=None if stubs is None else stubs(r))
 
     sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
                    extra_metrics=E.consensus_metrics(loss_fn),
@@ -181,10 +187,13 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
 
 def run_admm(cfg, args, *, params=None,
              uniforms: Optional[Callable[[int, int], torch.Tensor]] = None,
-             hat_dtype: Optional[str] = None) -> dict:
+             hat_dtype: Optional[str] = None,
+             stubs: Optional[Callable[[int], dict]] = None) -> dict:
     """Train ``args.steps`` consensus steps. ``params`` (one model's tree,
-    no worker axis) replaces the seeded init, and ``uniforms(step, phase)``
-    the (N, D) rounding draws; both serve parity tests. ``hat_dtype``
+    no worker axis) replaces the seeded init, ``uniforms(step, phase)``
+    the (N, D) rounding draws and ``stubs(step)`` the step's stub inputs
+    (``data.lm.model_batch``: vision embeds, audio frames); all serve
+    parity tests. ``hat_dtype``
     narrows the replicas (``EngineConfig.hat_dtype``). Returns the loss
     history, total bits, group count, per-step (N, G) bit widths and
     seconds, the final engine state and, with a tracer active, the
@@ -236,7 +245,7 @@ def run_admm(cfg, args, *, params=None,
                 "auto regrouping rebuilds the step on a schedule the fleet "
                 "driver owns (churn already rebuilds it)")
         return run_fleet(cfg, args, graph, ecfg, solver, lm_loss_fn(cfg),
-                         theta, data, dev, uniforms)
+                         theta, data, dev, uniforms, stubs)
     state = E.init_state(theta, ecfg, solver)
     n_groups = state.quant.n_groups
     grouper = E.AutoGrouper.from_config(ecfg)
@@ -276,7 +285,8 @@ def run_admm(cfg, args, *, params=None,
                 print(f"[train] step {i}: regrouped to G={n_groups} "
                       f"({new_ids})")
         raw = data.worker_batch(i, args.workers, args.batch // args.workers)
-        batch = model_batch(cfg, raw, dev)
+        batch = model_batch(cfg, raw, dev, step=i,
+                            stubs=None if stubs is None else stubs(i))
 
         def draw(phase, i=i):
             if uniforms is not None:
@@ -334,14 +344,15 @@ def fsdp_step(cfg, acfg: AdamWConfig):
     return step
 
 
-def run_fsdp(cfg, args, *, params=None) -> dict:
+def run_fsdp(cfg, args, *, params=None, stubs=None) -> dict:
     """The FSDP-Adam baseline: ``args.steps`` AdamW steps (lr ``args.lr``,
     the JAX package's defaults otherwise) of one model on
     ``data.batch(i, args.batch)``, the loss token-weighted over the whole
     batch (``registry.lm_loss_tokens``). ``params`` (one model's tree)
     replaces the seeded init for parity tests. Checkpoints hold the
-    unstacked tree in the JAX npz layout. Returns the loss history, s/step
-    and the peak device memory (bytes; 0 on the CPU)."""
+    unstacked tree in the JAX npz layout. ``stubs(step)`` replaces a
+    step's stub inputs, as in :func:`run_admm`. Returns the loss history,
+    s/step and the peak device memory (bytes; 0 on the CPU)."""
     dev = resolve_device(args.device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -357,7 +368,8 @@ def run_fsdp(cfg, args, *, params=None) -> dict:
     t0 = time.perf_counter()
     for i in range(args.steps):
         t_step = time.perf_counter()
-        batch = model_batch(cfg, data.batch(i, args.batch), dev)
+        batch = model_batch(cfg, data.batch(i, args.batch), dev, step=i,
+                            stubs=None if stubs is None else stubs(i))
         params, opt, loss = step(params, opt, batch)
         history.append(float(loss))              # waits for the device
         seconds.append(time.perf_counter() - t_step)
@@ -441,10 +453,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, *, params=None, uniforms=None,
-         hat_dtype: Optional[str] = None) -> dict:
-    """The trainer's entry point. ``params`` and ``uniforms`` replace the
-    seeded init and draws (parity tests); ``hat_dtype`` narrows the
-    consensus replicas (no flag, as in the JAX package)."""
+         hat_dtype: Optional[str] = None, stubs=None) -> dict:
+    """The trainer's entry point. ``params``, ``uniforms`` and ``stubs``
+    replace the seeded init, the rounding draws and the stub inputs
+    (parity tests); ``hat_dtype`` narrows the consensus replicas (no flag,
+    as in the JAX package)."""
     args = build_parser().parse_args(argv)
     if args.campaign:
         raise SystemExit(f"[train] --campaign {NOT_PORTED}")
@@ -463,9 +476,9 @@ def main(argv=None, *, params=None, uniforms=None,
         obs_trace.enable(args.trace)
     if args.mode == "admm":
         out = run_admm(cfg, args, params=params, uniforms=uniforms,
-                       hat_dtype=hat_dtype)
+                       hat_dtype=hat_dtype, stubs=stubs)
     else:
-        out = run_fsdp(cfg, args, params=params)
+        out = run_fsdp(cfg, args, params=params, stubs=stubs)
     if args.trace:
         obs_trace.save()
     return out

@@ -1,8 +1,8 @@
 """Shared layers of the ported models: dense projection, RMSNorm, tied
-embedding / unembedding, the gated MLP, rotary embeddings and GQA
-attention with contiguous and paged KV caches (the port of
-``repro.models.layers`` without cross-attention, M-RoPE and the mesh
-constraints).
+embedding / unembedding, the gated MLP (silu or gelu), rotary embeddings
+(scalar RoPE and qwen2-vl's three-plane M-RoPE) and GQA attention (self-
+and cross-attention) with contiguous and paged KV caches (the port of
+``repro.models.layers`` without the mesh constraints).
 
 Functional style over nested dicts of tensors, in two layouts told apart
 by the parameters' rank:
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,10 +116,15 @@ def mlp_init(gen, d_model: int, d_ff: int, device):
     }
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    """The gated MLP, ``wo(act(wi_gate x) * wi_up x)``. ``activation``
+    "gelu" is the tanh approximation, the default of ``jax.nn.gelu``."""
     gate = dense(params["wi_gate"], x)
     up = dense(params["wi_up"], x)
-    return dense(params["wo"], F.silu(gate) * up)
+    act = (F.silu(gate) if activation == "silu"
+           else F.gelu(gate, approximate="tanh"))
+    return dense(params["wo"], act * up)
 
 
 # ----------------------------------------------------------------- rotary --
@@ -133,10 +138,29 @@ def _rope_angles(positions: torch.Tensor, head_dim: int,
     return positions.to(torch.float32)[..., None] * freqs
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
-    """(cos, sin) of the rotary angles at positions (..., S), each
-    (..., S, 1, head_dim/2) float32: computed once per layer for q and k."""
-    angles = _rope_angles(positions, head_dim, theta)[..., None, :]
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None):
+    """(cos, sin) of the rotary angles, each (B, S, 1, head_dim/2)
+    float32: computed once per layer for q and k. ``positions`` is (B, S),
+    or (B, S, 3) for M-RoPE: the (temporal, height, width) planes, of which
+    ``mrope_sections`` gives each a run of the head_dim/2 frequency bands
+    (qwen2-vl, arXiv:2409.12191); every band takes its plane's angle, so
+    three equal planes give plain RoPE bit for bit. Without sections a
+    three-plane position takes plane 0 (text-only M-RoPE)."""
+    if mrope_sections is not None:
+        if positions.dim() != 3 or positions.shape[-1] != 3:
+            raise ValueError(f"M-RoPE needs (B, S, 3) positions, got "
+                             f"{tuple(positions.shape)}")
+        per_plane = _rope_angles(positions, head_dim, theta)  # (B,S,3,D/2)
+        sections = torch.cat([
+            torch.full((n,), i, dtype=torch.long, device=positions.device)
+            for i, n in enumerate(mrope_sections)])            # (D/2,)
+        index = sections.expand(positions.shape[:2] + (1, -1))
+        angles = torch.gather(per_plane, 2, index)             # (B,S,1,D/2)
+    else:
+        if positions.dim() == 3:
+            positions = positions[..., 0]
+        angles = _rope_angles(positions, head_dim, theta)[..., None, :]
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -406,16 +430,26 @@ def _paged_decode(cache, q: torch.Tensor, q_positions: torch.Tensor):
 def attention_apply(params, dims: AttnDims, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, rope_theta: float = 10000.0,
-                    use_rope: bool = True, cache: Optional[dict] = None):
-    """Self-attention of x (B, S, D) at absolute ``positions`` (B, S), with
-    an optional contiguous or paged cache (written in place). Returns
-    ``(out (B, S, D), cache)``.
+                    mrope_sections: Optional[Tuple[int, int, int]] = None,
+                    use_rope: bool = True, cache: Optional[dict] = None,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None):
+    """Self-attention of x (B, S, D) at absolute ``positions`` (B, S), or
+    (B, S, 3) for M-RoPE (plane 0, the temporal one, decides the mask, the
+    cache slots and the paged writes), with an optional contiguous or
+    paged cache (written in place). Returns ``(out (B, S, D), cache)``.
+
+    Cross-attention: ``kv_override`` = (k, v), each (B, S_enc, KV, hd)
+    (or (W, B, S_enc, KV, hd) under a worker axis), are the keys and
+    values; the query takes no rotary embedding and sees every key (no
+    causal mask, no window), and nothing is cached here.
 
     Consensus training passes x (W, B, S, D) with per-worker weights (a
     leading W on every parameter) and no cache: each worker's projections
     take its own weights (:func:`dense`), and the rotary embedding, mask
     and softmax run on the workers' rows folded into one batch of W·B
     rows, which is the JAX package's ``vmap`` over workers written out.
+    Positions are then (B, S) or (W, B, S), or (W, B, S, 3) for M-RoPE.
 
     Decode route: one new token (S = 1) without a window on a paged cache
     goes through ``kernels.ops.paged_attention_decode`` on every device
@@ -425,28 +459,44 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
     :func:`mha`. Prefill chunks (S > 1) gather and run :func:`mha`, as in
     the JAX package."""
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    planes = positions.dim() == x.dim()        # (B, S, 3) or (W, B, S, 3)
+    if planes and positions.shape[-1] != 3:
+        raise ValueError(f"attention_apply: positions "
+                         f"{tuple(positions.shape)} for x "
+                         f"{tuple(x.shape)}: three planes expected")
     if x.dim() == 4:
         if cache is not None:
             raise ValueError("attention_apply: a worker axis (W, B, S, D) "
                              "takes no decode cache")
         workers = x.shape[0]
         b, s = workers * x.shape[1], x.shape[2]
-        positions = torch.broadcast_to(positions, x.shape[:3]).reshape(b, s)
+        lead = tuple(x.shape[:3])
+        positions = (torch.broadcast_to(positions, lead + (3,))
+                     .reshape(b, s, 3) if planes else
+                     torch.broadcast_to(positions, lead).reshape(b, s))
     else:
         workers = None
         b, s, _ = x.shape
+    q_positions = positions[..., 0] if planes else positions
     q = dense(params["q"], x).reshape(b, s, h, hd)
-    k = dense(params["k"], x).reshape(b, s, kv, hd)
-    v = dense(params["v"], x).reshape(b, s, kv, hd)
-    if use_rope:
-        tables = rope_tables(positions, hd, rope_theta)
-        q = apply_rope(q, tables)
-        k = apply_rope(k, tables)
-    if cache is not None:
-        if is_paged_cache(cache):
-            _paged_cache_write(cache, k, v, positions)
+    if kv_override is not None:
+        k, v = (t.reshape(b, -1, kv, hd) for t in kv_override)
+        kv_positions = torch.zeros(k.shape[:2], dtype=torch.int32,
+                                   device=k.device)       # all visible
+        causal, window = False, None
+    else:
+        k = dense(params["k"], x).reshape(b, s, kv, hd)
+        v = dense(params["v"], x).reshape(b, s, kv, hd)
+        if use_rope:
+            tables = rope_tables(positions, hd, rope_theta, mrope_sections)
+            q = apply_rope(q, tables)
+            k = apply_rope(k, tables)
+        if cache is None:
+            kv_positions = q_positions
+        elif is_paged_cache(cache):
+            _paged_cache_write(cache, k, v, q_positions)
             if s == 1 and window is None:
-                out = _paged_decode(cache, q, positions)
+                out = _paged_decode(cache, q, q_positions)
                 return dense(params["o"], out.reshape(b, s, h * hd)), cache
             k, v, kv_positions = paged_gather(cache, head_dim=hd)
         elif s > 1 and window is not None:
@@ -458,19 +508,18 @@ def attention_apply(params, dims: AttnDims, x: torch.Tensor,
             k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
             v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
             kv_positions = torch.cat(
-                [cache["kv_pos"], positions.to(torch.int32)], dim=1)
-            _cache_write(cache, k, v, positions)
+                [cache["kv_pos"], q_positions.to(torch.int32)], dim=1)
+            _cache_write(cache, k, v, q_positions)
             k, v = k_all, v_all
         else:
-            _cache_write(cache, k, v, positions)
+            _cache_write(cache, k, v, q_positions)
             k, v, kv_positions = cache["k"], cache["v"], cache["kv_pos"]
-    else:
-        kv_positions = positions
     k, v = k.to(q.dtype), v.to(q.dtype)
     if s > MHA_BLOCKWISE_THRESHOLD:
-        out = mha_blockwise(q, k, v, positions, kv_positions, causal, window)
+        out = mha_blockwise(q, k, v, q_positions, kv_positions, causal,
+                            window)
     else:
-        out = mha(q, k, v, _attn_mask(positions, kv_positions, causal,
+        out = mha(q, k, v, _attn_mask(q_positions, kv_positions, causal,
                                       window))
     out = out.reshape(b, s, h * hd)
     if workers is not None:

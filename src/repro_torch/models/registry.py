@@ -1,5 +1,20 @@
 """Model assembly, forward pass, loss and decode caches (the port of
-``repro.models.registry`` for the ported block kinds).
+``repro.models.registry``, every block kind).
+
+Two architectures take stub inputs beside the tokens (``data.lm.model_batch``
+makes them). qwen2-vl-7b: M-RoPE positions ``(B, S, 3)``
+(:func:`build_positions` makes them for serving) and ``vision_embeds``
+``(B, V, D)``, which replace the first V token embeddings. whisper-small,
+the encoder-decoder: ``frames`` ``(B, S_enc, D)``, which :func:`_encode`
+runs through ``encoder_layers`` non-causal "attn" blocks (sinusoidal
+positions, no rotary embedding) to the encoder output every decoder
+("xattn") block attends to; the decoder adds sinusoidal positions to its
+embeddings. Its tree holds the encoder under ``encoder`` and
+``enc_final_norm`` and the decoder's "xattn" blocks under
+``stack.units.p0``; its decode cache holds, per layer, the self-attention
+K/V under ``self`` and the cross K/V that :func:`prefill_cross_cache`
+writes once per request. Both take the worker axis in training: the
+encoder runs once per worker, on that worker's weights.
 
 ``window_override`` (``init_cache``, ``apply_model``, ``lm_loss``,
 ``lm_loss_tokens``, ``decode_step``) gives every attention layer that
@@ -51,6 +66,30 @@ def segments(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
     return unit, n_full, rem
 
 
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(...) int positions -> (..., dim) float32 sinusoidal embeddings,
+    sines then cosines."""
+    half = dim // 2
+    scale = torch.tensor(-np.log(10000.0), dtype=torch.float32,
+                         device=positions.device)
+    freqs = torch.exp(scale * torch.arange(half, dtype=torch.float32,
+                                           device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _decoder_segments(cfg):
+    """``segments`` of the decoder stack: an encoder-decoder's layers are
+    all "xattn" blocks, stacked under ``units.p0``."""
+    if cfg.is_encoder_decoder:
+        return ("xattn",), cfg.num_layers, ()
+    return segments(cfg)
+
+
+def _stacked(make, n: int):
+    return T.tree_map(lambda *xs: torch.stack(xs), *[make() for _ in range(n)])
+
+
 def init_params(cfg, gen: Optional[torch.Generator] = None,
                 device="cpu") -> Dict[str, Any]:
     """One model's parameters drawn from ``gen`` with the JAX package's
@@ -59,7 +98,7 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
     the ``meta`` device only shapes are made. A weight-shared block
     ("shared_attn", zamba2) is stored once, under ``stack.shared``, and
     has no entry in ``units`` or ``rem``."""
-    unit, n_full, rem = segments(cfg)
+    unit, n_full, rem = _decoder_segments(cfg)
     params: Dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, device),
         "final_norm": layers.rmsnorm_init(cfg.d_model, device),
@@ -71,15 +110,17 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
         for i, kind in enumerate(unit):
             if kind == "shared_attn":
                 continue
-            reps = [blocks.init(kind, gen, cfg, device)
-                    for _ in range(n_full)]
-            stack["units"][f"p{i}"] = T.tree_map(
-                lambda *xs: torch.stack(xs), *reps)
+            stack["units"][f"p{i}"] = _stacked(
+                lambda kind=kind: blocks.init(kind, gen, cfg, device), n_full)
     for i, kind in enumerate(rem):
         if kind == "shared_attn":
             continue
         stack["rem"][f"p{i}"] = blocks.init(kind, gen, cfg, device)
     params["stack"] = stack
+    if cfg.is_encoder_decoder:
+        params["encoder"] = _stacked(
+            lambda: blocks.init("attn", gen, cfg, device), cfg.encoder_layers)
+        params["enc_final_norm"] = layers.rmsnorm_init(cfg.d_model, device)
     return params
 
 
@@ -89,43 +130,58 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     """Contiguous decode caches in the parameter tree's structure: a
     leading depth axis on the unit positions, one cache per leftover
     layer (windowed layers hold a ring of ``min(cache_len, window)``
-    slots)."""
-    unit, n_full, rem = segments(cfg)
+    slots). An encoder-decoder's layers each hold their self-attention
+    cache under ``self`` and zeroed ``cross_k`` / ``cross_v`` of
+    ``(batch, source_positions, KV, hd)`` for :func:`prefill_cross_cache`
+    to fill."""
+    unit, n_full, rem = _decoder_segments(cfg)
     caches: Dict[str, Any] = {"units": {}, "rem": {}}
 
     def one(kind):
-        return blocks.make_cache(kind, cfg, batch, cache_len, dtype, device,
-                                 window_override=window_override)
+        c = blocks.make_cache(kind, cfg, batch, cache_len, dtype, device,
+                              window_override=window_override)
+        if kind == "xattn":
+            shape = (batch, cfg.source_positions, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return c
 
     if n_full > 0:
         for i, kind in enumerate(unit):
-            caches["units"][f"p{i}"] = T.tree_map(
-                lambda *xs: torch.stack(xs),
-                *[one(kind) for _ in range(n_full)])
+            caches["units"][f"p{i}"] = _stacked(lambda kind=kind: one(kind),
+                                                n_full)
     for i, kind in enumerate(rem):
         caches["rem"][f"p{i}"] = one(kind)
     return caches
 
 
+def _depth_axis(params) -> int:
+    """Depth is axis 1 of a stacked leaf under a worker axis (training),
+    axis 0 without (serving); caches never have a worker axis."""
+    return 1 if params["embed"]["table"].dim() == 3 else 0
+
+
 def _run_stack(params, cfg, x: torch.Tensor, positions=None,
-               caches=None, window_override=None):
+               caches=None, window_override=None, cross_kv=None):
     """The block stack over x: ``(x, aux)``, aux the blocks' side losses
     summed (a float32 tensor, (W,) under a worker axis, where the stack
     has "moe" blocks; the Python float 0.0 where it has none).
     "shared_attn" takes ``stack.shared`` at every occurrence (no depth
-    axis: one set of weights); its caches are per occurrence."""
-    unit, n_full, rem = segments(cfg)
+    axis: one set of weights); its caches are per occurrence. ``cross_kv``
+    is the encoder output the "xattn" blocks attend to (None where they
+    read cached cross K/V)."""
+    unit, n_full, rem = _decoder_segments(cfg)
     stack = params["stack"]
     shared = stack.get("shared")
-    # depth is axis 1 under a worker axis (training), axis 0 without
-    # (serving); caches never have a worker axis
-    depth_axis = 1 if params["embed"]["table"].dim() == 3 else 0
+    depth_axis = _depth_axis(params)
     aux = 0.0
 
     def ctx(cache):
         return (None if positions is None and cache is None
                 else blocks.BlockCtx(positions=positions, cache=cache,
-                                     window_override=window_override))
+                                     window_override=window_override,
+                                     cross_kv=cross_kv))
 
     for r in range(n_full):
         for i, kind in enumerate(unit):
@@ -144,10 +200,32 @@ def _run_stack(params, cfg, x: torch.Tensor, positions=None,
     return x, aux
 
 
+def activation_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, S_enc, D), or
+    (W, B, S_enc, D) with each worker's own weights: sinusoidal positions
+    added, ``encoder_layers`` non-causal "attn" blocks (no rotary
+    embedding: the positions are sinusoidal), then ``enc_final_norm``."""
+    b, s_enc = frames.shape[-3:-1]
+    pos = torch.broadcast_to(
+        torch.arange(s_enc, device=frames.device)[None], (b, s_enc))
+    x = frames + sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
+    depth_axis = _depth_axis(params)
+    ctx = blocks.BlockCtx(positions=pos, causal=False)
+    enc = params["encoder"]
+    for r in range(cfg.encoder_layers):
+        p = T.tree_map(lambda t, r=r: t.select(depth_axis, r), enc)
+        x, _ = blocks.apply("attn", p, cfg, x, ctx)
+    return layers.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
 def _forward(params, cfg, batch: Dict[str, torch.Tensor], caches=None,
              window_override: Optional[int] = None):
     """:func:`apply_model` with the stack's summed aux: ``(logits, aux)``."""
-    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    act = activation_dtype(cfg)
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None and set(blocks.ATTN_KINDS) & set(cfg.block_kinds):
@@ -155,7 +233,21 @@ def _forward(params, cfg, batch: Dict[str, torch.Tensor], caches=None,
         positions = torch.broadcast_to(
             torch.arange(s, device=tokens.device)[None], (b, s))
     x = layers.embed(params["embed"], tokens).to(act)
-    x, aux = _run_stack(params, cfg, x, positions, caches, window_override)
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        # stub layout: the patch embeddings take the first V slots
+        v = batch["vision_embeds"].to(act)
+        nv, s = v.shape[-2], x.shape[-2]
+        x = (torch.cat([v, x[..., nv:, :]], dim=-2) if nv < s
+             else v[..., :s, :])
+    if cfg.pos_embedding == "sinusoidal":
+        pos = positions[..., 0] if positions.dim() > tokens.dim() \
+            else positions
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(act)
+    cross_kv = None
+    if cfg.is_encoder_decoder and caches is None:
+        cross_kv = _encode(params, cfg, batch["frames"].to(act))
+    x, aux = _run_stack(params, cfg, x, positions, caches, window_override,
+                        cross_kv)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(params["embed"], x), aux
 
@@ -166,7 +258,10 @@ def apply_model(params, cfg, batch: Dict[str, torch.Tensor], *,
     """Forward pass: tokens (W, B, S) -> logits (W, B, S, V) for training,
     or tokens (B, S) -> logits (B, S, V) for serving, in the activation
     dtype (``cfg.dtype``). ``batch["positions"]`` (B, S) defaults to
-    0..S-1; ``caches`` are written in place."""
+    0..S-1 (M-RoPE takes no default: its (B, S, 3) planes are given);
+    ``vision_embeds`` and ``frames`` are the stub inputs of qwen2-vl and
+    whisper (the latter read on the uncached path only: a cached decoder
+    reads its cross K/V); ``caches`` are written in place."""
     return _forward(params, cfg, batch, caches, window_override)[0]
 
 
@@ -182,12 +277,39 @@ def decode_step(params, cfg, tokens: torch.Tensor, positions: torch.Tensor,
     return logits, caches
 
 
+def prefill_cross_cache(params, cfg, frames: torch.Tensor, cache):
+    """Encoder pass over ``frames`` (B, S_enc, D) and every decoder
+    layer's cross K/V projection, written into ``cache``'s ``cross_k`` /
+    ``cross_v`` in place (in the cache's dtype); returns the cache. The
+    frames enter at the activation dtype, as on :func:`apply_model`'s
+    uncached path, so a cached decoder attends to the encoder output the
+    uncached forward computes. (The JAX package runs this encoder at the
+    frames' own dtype, bf16 from its engine, also under a float32 config:
+    ROADMAP C20.)"""
+    enc = _encode(params, cfg, frames.to(activation_dtype(cfg)))
+    b, s_enc, _ = enc.shape
+    shape = (cfg.num_layers, b, s_enc, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    xattn = params["stack"]["units"]["p0"]["xattn"]       # (L, D, F)
+    unit = cache["units"]["p0"]
+    for name, proj in (("cross_k", "k"), ("cross_v", "v")):
+        w = xattn[proj]["w"].to(enc.dtype)[:, None]       # (L, 1, D, F)
+        unit[name].copy_(torch.matmul(enc[None], w).reshape(shape))
+    return cache
+
+
 def build_positions(cfg, positions) -> torch.Tensor:
-    """Serving positions for this architecture: (B, S) int32 absolute
-    positions (-1 = padding / inactive). The ported architectures use
-    scalar RoPE, so this is the array itself (the JAX package broadcasts
-    it to three planes for M-RoPE, not ported)."""
-    return torch.as_tensor(positions, dtype=torch.int32)
+    """Serving positions for this architecture from (B, S) int32 absolute
+    positions (-1 = padding / inactive): the array itself for scalar RoPE,
+    or, for M-RoPE, the scalar on all three (temporal, height, width)
+    planes, (B, S, 3) (the text-only case). The one place serving builds
+    positions: the lockstep engine's prefill and decode and the
+    scheduler's all call it."""
+    positions = torch.as_tensor(positions, dtype=torch.int32)
+    if cfg.mrope_sections is not None:
+        return positions[..., None].expand(
+            tuple(positions.shape) + (3,)).contiguous()
+    return positions
 
 
 AUX_WEIGHT = 0.01      # the router's load-balance term in the loss

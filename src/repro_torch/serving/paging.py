@@ -48,8 +48,10 @@ Production load (the scheduler's ``share_prefix`` and ``preempt``):
 Attention kinds ("attn", "swa", "moe", "shared_attn": ``blocks.ATTN_KINDS``)
 get the shared page pool: the window is enforced by the attention mask, not
 the pool, as in the JAX package. A "shared_attn" cache is per occurrence
-(its weights are shared, its K/V are not). :func:`init_paged_cache` raises
-for the kinds not ported ("xattn").
+(its weights are shared, its K/V are not). An encoder-decoder's caches
+(the "xattn" kind's self K/V and cross K/V) are not paged, as in the JAX
+package: :func:`make_paged_block_cache` and :func:`init_paged_cache` raise
+for them, and whisper is served by the lockstep engine.
 """
 from __future__ import annotations
 
@@ -65,7 +67,6 @@ from repro_torch.models import blocks, layers, registry
 
 _POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale", "kv_pos")
 _ATTN_KINDS = blocks.ATTN_KINDS
-_RECURRENT_KINDS = ("mlstm", "slstm", "mamba2")
 
 
 def pages_needed(total_len: int, page_size: int) -> int:
@@ -252,12 +253,11 @@ def make_paged_block_cache(kind: str, cfg, max_seqs: int, num_pages: int,
         return layers.init_paged_kv_cache(
             max_seqs, num_pages, page_size, pages_per_seq, cfg.num_kv_heads,
             cfg.resolved_head_dim, dtype, kv_bits=kv_bits, device=device)
-    if kind in _RECURRENT_KINDS:
-        return blocks.make_cache(kind, cfg, max_seqs, page_size, dtype,
-                                 device)
-    raise NotImplementedError(
-        f"paged serving of block kind {kind!r} is not ported (ROADMAP.md "
-        f"queue A); it serves {_ATTN_KINDS + _RECURRENT_KINDS}")
+    if kind == "xattn":
+        raise NotImplementedError(
+            "encoder-decoder caches are not paged; serve whisper-small "
+            "through the contiguous path (the lockstep engine)")
+    return blocks.make_cache(kind, cfg, max_seqs, page_size, dtype, device)
 
 
 def init_paged_cache(cfg, max_seqs: int, num_pages: int, page_size: int,
@@ -267,6 +267,10 @@ def init_paged_cache(cfg, max_seqs: int, num_pages: int, page_size: int,
     structure, the layers of a unit position stacked along a leading depth
     axis, as in the JAX package (every attention layer holds the same
     block-table rows)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder caches are not paged (serve through the "
+            "lockstep engine)")
     unit, n_full, rem = registry.segments(cfg)
 
     def one(kind):

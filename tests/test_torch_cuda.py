@@ -709,12 +709,13 @@ def test_paged_attention_on_aliased_and_forked_pages_on_card(
 
 # (B, H, KV, hd, ps, P) at the wider head dims of the served configs:
 # h2o-danube (80, G 4), zamba2 (112, G 1), olmoe (128, G 1), mistral-large
-# (128, G 12: three blocks of 4 query heads a KV head), gemma3's global
-# layers (256, G 2)
+# (128, G 12: three blocks of 4 query heads a KV head), qwen2-vl (128, G 7:
+# two blocks), gemma3's global layers (256, G 2)
 WIDE_SHAPES = {"h2o-danube": (4, 32, 8, 80, 16, 32),
                "zamba2": (4, 32, 32, 112, 16, 32),
                "olmoe": (4, 16, 16, 128, 16, 32),
                "mistral-large": (4, 96, 8, 128, 16, 32),
+               "qwen2-vl": (4, 28, 4, 128, 16, 32),
                "gemma3": (8, 8, 4, 256, 16, 32)}
 WIDE_POOLS = [(32, torch.float32), (32, torch.bfloat16), (8, None),
               (4, None)]

@@ -23,6 +23,7 @@ import torch
 
 from repro.configs import base as jbase
 from repro.data import lm as jlm
+from repro.models import blocks as jblocks
 from repro.models import registry as jregistry
 from repro_torch import interop
 from repro_torch.configs import base
@@ -136,6 +137,16 @@ def test_init_params_draws_the_jax_distributions():
 
 
 def test_unported_block_kinds_raise():
+    """Every kind the JAX package's ``blocks.init`` accepts is ported
+    ("xattn" last); an unknown kind raises as the JAX package's does."""
     cfg = base.get_smoke_config("xlstm-125m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.apply("xattn", {}, cfg, torch.zeros(1, 1, 1, 1))
+    assert "xattn" in blocks.PORTED_KINDS
+    x = torch.zeros(1, 1, 1, 1)
+    for call in (lambda: blocks.apply("nope", {}, cfg, x),
+                 lambda: blocks.init("nope", None, cfg, "meta"),
+                 lambda: blocks.make_cache("nope", cfg, 1, 4)):
+        with pytest.raises(ValueError, match="unknown block kind 'nope'"):
+            call()
+    with pytest.raises(ValueError, match="unknown block kind 'nope'"):
+        jblocks.init("nope", jax.random.PRNGKey(0),
+                     jbase.get_smoke_config("xlstm-125m"))

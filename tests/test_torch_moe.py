@@ -155,8 +155,13 @@ def test_moe_kind_is_ported_and_unported_kinds_still_raise():
     p = blocks.init("moe", torch.Generator().manual_seed(0), cfg, "cpu")
     assert sorted(p) == ["attn", "ln1", "ln2", "moe"]
     assert tuple(p["moe"]["wi_gate"]["w"].shape) == (4, 256, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.init("xattn", None, cfg, "meta")
+    # every kind the JAX package's blocks.init accepts is ported now, and
+    # an unknown one raises as there
+    assert set(blocks.PORTED_KINDS) == {"attn", "swa", "shared_attn",
+                                        "xattn", "moe", "mamba2", "mlstm",
+                                        "slstm"}
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.init("mlp", None, cfg, "meta")
 
 
 # ----------------------------------------------------------- moe_apply --
