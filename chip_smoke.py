@@ -17,7 +17,8 @@ with its time printed:
    (1024, 2000) shape (checked there too), ``stoch_quantize`` at (64,
    2000) and the paper's (24, 50) beside an empty kernel on its grid, and
    what a ctypes launch pays on the host (an empty call, ``torch.empty``,
-   the stream handle);
+   the stream handle); B2 at the convex shape also through
+   ``campaign.measure.time_per_call`` (printed, not a gate);
 4. paper size: quickstart part 1 (24 workers, synth-linear d=50, p=0.35,
    300 iterations) for ggadmm and cq-ggadmm on the card: distance to the
    optimum below 1e-8, 7200 rounds, and ggadmm's trajectory equal to the
@@ -152,7 +153,9 @@ with its time printed:
    paging counters printed;
 20. the paper's Figs. 2-6 through ``python -m repro_torch.bench.figures``
    at the paper's settings with the port's own draws on the card, one
-   process a figure, started with phase 19 and run beside it (with the
+   process a figure, each a one-run ``paper-figures`` campaign through the
+   campaign runner (spec, runner and store on the card; the full
+   campaign's run key), started with phase 19 and run beside it (with the
    aliased-table card cases of phases 19 and 21): every claim holds (the JAX
    campaign's gate), each figure's rows printed beside the JAX package's
    rows (CPU), B1 and B2 launched; Theorem 3's
@@ -231,14 +234,26 @@ with its time printed:
    positions) and whisper-smoke (stub frames; each worker's encoder on its
    own weights) through ``train.main`` (2 workers, batch 2, seq 32, 2
    steps): finite losses, 2 B3 and 3 B2 launches per step, the trained
-   workers' loss equal to ce (aux 0).
+   workers' loss equal to ce (aux 0);
+31. the campaigns through ``train.main(["--campaign", ...])`` on the card,
+   at the JAX package's configs: ``fleet-sweep`` (8 workers, 80 rounds, d
+   20; 12 fleet arms and 2 synchronous runs) and ``lm-sweep``
+   (tinyllama-smoke: the quantized/unquantized baseline pair of 12 steps,
+   then the 8-point grid of 6), each with every run done and every claim
+   true (printed with its value) and exactly the CPU rehearsal's launches
+   (``CAMPAIGN_LAUNCHES``); then ``lm-sweep`` in a child process killed by
+   SIGKILL once its first run is done and its second has a mid-run
+   checkpoint, and run again with ``--resume``: the first run skipped, the
+   second resumed from its checkpoint, every run's loss history and total
+   bits equal to the uninterrupted campaign's bit for bit.
 
 Phases 25-27 run in a child process (``--child-phases family``, output
-in ``build/chip_smoke_family.log``, printed when it ends) beside phases
-15, 17 and 18 (phase 16 runs before 15), and phases 22-23 and 28-30 in
-another (``--child-phases sliding``) beside phase 19, to keep the script
-inside its time limit: all of them are host-paced, and the phases that
-time kernels (3, 8, 9, 14, 16, 21) run while no child does.
+in ``build/chip_smoke_family.log``, printed when it ends) and phase 31 in
+another (``--child-phases campaign``) beside phases 15, 17 and 18 (phase
+16 runs before 15), and phases 22-23 and 28-30 in a third (``--child-phases
+sliding``) beside phase 19, to keep the script inside its time limit: all
+of them are host-paced, and the phases that time kernels (3, 8, 9, 14, 16,
+21) run while no child does.
 
 Before the last line it prints one JSON line with each kernel's launches
 (counted over the path it serves, with the counts set to 0 just before
@@ -462,8 +477,12 @@ def launch_floor(dev):
 def time_mix(ops, ref, dev):
     """B2 against ``torch.matmul`` (its plain version, the library call)
     at each ``MIX_TIMES`` shape: device time (profiler, all activities of
-    one call) and time per call (CUDA events), with B2's parity there.
+    one call) and time per call (CUDA events), with B2's parity there; at
+    the convex shape also through ``campaign.measure.time_per_call`` (host
+    clock, one synchronization after the calls; printed, not a gate).
     Returns the convex shape's numbers, the ones the main path pays."""
+    from repro_torch.campaign import measure
+
     gen = torch.Generator(device=dev).manual_seed(0)
     out = None
     for label, (m, n, d) in MIX_TIMES.items():
@@ -492,6 +511,11 @@ def time_mix(ops, ref, dev):
             f"ms ({t['bound'][1]}); max |err| {err:.3e}")
         if out is None:
             out = t
+            us, _ = measure.time_per_call(ops.bipartite_mix, adj, vals,
+                                          reps=reps)
+            log(f"time bipartite_mix {label} through "
+                f"campaign.measure.time_per_call: {us:.2f} us per call "
+                f"(CUDA events above: {t['ms'] * 1e3:.2f} us)")
         del adj, vals
         torch.cuda.empty_cache()
     return out
@@ -2983,7 +3007,10 @@ def start_figures():
     """Start the paper's figures, one ``repro_torch.bench.figures``
     process per figure on the card, all at once: each iteration is host-
     paced (a few small launches), so the five share the card and the host's
-    cores. Returns the processes by figure; :func:`finish_figures` waits."""
+    cores. Each process runs its figure through the campaign runner as a
+    one-run ``paper-figures`` campaign (the full campaign's run key), its
+    results document and run state in a directory of its own. Returns the
+    processes by figure; :func:`finish_figures` waits."""
     from repro_torch.bench import figures
 
     FIGURES_DIR.mkdir(parents=True, exist_ok=True)
@@ -2995,7 +3022,8 @@ def start_figures():
         path.unlink(missing_ok=True)
         procs[fig] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.bench.figures", "--figures",
-             fig, "--out", str(path)], cwd=root, env=env,
+             fig, "--out", str(path), "--campaign-dir",
+             str(FIGURES_DIR / fig)], cwd=root, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             path, time.perf_counter())
     return procs
@@ -3027,6 +3055,7 @@ def finish_figures(procs, dev):
                 + (f" (JAX package, CPU: {jax_rows[s][0]}, {jax_rows[s][1]})"
                    if s in jax_rows else "")
                 for s, row in v["rows"].items()))
+        assert v["claims"], (fig, out[-3000:])
         bad = [c for c, ok in v["claims"].items() if not ok]
         log(f"figure {fig} claims: {v['claims']}; launches "
             f"{ {k: n for k, n in v['launches'].items() if n} }")
@@ -3521,6 +3550,149 @@ def serve_whisper_full_width(ops, dev):
     torch.cuda.empty_cache()
 
 
+# phase 31: the campaigns through ``train.main(["--campaign", ...])``. Each
+# whole campaign's kernel calls as the CPU rehearsal counts them (``python
+# -m repro_torch.launch.train --campaign NAME --device cpu`` prints them
+# from the kernel_dispatch counter): lm-sweep's 2 x 12 + 8 x 6 steps, 2 B3
+# and 3 mixes a quantized step, 3 mixes an unquantized one, 3 of the 6 mixes
+# of 4 grid runs on B6; fleet-sweep's 2 partitions x 7 runs (one
+# synchronous, six fleets) x 80 rounds, 2 B1 and 3 B2 a round
+CAMPAIGN_LAUNCHES = {
+    "fleet-sweep": {"stoch_quantize": 2240, "bipartite_mix": 3360},
+    "lm-sweep": {"bipartite_mix": 144, "stoch_quantize_grouped_fused": 120,
+                 "edge_gather_mix": 72},
+}
+CAMPAIGN_DIR = Path(__file__).resolve().parent / "build" / "campaigns"
+
+
+def campaign_records(root, name):
+    """Every run's ``record.json`` of campaign ``name`` under ``root``, by
+    the run's display name."""
+    from repro_torch.bench import campaigns
+
+    out = {}
+    for st in campaigns.get(name).stages:
+        for spec in st.runs:
+            with open(root / name / spec.key / "record.json") as f:
+                out[spec.display] = json.load(f)
+    return out
+
+
+def run_campaign(ops, name, root, *extra):
+    """``train.main(["--campaign", name, ...])`` on the card with the
+    launch counts set to 0 just before; returns its summary, the launches
+    and the wall seconds."""
+    from repro_torch.launch import train
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(["--campaign", name, "--campaign-dir", str(root),
+                      *extra])
+    wall = time.perf_counter() - t0
+    return out, {k: n for k, n in ops.launches.items() if n}, wall
+
+
+def kill_lm_sweep(root, run_dir):
+    """Start ``lm-sweep`` in a child process and SIGKILL it as soon as the
+    run at ``run_dir`` has a complete mid-run checkpoint. Returns the
+    seconds from the start to the kill."""
+    import signal
+
+    from repro_torch.checkpoint import npz
+
+    here = Path(__file__).resolve().parent
+    log_path = root.parent / f"{root.name}.log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--campaign",
+             "lm-sweep", "--campaign-dir", str(root)], cwd=here,
+            env=dict(os.environ, PYTHONPATH=str(here / "src")), stdout=out,
+            stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        try:
+            while npz.latest_step(run_dir / "ckpt") is None:
+                assert proc.poll() is None, log_path.read_text()[-3000:]
+                assert time.perf_counter() - t0 < 600, "no checkpoint"
+                time.sleep(0.005)
+            proc.send_signal(signal.SIGKILL)
+            waited = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    assert proc.returncode == -signal.SIGKILL, proc.returncode
+    return waited
+
+
+def campaigns_on_card(ops, dev):
+    """Phase 31: ``fleet-sweep`` and ``lm-sweep`` whole through the
+    trainer's ``--campaign`` on the card (every run done, every claim true,
+    the launches the CPU rehearsal's), then ``lm-sweep`` killed by SIGKILL
+    in a child process once its first run is done and its second has a
+    mid-run checkpoint, and resumed with ``--resume``: the completed run
+    skipped, the killed one resumed past step 0, and every run's loss
+    history and total bits equal to the uninterrupted campaign's bit for
+    bit."""
+    import shutil
+
+    from repro_torch.bench import campaigns
+    from repro_torch.checkpoint import npz
+
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    whole = CAMPAIGN_DIR / "whole"
+    for name in ("fleet-sweep", "lm-sweep"):
+        n_runs = sum(len(st.runs) for st in campaigns.get(name).stages)
+        out, launches, wall = run_campaign(ops, name, whole)
+        claims = {c["name"]: (c["ok"], c["value"])
+                  for r in campaign_records(whole, name).values()
+                  for c in r["claims"]}
+        log(f"campaign {name}: {out} in {wall:.1f} s; launches {launches} "
+            f"(CPU rehearsal: {CAMPAIGN_LAUNCHES[name]}); claims (ok, "
+            f"value): {claims}")
+        assert out == {"campaign": name, "executed": n_runs, "skipped": 0,
+                       "failed": 0, "claim_failures": 0}, out
+        assert claims and all(ok for ok, _ in claims.values()), claims
+        assert launches == CAMPAIGN_LAUNCHES[name], launches
+
+    killed = CAMPAIGN_DIR / "killed"
+    first, second = campaigns.LM_BASELINE_STAGE.runs
+    run_dir = killed / "lm-sweep" / second.key
+    waited = kill_lm_sweep(killed, run_dir)
+    at = npz.latest_step(run_dir / "ckpt")
+    log(f"campaign lm-sweep killed (SIGKILL) {waited:.1f} s after its "
+        f"start: {first.display} done, {second.display} checkpointed at "
+        f"step {at}")
+    assert (killed / "lm-sweep" / first.key / "record.json").exists()
+    assert not (run_dir / "record.json").exists()
+    out, launches, wall = run_campaign(ops, "lm-sweep", killed, "--resume")
+    events = [json.loads(ln) for ln in (killed / "lm-sweep" / "events.jsonl")
+              .read_text().splitlines()]
+    skipped = [e["key"] for e in events if e.get("status") == "skipped"]
+    got = campaign_records(killed, "lm-sweep")
+    want = campaign_records(whole, "lm-sweep")
+    parted = sorted({n for n in want for k in ("loss_history", "total_bits")
+                     if got[n]["data"][k] != want[n]["data"][k]})
+    log(f"campaign lm-sweep --resume: {out} in {wall:.1f} s; launches "
+        f"{launches}; skipped {skipped}; {second.display} resumed from step "
+        f"{got[second.display]['data']['resumed_from']}, loss history "
+        f"{got[second.display]['data']['loss_history']} (uninterrupted: "
+        f"{want[second.display]['data']['loss_history']}), total bits "
+        f"{got[second.display]['data']['total_bits']!r} (uninterrupted: "
+        f"{want[second.display]['data']['total_bits']!r}); runs whose loss "
+        f"history or total bits part from the uninterrupted campaign's: "
+        f"{parted} ({first.display} ran uninterrupted in the killed "
+        f"process)")
+    assert out == {"campaign": "lm-sweep", "executed": 9, "skipped": 1,
+                   "failed": 0, "claim_failures": 0}, out
+    assert skipped == [first.key], skipped
+    assert got[second.display]["data"]["resumed_from"] == at > 0
+    assert launches == {"bipartite_mix": 72 + 3 * (12 - at),
+                        "stoch_quantize_grouped_fused": 96,
+                        "edge_gather_mix": 72}, launches
+    assert not parted, parted
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+
+
 # phases run in a child process (this script with ``--child-phases
 # <group>``) beside host-paced phases of the main one: the card has room
 # for both and the kernels are built. Each phase sets and reads its own
@@ -3533,6 +3705,10 @@ CHILD_GROUPS = {
                 "family_consensus")),
     # phases 22-23 and 28-30 beside 19 and the figures (gemma3's 19.9 GB,
     # then qwen2-vl-7b's 28.3 GB of weights)
+    # phase 31 beside 15, 17, 18 and the family group: host-paced small
+    # steps (tinyllama-smoke, the paper-size fleet), under 1 GB
+    "campaign": (("the campaigns: fleet-sweep, lm-sweep, kill and resume",
+                  "campaigns_on_card"),),
     "sliding": (("gemma3-4b serving", "serve_gemma3_full_width"),
                 ("h2o-danube-1.8b recycling", "serve_danube_recycling"),
                 ("qwen2-vl-7b serving", "serve_qwen2_vl_full_width"),
@@ -3698,6 +3874,7 @@ def main() -> int:
     log(f"phase slstm_cell kernel: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     family = start_child_phases("family")
+    campaign = start_child_phases("campaign")
     t0 = time.perf_counter()
     served = serve_full_width(ops, dev)
     log(f"phase serving full width: {time.perf_counter() - t0:.1f} s")
@@ -3709,6 +3886,7 @@ def main() -> int:
     fsdp_full_width(ops, dev)
     log(f"phase fsdp full width: {time.perf_counter() - t0:.1f} s")
     finish_child_phases(family)
+    finish_child_phases(campaign)
     # host-paced work that needs neither this process nor a quiet card runs
     # beside the production-load phase: the paper's figures (one process a
     # figure) and the aliased-table card case at the wider head dims; the

@@ -13,9 +13,13 @@ stochastic-rounding draws are the port's own (``torch.Generator``), or
     PYTHONPATH=src python -m repro_torch.bench.figures [--device cpu] \\
         [--figures fig3_linreg_real,fig6_density] [--out figures.json]
 
-``main`` prints each figure's table and claims, writes every row, claim
-and kernel launch count to ``--out`` as JSON, and returns 1 if any claim
-fails (0 otherwise).
+``main`` runs each figure through the campaign runner as a one-run
+``paper-figures`` campaign (:func:`figure_campaign`; the run key is the
+full campaign's), prints its table and the runner's ``claim,...`` lines,
+writes every row, claim and kernel launch count to ``--out`` as JSON, and
+returns 1 if any claim or run fails (0 otherwise). ``python -m
+repro_torch.launch.train --campaign paper-figures`` runs all five as one
+campaign.
 """
 from __future__ import annotations
 
@@ -24,11 +28,15 @@ import dataclasses
 import json
 import math
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.campaign.runner import Runner
+from repro_torch.campaign.spec import Campaign, stage
+from repro_torch.campaign.store import Claim, Record, ResultStore
 from repro_torch.core import admm_baselines as ab
 from repro_torch.core import cq_ggadmm as cq
 from repro_torch.core.comm import EnergyModel, build_comm_log
@@ -246,23 +254,30 @@ def _json_number(x):
     return x if math.isfinite(x) else ("inf" if x > 0 else "-inf")
 
 
-def run_figures(names: Sequence[str], device=None) -> Dict[str, dict]:
-    """Run the named figures; per figure its rows, claims and the kernel
-    launches it made (``kernels.ops.launches``, counted from 0 at its
-    start; all 0 on the CPU, where the plain versions run)."""
-    out = {}
-    for name in names:
-        if name not in ALL_FIGURES:
-            raise SystemExit(f"[figures] unknown figure {name!r} "
-                             f"(have: {sorted(ALL_FIGURES)})")
-        kernel_ops.reset_launches()
-        res, claims = ALL_FIGURES[name](device=device)
-        launches = dict(kernel_ops.launches)
-        print_figure(name, res)
-        for claim, ok in claims.items():
-            print(f"claim,{name}_{claim},{'PASS' if ok else 'FAIL'}")
-        out[name] = {"rows": res, "claims": claims, "launches": launches}
-    return out
+def stage_figure(figure: str, ctx=None) -> Record:
+    """One paper figure as a campaign run (campaign ``paper-figures``) on
+    ``ctx.device`` (the card without a context): its rows land in the
+    ``figures.<figure>`` section, its claims in ``figures.claims``."""
+    if figure not in ALL_FIGURES:
+        raise ValueError(f"unknown figure {figure!r} "
+                         f"(have: {sorted(ALL_FIGURES)})")
+    res, claims = ALL_FIGURES[figure](
+        device=ctx.device if ctx is not None else None)
+    print_figure(figure, res)
+    return Record(
+        section=("figures", figure), data=res,
+        claims=tuple(Claim(f"{figure}_{name}", ok,
+                           gate="paper qualitative claim")
+                     for name, ok in claims.items()),
+        claims_path=("figures", "claims"))
+
+
+def figure_campaign(figure: str) -> Campaign:
+    """A one-run ``paper-figures`` campaign: the full campaign's stage
+    name, fn and config for ``figure``, so the run key is the same."""
+    return Campaign(name="paper-figures", stages=(stage(
+        "figures", "repro_torch.bench.figures:stage_figure",
+        configs=[{"figure": figure}], names=[figure]),))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -273,23 +288,51 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="write every row and claim here as JSON")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--campaign-dir", default="campaigns/torch",
+                    metavar="DIR",
+                    help="the runner's results document and run state")
     args = ap.parse_args(argv)
     names = [n for n in args.figures.split(",") if n]
-    out = run_figures(names, device=args.device)
+    for name in names:
+        if name not in ALL_FIGURES:
+            raise SystemExit(f"[figures] unknown figure {name!r} "
+                             f"(have: {sorted(ALL_FIGURES)})")
+    resolve_device(args.device)      # no card and no --device cpu: raise
+    root = Path(args.campaign_dir)
+    store = ResultStore(root / "BENCH_engine.json")
+    out, failed_runs = {}, 0
+    for name in names:
+        before = dict(kernel_ops.launches)
+        runner = Runner(figure_campaign(name), store=store, state_root=root,
+                        device=args.device)
+        summary = runner.run()
+        failed_runs += summary.failed
+        rows, claims = {}, {}
+        if not summary.failed:
+            spec = runner.campaign.stages[0].runs[0]
+            with open(runner.run_dir(spec) / "record.json") as f:
+                record = Record.from_json(json.load(f))
+            rows = record.data
+            claims = {c.name[len(name) + 1:]: c.ok for c in record.claims}
+        out[name] = {"rows": rows, "claims": claims,
+                     "launches": {k: n - before[k]
+                                  for k, n in kernel_ops.launches.items()}}
     failed = [f"{fig}_{c}" for fig, v in out.items()
               for c, ok in v["claims"].items() if not ok]
     if args.out:
-        doc = {fig: {"rows": {s: {k: _json_number(x) for k, x in row.items()}
-                              for s, row in v["rows"].items()},
-                     "claims": {c: bool(ok) for c, ok in v["claims"].items()},
-                     "launches": v["launches"]}
-               for fig, v in out.items()}
         with open(args.out, "w") as f:
-            json.dump(doc, f, indent=1, sort_keys=True)
+            json.dump({fig: {"rows": {s: {k: _json_number(x)
+                                          for k, x in row.items()}
+                                      for s, row in v["rows"].items()},
+                             "claims": v["claims"],
+                             "launches": v["launches"]}
+                       for fig, v in out.items()}, f, indent=1,
+                      sort_keys=True)
     print(f"[figures] {len(names)} figures, "
           f"{sum(len(v['claims']) for v in out.values())} claims, "
-          f"{len(failed)} failed" + (f": {failed}" if failed else ""))
-    return 1 if failed else 0
+          f"{len(failed)} failed" + (f": {failed}" if failed else "")
+          + (f"; {failed_runs} runs failed" if failed_runs else ""))
+    return 1 if failed or failed_runs else 0
 
 
 if __name__ == "__main__":

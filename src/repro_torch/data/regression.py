@@ -13,7 +13,9 @@ file.
   same n, standardized features, realistic column correlations.
 
 Samples are distributed uniformly across N workers (Sec. 7: "the number of
-samples are uniformly distributed across the N workers").
+samples are uniformly distributed across the N workers"), or non-IID by a
+Dirichlet draw over target bins (``partition_dirichlet``, the fleet
+sweep's skewed arm).
 """
 from __future__ import annotations
 
@@ -104,6 +106,50 @@ def partition_uniform(data: RegressionData, n_workers: int,
     order = rng.permutation(data.x.shape[0])
     s = data.x.shape[0] // n_workers
     idx = order[: s * n_workers].reshape(n_workers, s)
+    return data.x[idx], data.y[idx]
+
+
+def partition_dirichlet(data: RegressionData, n_workers: int,
+                        alpha: float = 0.3, seed: int = 0,
+                        n_bins: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+    """Non-IID split: each worker's local distribution is skewed by a
+    Dirichlet(alpha) draw over target bins (the standard federated-learning
+    heterogeneity knob; alpha -> inf recovers the IID split, alpha -> 0
+    gives one-bin workers).
+
+    Rows are bucketed by target value — the class label for logistic tasks,
+    y-quantiles for regression — and worker n samples its rows with
+    probability proportional to its own Dirichlet weight over the buckets.
+    Unlike the usual proportion-split, every worker still gets exactly
+    ``s = floor(n / N)`` rows (the batched solvers require a uniform
+    per-worker sample count), so the skew lives entirely in *which* rows a
+    worker sees, not how many. Sampling is with replacement within a
+    worker's preferred bins when a bin runs dry — at small alpha several
+    workers may all want the same rare bin.
+
+    Returns x (N, s, d), y (N, s), same shapes as :func:`partition_uniform`.
+    """
+    assert alpha > 0.0
+    rng = np.random.default_rng(seed)
+    n = data.x.shape[0]
+    s = n // n_workers
+    if data.task == "logistic":
+        labels = np.unique(data.y)
+        bin_ids = np.searchsorted(labels, data.y)
+        k = len(labels)
+    else:
+        k = min(n_bins, n)
+        # quantile edges over y; searchsorted of interior edges -> 0..k-1
+        edges = np.quantile(data.y, np.linspace(0, 1, k + 1)[1:-1])
+        bin_ids = np.searchsorted(edges, data.y)
+        k = int(bin_ids.max()) + 1  # degenerate y collapses bins
+    weights = rng.dirichlet(np.full(k, alpha), size=n_workers)  # (N, k)
+    idx = np.empty((n_workers, s), dtype=np.int64)
+    for w in range(n_workers):
+        probs = weights[w][bin_ids]
+        probs = probs / probs.sum()
+        idx[w] = rng.choice(n, size=s, replace=False, p=probs) \
+            if (probs > 0).sum() >= s else rng.choice(n, size=s, p=probs)
     return data.x[idx], data.y[idx]
 
 

@@ -48,6 +48,19 @@ KERNELS = ("stoch_quantize", "bipartite_mix", "stoch_quantize_grouped",
            "stoch_quantize_grouped_fused_tiled", "paged_attention_decode",
            "paged_attention_decode_online", "edge_gather_mix", "slstm_cell")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
+# each entry point's (kernel, variant) labels of ``kernel_dispatch``, the
+# JAX package's
+LABELS = {
+    "stoch_quantize": ("stoch_quantize", "flat"),
+    "bipartite_mix": ("bipartite_mix", "dense"),
+    "stoch_quantize_grouped": ("stoch_quantize", "grouped"),
+    "stoch_quantize_grouped_fused": ("stoch_quantize_fused", "slab"),
+    "stoch_quantize_grouped_fused_tiled": ("stoch_quantize_fused", "tiled"),
+    "paged_attention_decode": ("paged_attention_decode", "oneshot"),
+    "paged_attention_decode_online": ("paged_attention_decode", "online"),
+    "edge_gather_mix": ("edge_gather_mix", "sparse"),
+    "slstm_cell": ("slstm_cell", "fused"),
+}
 
 
 def reset_launches() -> None:
@@ -55,15 +68,26 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _count(kernel: str, variant: str) -> None:
+def _count(name: str) -> None:
+    kernel, variant = LABELS[name]
     kernel_dispatch_counter().inc(kernel=kernel, variant=variant)
+
+
+def calls() -> Dict[str, int]:
+    """Wrapper calls so far by kernel name, read from ``kernel_dispatch``
+    (on the CPU too, where each is a call of the plain version; on the card
+    each is one of ``launches``). A run's calls are the difference of two
+    reads."""
+    c = kernel_dispatch_counter()
+    return {k: int(c.value(kernel=kv[0], variant=kv[1]))
+            for k, kv in LABELS.items()}
 
 
 def stoch_quantize(theta: torch.Tensor, q_hat_prev: torch.Tensor,
                    uniforms: torch.Tensor, delta: torch.Tensor,
                    qrange: torch.Tensor) -> torch.Tensor:
     """Fused quantize -> dequantize, Eqs. 14-20 (see ``ref``)."""
-    _count("stoch_quantize", "flat")
+    _count("stoch_quantize")
     if theta.is_cpu:
         return ref.stoch_quantize_ref(theta, q_hat_prev, uniforms, delta,
                                       qrange)
@@ -76,7 +100,7 @@ def bipartite_mix(adjacency: torch.Tensor, values: torch.Tensor
                   ) -> torch.Tensor:
     """Neighbour sum ``A @ V`` in the values' dtype, float32 accumulation
     (see ``ref``)."""
-    _count("bipartite_mix", "dense")
+    _count("bipartite_mix")
     if values.is_cpu:
         return ref.bipartite_mix_ref(adjacency, values)
     out = bipartite_mix_cuda(adjacency, values)
@@ -90,7 +114,7 @@ def edge_gather_mix(values: torch.Tensor, nbr_table: torch.Tensor,
     ``ref.edge_gather_mix_ref``). The kernel reads float32, bf16 and f16
     values as stored; values of another dtype are cast to float32 first,
     as the JAX kernel casts every dtype."""
-    _count("edge_gather_mix", "sparse")
+    _count("edge_gather_mix")
     if values.is_cpu:
         return ref.edge_gather_mix_ref(values, nbr_table, nbr_valid)
     if values.dtype not in (torch.float32,) + ref.NARROW:
@@ -109,7 +133,7 @@ def slstm_cell(wx: torch.Tensor, r_w: torch.Tensor, fbias: torch.Tensor,
     (hs (B, S, H, dh) float32, (c, n, m, h)) (see ``ref.slstm_cell_ref``).
     The inputs go to the kernel as they are: it reads bf16 or float32
     ``wx`` and raises on anything else, or on a non-contiguous tensor."""
-    _count("slstm_cell", "fused")
+    _count("slstm_cell")
     if wx.device.type == "cpu":
         return ref.slstm_cell_ref(wx, r_w, fbias, c0, n0, m0, h0)
     out = slstm_cell_cuda(wx, r_w, fbias, c0, n0, m0, h0)
@@ -132,7 +156,7 @@ def stoch_quantize_grouped(theta: torch.Tensor, q_hat_prev: torch.Tensor,
                            group_runs) -> torch.Tensor:
     """Grouped quantize -> dequantize with given (N, G) Δ and R (see
     ``ref.stoch_quantize_grouped_ref``)."""
-    _count("stoch_quantize", "grouped")
+    _count("stoch_quantize_grouped")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_ref(
             theta, q_hat_prev, uniforms, delta, qrange,
@@ -157,7 +181,7 @@ def stoch_quantize_grouped_fused(theta, q_hat_prev, uniforms, bits_prev,
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
             group_ids, group_runs=group_runs, omega=omega, b0=b0,
             b_max=b_max, block_d=tile_d)
-    _count("stoch_quantize_fused", "slab")
+    _count("stoch_quantize_grouped_fused")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_fused_ref(
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
@@ -178,7 +202,7 @@ def stoch_quantize_grouped_fused_tiled(theta, q_hat_prev, uniforms,
     """The D-tiled twin of :func:`stoch_quantize_grouped_fused`, with the
     same outputs bit for bit. Its kernel takes float32 operands: a narrowed
     ``q_hat_prev`` is widened before it and ``out`` rounded back after."""
-    _count("stoch_quantize_fused", "tiled")
+    _count("stoch_quantize_grouped_fused_tiled")
     if theta.device.type == "cpu":
         return ref.stoch_quantize_grouped_fused_ref(
             theta, q_hat_prev, uniforms, bits_prev, range_prev, initialized,
@@ -230,7 +254,8 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
     online = paged_attention_online_selected(
         q.shape[1], k_pages.shape[2], q.shape[2], block_tables.shape[1],
         k_pages.shape[1])
-    _count("paged_attention_decode", "online" if online else "oneshot")
+    _count("paged_attention_decode_online" if online
+           else "paged_attention_decode")
     bt = block_tables.to(torch.int32)
     if q.device.type == "cpu":
         plain = (ref.paged_attention_online_ref if online

@@ -49,8 +49,20 @@ ledger's counters (cumulative transmissions, bits, transmit energy, censor
 rate), with the fleet's fault and churn instants under ``--fleet``.
 Tracing observes only: the run's results and kernel launches are those of
 an untraced run, and the ledger's one host copy of a round's metrics is the
-only synchronisation it adds. ``--campaign`` is not ported yet (ROADMAP.md)
-and exits with a message.
+only synchronisation it adds.
+
+``--campaign NAME`` runs a registered campaign (``bench/campaigns.py``:
+``lm-sweep``, ``paper-figures``, ``fleet-sweep``) through the resumable
+runner (``campaign/``) on the card, or on the CPU with ``--device cpu``;
+``--resume`` skips completed runs and ``--campaign-only STAGE`` runs one
+stage plus its incomplete dependencies. :func:`campaign_lm_run` is
+``lm-sweep``'s stage function: one consensus-LM run of the smoke config
+with its whole engine state checkpointed through the run context, so a
+killed sweep resumes mid-run bit for bit. Results and run state go under
+``--campaign-dir`` (``campaigns/torch``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --campaign lm-sweep \
+        [--resume] [--campaign-only lm-grid] [--device cpu]
 
 Narrowed replicas (``hat_dtype``) have no flag here, as in the JAX
 package: :func:`main` and :func:`run_admm` take ``hat_dtype=`` from a
@@ -61,7 +73,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -76,13 +90,18 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.data.lm import SyntheticLM, SyntheticLMConfig, model_batch
 from repro_torch.device import resolve_device
 from repro_torch.fleet import ChurnEvent, FaultConfig, FleetConfig, FleetSim
+from repro_torch.fleet.sim import round_draws
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import registry
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.ledger import CommLedger
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime import steps as ST
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
+# campaigns of the JAX package that time the system: they wait for the
+# port's benchmark
+SPEED_CAMPAIGNS = ("engine-smoke", "serve-smoke", "kernels", "roofline",
+                   "all")
 
 
 def lm_grad_fn(cfg):
@@ -390,6 +409,160 @@ def run_fsdp(cfg, args, *, params=None, stubs=None) -> dict:
             "peak_device_bytes": peak, "params": params, "opt": opt}
 
 
+# ------------------------------------------------------- campaign entry --
+def calls_since(before: dict) -> dict:
+    """Kernel-wrapper calls made since ``before = kernel_ops.calls()``, by
+    kernel (on the card, its launches)."""
+    return {k: n - before[k] for k, n in kernel_ops.calls().items()
+            if n > before[k]}
+
+
+def campaign_lm_run(section, quantize=True, groups="model",
+                    censor_mode="global", mix_backend="dense",
+                    workers=4, steps=12, batch=8, seq=64, local_steps=2,
+                    arch="tinyllama-1.1b", rho=0.01, tau0=5.0, xi=0.995,
+                    bits=4, omega=0.999, lr=1e-3, seed=0, ckpt_every=3,
+                    compare_with=None, ctx=None, *, params=None,
+                    uniforms=None):
+    """One consensus-LM training run as a campaign stage function, on
+    ``ctx.device`` (the card without a context).
+
+    Deterministic given the config: step i's rounding draws come from a
+    generator seeded from ``(seed, 1000 + i)`` (``fleet.sim.round_draws``;
+    the JAX package keys the step with ``PRNGKey(1000 + i)``), never from
+    one generator carried across steps, so a resumed run draws what an
+    uninterrupted one does. The whole ``EngineState`` and the loss/bits
+    histories are checkpointed through ``ctx`` every ``ckpt_every`` steps
+    and at the end; a killed campaign restarts from the last complete
+    checkpoint and finishes bit for bit where an uninterrupted run would.
+    Emits the run's metrics at ``section``; with ``compare_with`` (the
+    section of an earlier quantized run), also the paper's
+    quantization-saves-bits claim against it. ``params`` (one model's
+    tree) and ``uniforms(step, phase)`` replace the seeded init and draws
+    (parity tests; neither is part of the run key).
+    """
+    from repro_torch.campaign.runner import FatalError
+    from repro_torch.campaign.store import Claim, Record
+
+    dev = resolve_device(ctx.device if ctx is not None else None)
+    cfg = base.get_smoke_config(arch)
+    graph = ST.worker_graph(workers, "random")
+    ecfg = E.EngineConfig(
+        rho=rho, censor=CensorConfig(tau0=tau0, xi=xi),
+        quantize=QuantConfig(b0=bits, omega=omega) if quantize else None,
+        groups=groups, censor_mode=censor_mode, mix_backend=mix_backend)
+    solver = E.InexactSolver(grad_fn=lm_grad_fn(cfg),
+                             local_steps=local_steps, local_lr=lr)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = registry.init_params(cfg, gen, device=dev)
+    theta = T.tree_map(lambda x: x.to(dev)[None].repeat(
+        (workers,) + (1,) * x.dim()), params)
+    state = E.init_state(theta, ecfg, solver)
+    step = E.make_step(graph, ecfg, solver,
+                       extra_metrics=E.consensus_metrics(lm_loss_fn(cfg)),
+                       device=dev)
+    data = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq, seed=seed))
+    shape = (workers, E.tree_dim(theta))
+
+    loss_hist = np.full(steps, np.nan)
+    bits_hist = np.full(steps, np.nan)
+    start = 0
+    if ctx is not None:
+        restored = ctx.restore({"state": state, "loss": loss_hist,
+                                "bits": bits_hist})
+        if restored is not None:
+            tree, start = restored
+            state, loss_hist, bits_hist = (tree["state"], tree["loss"],
+                                           tree["bits"])
+            print(f"[lm-campaign] resumed {section[-1]} at step {start}")
+    calls0 = kernel_ops.calls()
+    for i in range(start, steps):
+        raw = data.worker_batch(i, workers, batch // workers)
+        b = model_batch(cfg, raw, dev, step=i)
+        if uniforms is None:
+            draw = round_draws(seed, 1000 + i, shape, dev)
+        else:
+            def draw(phase, i=i):
+                return uniforms(i, phase).to(device=dev, dtype=torch.float32)
+        state, m = step(state, draw, b)
+        loss_hist[i] = float(m["loss"])
+        bits_hist[i] = float(m["payload_bits"].sum())   # already tx-masked
+        if ctx is not None and ((i + 1) % ckpt_every == 0
+                                or i == steps - 1):
+            ctx.checkpoint(i + 1, {"state": state, "loss": loss_hist,
+                                   "bits": bits_hist})
+
+    label = section[-1]
+    total_bits = float(np.nansum(bits_hist))
+    final_loss = float(loss_hist[-1])
+    out = {"arch": cfg.name, "workers": workers, "steps": steps,
+           "quantize": bool(quantize), "groups": groups,
+           "censor_mode": censor_mode, "mix_backend": mix_backend,
+           "final_loss": final_loss, "total_bits": total_bits,
+           "loss_history": [float(x) for x in loss_hist],
+           "resumed_from": start}
+    print(f"[lm-campaign] {label}: final_loss={final_loss:.4f} "
+          f"total_bits={total_bits:.4g} (groups={groups} "
+          f"censor={censor_mode} backend={mix_backend})")
+    print(f"[lm-campaign] {label}: kernel calls over steps {start}-"
+          f"{steps - 1}: {calls_since(calls0)}", flush=True)
+    claims = [Claim(f"lm_{label}_loss_finite".replace("|", "_"),
+                    bool(np.isfinite(final_loss)), value=final_loss,
+                    gate="finite")]
+    if compare_with is not None:
+        if ctx is None:
+            raise FatalError("compare_with needs a run context")
+        ref = ctx.store.section(tuple(compare_with))
+        if ref is None:
+            raise FatalError(f"section {compare_with} missing — run the "
+                             f"quantized baseline first")
+        saved = 1.0 - ref["total_bits"] / max(total_bits, 1e-9)
+        ok = (ref["total_bits"] < 0.5 * total_bits
+              and ref["final_loss"] < final_loss + 1.0)
+        print(f"claim basis: quantization saved {saved:.0%} of bits, "
+              f"dloss={ref['final_loss'] - final_loss:+.3f}")
+        claims.append(Claim(
+            "lm_quantization_saves_bits", ok, value=saved,
+            gate="quantized bits < 0.5x unquantized, loss within 1.0"))
+    return Record(section=tuple(section), data=out, claims=tuple(claims),
+                  claims_path=("lm_sweep", "claims"))
+
+
+def run_campaign(args) -> dict:
+    """``--campaign``: the named campaign through the runner on
+    ``--device``; the summary as the JAX trainer returns it. Each claim is
+    printed with its value."""
+    from repro_torch.bench import campaigns
+    from repro_torch.campaign.runner import Runner
+    from repro_torch.campaign.store import Record, ResultStore
+
+    if args.campaign in SPEED_CAMPAIGNS:
+        raise SystemExit(
+            f"[train] --campaign {args.campaign} times the system; it waits "
+            f"for the port's benchmark (ROADMAP.md queue A). Ported: "
+            f"{', '.join(campaigns.PORTED)}")
+    campaign = campaigns.get(args.campaign)
+    resolve_device(args.device)      # no card and no --device cpu: raise
+    root = Path(args.campaign_dir)
+    calls0 = kernel_ops.calls()
+    runner = Runner(campaign, store=ResultStore(root / "BENCH_engine.json"),
+                    state_root=root, resume=args.resume,
+                    only=args.campaign_only, device=args.device)
+    summary = runner.run()
+    for res in summary.results:
+        if runner.completed(res.spec):
+            with open(runner.run_dir(res.spec) / "record.json") as f:
+                for c in Record.from_json(json.load(f)).claims:
+                    print(f"# claim {c.name}: {c.ok} (value {c.value}; "
+                          f"gate {c.gate})")
+    print(f"[train] campaign {args.campaign}: kernel calls "
+          f"{calls_since(calls0)}", flush=True)
+    return {"campaign": args.campaign, "executed": summary.executed,
+            "skipped": summary.skipped, "failed": summary.failed,
+            "claim_failures": summary.claims_failed}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="tinyllama-1.1b",
@@ -448,7 +621,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--campaign", default=None, metavar="NAME",
-                    help=f"the campaign runner {NOT_PORTED}")
+                    help="run a registered experiment campaign (e.g. "
+                         "'lm-sweep') through the resumable campaign "
+                         "runner instead of a single training run")
+    ap.add_argument("--resume", action="store_true",
+                    help="with --campaign: skip completed runs")
+    ap.add_argument("--campaign-only", default=None, metavar="STAGE",
+                    help="with --campaign: run one stage (plus its "
+                         "incomplete dependencies)")
+    ap.add_argument("--campaign-dir", default="campaigns/torch",
+                    metavar="DIR",
+                    help="with --campaign: results document and per-run "
+                         "state (default campaigns/torch)")
     return ap
 
 
@@ -460,7 +644,12 @@ def main(argv=None, *, params=None, uniforms=None,
     as in the JAX package)."""
     args = build_parser().parse_args(argv)
     if args.campaign:
-        raise SystemExit(f"[train] --campaign {NOT_PORTED}")
+        if args.trace:
+            obs_trace.enable(args.trace)
+        out = run_campaign(args)
+        if args.trace:
+            obs_trace.save()
+        return out
     if args.mode == "admm" and args.batch % args.workers:
         raise SystemExit(f"[train] --batch {args.batch} is not a multiple of "
                          f"--workers {args.workers}")

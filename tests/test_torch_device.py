@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import interop, quickstart
+from repro_torch.bench import figures
 from repro_torch.configs import base
 from repro_torch.core import admm_baselines as ab
 from repro_torch.core import cq_ggadmm
@@ -63,6 +64,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         lambda: interop.tree_from_numpy({}),
         lambda: train.main(["--smoke", "--steps", "1", "--batch", "4"]),
         lambda: train.main(["--smoke", "--steps", "1", "--mode", "fsdp"]),
+        lambda: train.main(["--campaign", "lm-sweep"]),
+        lambda: train.main(["--campaign", "fleet-sweep", "--resume"]),
+        lambda: figures.main(["--figures", "fig6_density"]),
         lambda: serve.main(["--decode-tokens", "1"]),
         lambda: serve.main(["--decode-tokens", "1", "--share-prefix",
                             "--preempt", "--preempt-mode", "swap"]),
@@ -128,10 +132,20 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
             torch.ones((2,), dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("argv", [["--campaign", "lm-sweep"]])
+@pytest.mark.parametrize("argv", [["--campaign", "engine-smoke"],
+                                  ["--campaign", "serve-smoke"],
+                                  ["--campaign", "all"]])
 def test_train_flags_not_ported_exit_naming_roadmap(argv):
+    """The campaigns that time the system wait for the port's benchmark;
+    lm-sweep, paper-figures and fleet-sweep run (tests/test_torch_campaign
+    .py)."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         train.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_train_unknown_campaign_raises_as_get_campaign_does():
+    with pytest.raises(KeyError, match="unknown campaign 'lm-swep'"):
+        train.main(["--campaign", "lm-swep", "--device", "cpu"])
 
 
 def test_train_fsdp_mode_runs_on_the_cpu_only_when_asked(no_cuda):
@@ -200,7 +214,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     scanned = {p.relative_to(ROOT).parts[2] for p in files[:-1]}
     assert {"serving", "launch", "models", "kernels", "fleet", "optim",
-            "obs"} <= scanned
+            "obs", "campaign", "bench", "checkpoint", "data"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, (

@@ -269,7 +269,10 @@ def test_fig3_end_to_end_with_jax_draws(monkeypatch):
 
 def test_main_writes_json_and_fails_on_a_false_claim(tmp_path, monkeypatch):
     """``main`` writes every row and claim and returns 0 when all hold, 1
-    when one is forced false (the JAX campaign's exit code)."""
+    when one is forced false (the JAX campaign's exit code). The runner's
+    state goes to the default ``campaigns/torch`` of the working
+    directory."""
+    monkeypatch.chdir(tmp_path)
     rows = {"a": {"iters": 3, "rounds": 4.0, "bits": np.inf,
                   "energy": 1.0, "final_gap": 0.0}}
     monkeypatch.setitem(figures.ALL_FIGURES, "fig_true",
