@@ -245,7 +245,23 @@ with its time printed:
    SIGKILL once its first run is done and its second has a mid-run
    checkpoint, and run again with ``--resume``: the first run skipped, the
    second resumed from its checkpoint, every run's loss history and total
-   bits equal to the uninterrupted campaign's bit for bit.
+   bits equal to the uninterrupted campaign's bit for bit;
+32. the sharded topology (``mix_backend="sharded"``), run right after
+   phase 10: B2 on the row blocks of 2 and 4 ranks ((32, 64) x (64, 2000),
+   (16, 64) x (64, 2000), (2, 4) x (4, 2^22), (1, 4) x (4, 2^22)) against
+   its plain version (``check_mix_parity``'s gate; bf16 equal to the float32
+   kernel rounded once), each timed per call; then a real NCCL process
+   group of one (``train.init_sharded_group``): the convex full size of
+   phase 5 (64 workers, d 2000, 20 iterations), tx_mask, bits and theta
+   equal to phase 5's bit for bit, 3 B2 launches and 4 all-gathers an
+   iteration; xlstm-125m at full width through ``train.main(LM_FLAGS +
+   ["--mix-backend", "sharded"])``, 3 steps, loss history, bits and
+   transmissions equal to phase 10's bit for bit, 9 B2 launches; s/step
+   and peak memory beside phase 10's. With two or more cards the same LM
+   run under ``torch.distributed.run --nproc-per-node 2`` (this script's
+   ``--sharded-rank`` mode), one rank a card, bits and transmissions
+   equal to the world-1 run's and the loss within 1e-6; with one card a
+   line says it was not run.
 
 Phases 25-27 run in a child process (``--child-phases family``, output
 in ``build/chip_smoke_family.log``, printed when it ends) and phase 31 in
@@ -654,7 +670,10 @@ def full_size(ops, dev):
         + ", ".join(f"{k} {t:.3f}" for k, t in parts.items())
         + f"; timed in {time.perf_counter() - t0:.1f} s")
     profile_steps(graph, cfg, E.ExactSolver(prob), state, dev)
-    return launches, prob, theta_star
+    full = {"theta": state.theta, "tx_mask": out["tx_mask"],
+            "payload_bits": out["payload_bits"],
+            "ms_per_iteration": wall / FULL_ITERS * 1e3}
+    return launches, prob, theta_star, full
 
 
 def profile_steps(graph, cfg, solver, state, dev):
@@ -944,7 +963,229 @@ def lm_full_width(ops, dev):
     del table0, table
     profile_lm_step(out["state"], dev)
     return launches, {"history": hist, "peak_gb": peak_gb,
-                      "step_seconds": out["step_seconds"]}
+                      "step_seconds": out["step_seconds"],
+                      "total_bits": out["total_bits"],
+                      "tx_counts": out["tx_counts"]}
+
+
+# B2 on the sharded backend's (N/w, N) adjacency row blocks: the convex full
+# size and the LM trainer's buffer split over 2 and 4 ranks
+ROW_BLOCKS = {
+    "convex 2 ranks (32, 64) x (64, 2000)": (32, 64, 2000),
+    "convex 4 ranks (16, 64) x (64, 2000)": (16, 64, 2000),
+    "LM 2 ranks (2, 4) x (4, 4194304)": (2, 4, 1 << 22),
+    "LM 4 ranks (1, 4) x (4, 4194304)": (1, 4, 1 << 22),
+}
+
+
+def check_row_blocks(ops, ref, dev):
+    """B2 on row blocks against its plain version on the card: float32
+    within ``check_mix_parity``'s gate (1e-6 of the sum of the terms'
+    magnitudes), bf16 values equal to the float32 kernel rounded once, bit
+    for bit (the narrowed gate); time per call of each (CUDA events), with
+    ``torch.matmul``'s and the bytes bound beside."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for label, (m, n, d) in ROW_BLOCKS.items():
+        adj = (torch.rand((m, n), generator=gen, device=dev) < 0.5).float()
+        vals = torch.randn((n, d), generator=gen, device=dev)
+        got = ops.bipartite_mix(adj, vals)
+        want = ref.bipartite_mix_ref(adj, vals)
+        scale = adj.double().abs() @ vals.double().abs()
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= 1e-6 * scale).all()):
+            raise AssertionError(f"bipartite_mix row block {label}: max "
+                                 f"|err| {float(err.max()):.3e}")
+        narrow = vals.to(torch.bfloat16)
+        got16 = ops.bipartite_mix(adj, narrow)
+        assert got16.dtype == torch.bfloat16 and torch.equal(
+            got16, ops.bipartite_mix(adj, narrow.float()).to(
+                torch.bfloat16)), label
+        reps = 100
+        t32 = time_ms(lambda: ops.bipartite_mix(adj, vals), reps)
+        t16 = time_ms(lambda: ops.bipartite_mix(adj, narrow), reps)
+        tlib = time_ms(lambda: torch.matmul(adj, vals), reps)
+        b32, b16 = mix_bound(m, n, d)[0], bound(
+            4.0 * m * n + 2.0 * (n * d + m * d), 2.0 * m * n * d)[0]
+        log(f"parity and time bipartite_mix row block {label}: max |err| "
+            f"{float(err.max()):.3e}, bf16 equal to the float32 kernel "
+            f"rounded once; per call float32 {t32 * 1e3:.2f} us (bound "
+            f"{b32 * 1e3:.2f} us), bf16 {t16 * 1e3:.2f} us (bound "
+            f"{b16 * 1e3:.2f} us), torch.matmul {tlib * 1e3:.2f} us")
+        del adj, vals, narrow, got, want, got16, scale, err
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counted_gathers():
+    """Count the sharded topology's all-gathers (its one collective a
+    mix; the residuals' and metrics' gathers too)."""
+    from repro_torch.core import topology as TP
+
+    real, calls = TP._all_gather, []
+
+    def counting(out, inp, group=None):
+        calls.append(tuple(inp.shape))
+        return real(out, inp, group=group)
+
+    TP._all_gather = counting
+    try:
+        yield calls
+    finally:
+        TP._all_gather = real
+
+
+def sharded_topology(ops, ref, dev, full, parked, lm32):
+    """The sharded topology (``mix_backend="sharded"``): B2 on row blocks,
+    then a world of one over a real NCCL group: the convex full size and
+    xlstm-125m at full width, each bit for bit with its dense run of
+    phases 5 and 10; then the LM run over two ranks, one a card, where the
+    host has two cards."""
+    import torch.distributed as dist
+
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import engine as E
+    from repro_torch.core import topology as TP
+    from repro_torch.core.graph import random_bipartite_graph
+    from repro_torch.core.solvers import LinearRegressionProblem
+    from repro_torch.launch import train
+
+    check_row_blocks(ops, ref, dev)
+    end = train.init_sharded_group(None)
+    try:
+        assert dist.get_world_size() == 1 and dist.get_backend() == (
+            "nccl" if dev.type == "cuda" else "gloo")
+        graph = random_bipartite_graph(FULL_N, 0.35, seed=0)
+        prob = LinearRegressionProblem(*(t.to(dev) for t in parked))
+        topo = TP.build(graph, "sharded", device=dev)
+        # NCCL makes its communicator at the first collective: not timed
+        t0 = time.perf_counter()
+        topo.gather(torch.zeros((1, 1), device=dev))
+        torch.cuda.synchronize()
+        log(f"sharded: NCCL communicator of one rank made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0),
+                                  mix_backend="sharded")
+        ops.reset_launches()
+        with counted_gathers() as gathers:
+            t0 = time.perf_counter()
+            state, out = E.run(graph, cfg, E.ExactSolver(prob),
+                               torch.zeros((FULL_N, FULL_D), device=dev),
+                               FULL_ITERS,
+                               extra_metrics=E.flat_metrics(graph, topo),
+                               topology=topo)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        want = {k: 0 for k in ops.KERNELS}
+        want.update(stoch_quantize=2 * FULL_ITERS,
+                    bipartite_mix=3 * FULL_ITERS)
+        assert launches == want, launches
+        # three mixes and the primal residual's gather an iteration
+        assert len(gathers) == 4 * FULL_ITERS, len(gathers)
+        assert torch.equal(out["tx_mask"], full["tx_mask"])
+        assert torch.equal(out["payload_bits"], full["payload_bits"])
+        assert torch.equal(state.theta, full["theta"])
+        log(f"sharded convex full size, world 1 over NCCL: "
+            f"{wall / FULL_ITERS * 1e3:.2f} ms/iteration (dense, phase 5: "
+            f"{full['ms_per_iteration']:.2f}), tx_mask, bits and theta equal "
+            f"to the dense run bit for bit; {len(gathers)} all-gathers, "
+            f"launches {launches}")
+        del prob, state, out, topo
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with counted_gathers() as gathers:
+            t0 = time.perf_counter()
+            lm = train.main(LM_FLAGS + ["--steps", str(LM_STEPS),
+                                        "--mix-backend", "sharded"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {k: 0 for k in ops.KERNELS}
+        want.update(stoch_quantize_grouped_fused=2 * LM_STEPS,
+                    bipartite_mix=3 * LM_STEPS)
+        assert launches == want, launches
+        mixes = [g for g in gathers if g == (4, LM_DIM)]
+        assert len(mixes) == 3 * LM_STEPS, gathers
+        assert lm["history"] == lm32["history"], (lm["history"],
+                                                  lm32["history"])
+        assert lm["total_bits"] == lm32["total_bits"]
+        assert lm["tx_counts"] == lm32["tx_counts"]
+        log(f"sharded lm xlstm-125m, world 1 over NCCL: loss "
+            f"{' -> '.join(f'{x:.4f}' for x in lm['history'])} and cum bits "
+            f"{lm['total_bits']:.4e} equal to phase 10's bit for bit, tx "
+            f"{lm['tx_counts']}; s/step "
+            f"{', '.join(f'{x:.3f}' for x in lm['step_seconds'])} (dense: "
+            f"{', '.join(f'{x:.3f}' for x in lm32['step_seconds'])}; wall "
+            f"{wall:.1f} s with init), peak device memory {peak_gb:.2f} GB "
+            f"(dense {lm32['peak_gb']:.2f}); {len(mixes)} mix all-gathers of "
+            f"{4 * LM_DIM * 4 / 1e9:.2f} GB, {len(gathers)} in all; launches "
+            f"{launches}")
+        result = {k: lm[k] for k in ("history", "total_bits", "tx_counts")}
+        del lm
+    finally:
+        end()
+    torch.cuda.empty_cache()
+    sharded_two_cards(result)
+
+
+SHARDED_RANKS = Path(__file__).resolve().parent / "build" / "sharded_ranks"
+
+
+def sharded_two_cards(world1):
+    """The LM run of :func:`sharded_topology` under ``torch.distributed.run
+    --nproc-per-node 2``, one rank a card: bits and transmissions equal,
+    the loss within 1e-6 (the cross-rank mean); each rank's peak memory.
+    Needs two cards; with one it says so and passes nothing."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"sharded lm 2 ranks: needs 2 cards, this host has {n}; not run "
+            f"(not counted as passed)")
+        return
+    SHARDED_RANKS.mkdir(parents=True, exist_ok=True)
+    for old in SHARDED_RANKS.glob("rank*.json"):
+        old.unlink()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(Path(__file__).resolve()),
+         "--sharded-rank", str(SHARDED_RANKS)] + LM_FLAGS
+        + ["--steps", str(LM_STEPS), "--mix-backend", "sharded"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    ranks = [json.loads((SHARDED_RANKS / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r in ranks:
+        assert r["total_bits"] == world1["total_bits"], r
+        assert r["tx_counts"] == world1["tx_counts"], r
+        np.testing.assert_allclose(r["history"], world1["history"],
+                                   rtol=1e-6)
+    log(f"sharded lm 2 ranks on 2 cards: loss "
+        f"{' -> '.join(f'{x:.6f}' for x in ranks[0]['history'])}, bits and "
+        f"tx equal to world 1; s/step {ranks[0]['step_seconds']}; peak "
+        f"device memory per rank {[r['peak_gb'] for r in ranks]} GB; "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+
+
+def sharded_rank_main(out_dir: str, flags) -> int:
+    """``--sharded-rank DIR FLAGS...``, one rank under ``torch.distributed
+    .run``: the trainer with ``FLAGS`` on ``cuda:LOCAL_RANK``; rank r writes
+    its result to ``DIR/rank<r>.json``."""
+    from repro_torch.launch import train
+
+    cuda = "--device" not in flags
+    if cuda:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        torch.cuda.reset_peak_memory_stats()
+    out = train.main(flags)
+    res = {k: out[k] for k in ("history", "total_bits", "tx_counts",
+                               "step_seconds")}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    Path(out_dir, f"rank{os.environ['RANK']}.json").write_text(
+        json.dumps(res))
+    return 0
 
 
 def profile_lm_step(state, dev):
@@ -3821,7 +4062,7 @@ def main() -> int:
     paper_size(ops, dev)
     log(f"phase paper size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches, prob, theta_star = full_size(ops, dev)
+    launches, prob, theta_star, full = full_size(ops, dev)
     log(f"phase full size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     full_size_bf16(ops, dev, prob, theta_star)
@@ -3831,6 +4072,9 @@ def main() -> int:
     log(f"phase dynamic full size: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fleet_convex(ops, dev, prob, theta_star)
+    # the sharded phase solves the same problem: its data and Gram matrices
+    # wait on the host
+    parked = tuple(t.cpu() for t in (prob.x, prob.y, prob.gram, prob.xty))
     del prob, theta_star
     torch.cuda.empty_cache()
     log(f"phase fleet convex: {time.perf_counter() - t0:.1f} s")
@@ -3849,6 +4093,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lm, lm32 = lm_full_width(ops, dev)
     log(f"phase lm full width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_topology(ops, ref, dev, full, parked, lm32)
+    del full, parked
+    log(f"phase sharded topology: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lm_bf16_traced(ops, dev, lm32)
     log(f"phase lm full width bf16 replicas, traced: "
@@ -3969,4 +4217,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child-phases"]:
         sys.exit(child_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -46,7 +46,9 @@ def run(graph, solver, cfg: ADMMConfig, dim: int, iters: int, seed: int = 0,
     """Run ``iters`` iterations and return the final state plus numpy
     per-iteration metrics. With ``local_loss`` ((N, d) -> (N,)) and/or
     ``theta_star`` the objective and distance-to-optimum trajectories are
-    included. ``payload_bits`` counts only transmitted bits."""
+    included. ``payload_bits`` counts only transmitted bits. On a sharded
+    backend of more than one rank the run holds the rank's rows
+    (``engine.run``) and the metrics are gathered, equal on every rank."""
     dev = resolve_device(device)
     theta0 = torch.zeros((graph.n, dim), dtype=torch.float32, device=dev)
     topo = topo_lib.build(graph, cfg.mix_backend, device=dev)
@@ -54,6 +56,7 @@ def run(graph, solver, cfg: ADMMConfig, dim: int, iters: int, seed: int = 0,
         graph, cfg, ExactSolver(solver), theta0, iters, seed=seed,
         extra_metrics=E.flat_metrics(graph, topo), topology=topo,
         uniforms=uniforms)
+    metrics = E.gather_workers(metrics, topo, dim=1)
     out: Dict[str, Any] = {
         "tx_mask": metrics["tx_mask"],
         "payload_bits": metrics["payload_bits"],

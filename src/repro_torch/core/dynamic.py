@@ -5,9 +5,10 @@ new random connected bipartite graph is drawn and the duals are
 re-initialized to lie in the column space of the new signed incidence
 matrix (the Thm-3 initialization condition; alpha = 0, the paper's own
 choice). Censoring state (last transmitted values) and quantizer replicas
-survive the switch. Each refresh builds the topology backend of
-``cfg.mix_backend`` anew (for the sparse backend, a new neighbor table on
-the host, moved to the device once).
+survive the switch. Each refresh rebuilds the topology backend of
+``cfg.mix_backend`` for the new graph (for the sparse backend, a new
+neighbor table on the host, moved to the device once; the sharded backend
+keeps its process group, and N does not change).
 
 An extension beyond the reproduced paper (DESIGN.md §8).
 """
@@ -93,25 +94,36 @@ def run_dynamic(topology: DynamicTopology, solver, cfg: E.EngineConfig,
     Metrics are those of ``cq_ggadmm.run`` (numpy). The (N, dim) rounding
     draws come from a ``torch.Generator`` seeded with ``seed``, or from
     ``uniforms(iteration, phase)`` (iterations counted over the whole
-    run) when given."""
+    run) when given. On a sharded backend of more than one rank the state,
+    the solver's data and the draws are cut to the rank's rows (the draws
+    are made whole, as in ``engine.run``) and the metrics gathered."""
     dev = resolve_device(device)
-    state = E.init_state(torch.zeros((topology.n_workers, dim),
-                                     dtype=torch.float32, device=dev), cfg)
+    n = topology.n_workers
+    topo = topology_backend.build(topology.graph_at(0), cfg.mix_backend,
+                                  device=dev)
+    rows = topo.worker_rows(n)
+    state = E.init_state(E.cut_workers(
+        torch.zeros((n, dim), dtype=torch.float32, device=dev), topo), cfg)
+    if topo.world > 1:
+        solver = solver.take_workers(rows)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (topology.n_workers, dim)
+    shape = (n, dim)
 
     def draw_for(it: int):
         def draw(phase: int) -> torch.Tensor:
             if uniforms is not None:
-                return uniforms(it, phase).to(device=dev, dtype=torch.float32)
-            return torch.rand(shape, generator=gen, device=dev)
+                u = uniforms(it, phase).to(device=dev, dtype=torch.float32)
+            else:
+                u = torch.rand(shape, generator=gen, device=dev)
+            return u[rows]
         return draw
 
     history = []
     n_phases = -(-iters // topology.refresh_every)
     for phase in range(n_phases):
         graph = topology.graph_at(phase)
-        topo = topology_backend.build(graph, cfg.mix_backend, device=dev)
+        if phase > 0:
+            topo = topo.rebuild(graph)
         step = E.make_step(graph, cfg, E.ExactSolver(solver),
                            extra_metrics=E.flat_metrics(graph, topo),
                            topology=topo)
@@ -123,7 +135,9 @@ def run_dynamic(topology: DynamicTopology, solver, cfg: E.EngineConfig,
             state, m = step(state, draw_for(it))
             history.append(m)
 
-    stacked = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+    stacked = E.gather_workers(
+        {k: torch.stack([m[k] for m in history]) for k in history[0]},
+        topo, dim=1)
     out: Dict[str, Any] = {k: stacked[k] for k in (
         "tx_mask", "payload_bits", "candidate_payload_bits",
         "primal_residual")}

@@ -47,8 +47,16 @@ the quantizer range) and rounded once where it is stored. The mixes read
 the narrowed buffer as it is (``bipartite_mix`` returns its dtype,
 ``edge_gather_mix`` float32), and the fused grouped round reads and writes
 a narrowed ``q_hat`` itself; the one-leaf and two-pass quantize paths work
-on float32 copies, as the JAX engine's casts do. Not ported yet
-(ROADMAP.md): the sharded topology.
+on float32 copies, as the JAX engine's casts do.
+
+On the sharded topology (``mix_backend="sharded"``, ``core/topology.py``)
+each rank of a ``torch.distributed`` group holds the rows
+``[r·N/w, (r+1)·N/w)`` of every worker-axis quantity: theta, the replicas,
+the duals, the quantizer state, the optimizer moments, the batch and the
+solver's data. Every per-worker operation runs on those rows as it is;
+only the mixes (one all-gather each), the residuals and the metrics'
+reductions over workers cross ranks. Per-worker metrics are the rank's
+rows; :func:`gather_workers` collects every row.
 """
 from __future__ import annotations
 
@@ -164,8 +172,7 @@ class EngineConfig:
     groups: GroupSpec = "model"       # "model"|"leaf"|"block:..."|"auto:K"|
     #                                   explicit ids | index buckets
     censor_mode: str = "global"       # "global" (paper) | "group"
-    mix_backend: str = "dense"        # "dense" | "sparse" ("sharded": not
-    #                                   ported)
+    mix_backend: str = "dense"        # "dense" | "sparse" | "sharded"
     use_pallas_mix: bool = False
     use_pallas_quant: bool = False
     hat_dtype: Optional[str] = None   # narrow theta_hat/q_hat/alpha replicas
@@ -177,10 +184,6 @@ class EngineConfig:
                              f"{self.censor_mode!r}")
         if self.mix_backend not in topo_lib.BACKENDS:
             raise ValueError(f"unknown mix backend {self.mix_backend!r}")
-        if self.mix_backend == "sharded":
-            raise NotImplementedError(
-                "mix_backend='sharded' is not ported yet "
-                "(ROADMAP.md queue A item 14)")
         if isinstance(self.groups, str):
             packing.validate_spec_syntax(self.groups)
         if self.hat_dtype is not None and self.hat_dtype not in HAT_DTYPES:
@@ -507,12 +510,18 @@ class InexactSolver:
 
 
 # -------------------------------------------------------- auto-grouping --
-def leaf_log_ranges(theta: Tree, q_hat: Tree) -> np.ndarray:
+def leaf_log_ranges(theta: Tree, q_hat: Tree,
+                    topology: Optional[topo_lib.Topology] = None
+                    ) -> np.ndarray:
     """Per-leaf log2 quantizer range: max over workers and coordinates of
-    ``|theta - q_hat|`` per leaf, floored at 2^-40 (host numpy, (L,))."""
+    ``|theta - q_hat|`` per leaf, floored at 2^-40 (host numpy, (L,)). On
+    a sharded ``topology`` the max runs over every rank's workers, so every
+    rank reads the same values."""
     vals = torch.stack([torch.amax(torch.abs(t.to(torch.float32)
                                              - q.to(torch.float32)))
                         for t, q in zip(T.leaves(theta), T.leaves(q_hat))])
+    if topology is not None:
+        vals = topology.all_reduce(vals, op="max")
     vals = vals.cpu().numpy().astype(np.float64)
     return np.log2(np.maximum(vals, 2.0 ** -40))
 
@@ -571,8 +580,12 @@ class AutoGrouper:
         return (self.regroup_every > 0 and step_idx > 0
                 and step_idx % self.regroup_every == 0)
 
-    def regroup(self, theta: Tree, q_hat: Tree) -> Tuple[int, ...]:
-        stats = leaf_log_ranges(theta, q_hat)
+    def regroup(self, theta: Tree, q_hat: Tree,
+                topology: Optional[topo_lib.Topology] = None
+                ) -> Tuple[int, ...]:
+        """The new leaf -> group ids; on a sharded ``topology`` decided
+        from every rank's workers, so all ranks pick the same groups."""
+        stats = leaf_log_ranges(theta, q_hat, topology)
         if self.log_ranges is None:
             self.log_ranges = stats
         else:
@@ -618,6 +631,9 @@ def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
         return isinstance(t, dict) or torch.is_tensor(t)
 
     if getattr(solver, "per_worker", False):
+        if rows.numel() == 0:       # a rank's row block without this phase
+            return state.theta, state.opt_mu, state.opt_nu
+
         def sub(t):
             return T.take_rows(t, rows) if is_tree(t) else t
 
@@ -760,16 +776,22 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     ``offered_payload_bits`` and ``dual_residual``
     ``||rho (D - A) theta_hat||²``, plus ``extra_metrics(state, batch)``.
     ``participation`` is the fleet's optional (N,) on-time mask (see
-    :func:`_phase`); None is the synchronous path."""
+    :func:`_phase`); None is the synchronous path.
+
+    On the sharded topology the state, draws, batch and metrics hold the
+    rank's row block (``topology.worker_rows``); the phase masks and rows
+    are cut to it, relative to its first row, and ``rho_d`` comes from the
+    block's degrees."""
     topo = topology if topology is not None else topo_lib.build(
         graph, cfg.mix_backend, device=device)
     dev = topo.degrees.device
-    head_np = np.asarray(graph.head_mask, np.float32)
+    head_np = np.asarray(graph.head_mask, np.float32)[
+        topo.worker_rows(graph.n)]
     head = torch.as_tensor(head_np, device=dev)
     tail = 1.0 - head
     head_rows = torch.as_tensor(np.nonzero(head_np > 0)[0], device=dev)
     tail_rows = torch.as_tensor(np.nonzero(head_np <= 0)[0], device=dev)
-    all_rows = torch.arange(graph.n, device=dev)
+    all_rows = torch.arange(head_np.shape[0], device=dev)
     rho_d = cfg.rho * topo.degrees
 
     def step(state: EngineState, draw: Callable[[int], torch.Tensor],
@@ -822,19 +844,57 @@ def flat_metrics(graph: WorkerGraph,
     return fn
 
 
-def consensus_metrics(loss_fn: Optional[Callable] = None) -> MetricsFn:
-    """Training diagnostics: deviation from the worker mean (+ loss)."""
+def consensus_metrics(loss_fn: Optional[Callable] = None,
+                      topology: Optional[topo_lib.Topology] = None
+                      ) -> MetricsFn:
+    """Training diagnostics: deviation from the worker mean (+ the loss,
+    ``loss_fn``'s mean over the workers it is given). On a sharded
+    ``topology`` of more than one rank both are taken over every rank's
+    workers: the blocks are equal, so the mean of the ranks' means
+    (``all_reduce``d) is the worker mean."""
+    world = topology.world if topology is not None else 1
+
+    def worker_mean(x: torch.Tensor) -> torch.Tensor:
+        mean = torch.mean(x, dim=0, keepdim=True)
+        return topology.all_reduce(mean) / world if world > 1 else mean
 
     def fn(state: EngineState, batch) -> Metrics:
         dev = T.tree_map(lambda x: x.to(torch.float32)
-                         - torch.mean(x.to(torch.float32), dim=0,
-                                      keepdim=True), state.theta)
-        out = {"consensus_err": torch.sum(tree_worker_sqnorm(dev))}
+                         - worker_mean(x.to(torch.float32)), state.theta)
+        err = torch.sum(tree_worker_sqnorm(dev))
+        out = {"consensus_err": topology.all_reduce(err) if world > 1
+               else err}
         if loss_fn is not None:
-            out["loss"] = loss_fn(state.theta, batch)
+            loss = loss_fn(state.theta, batch)
+            out["loss"] = (topology.all_reduce(loss) / world if world > 1
+                           else loss)
         return out
 
     return fn
+
+
+def gather_workers(tree: Any, topology: topo_lib.Topology,
+                   dim: int = 0) -> Any:
+    """Every rank's rows of a tree or metrics dict, gathered along the
+    worker axis ``dim`` (1 for ``run``'s stacked metrics) in rank order:
+    leaves that hold the rank's rows there are all-gathered, the rest
+    (scalars, already reduced) pass through. The identity off the sharded
+    backend."""
+    local = topology.n // topology.world
+
+    def one(x):
+        if (torch.is_tensor(x) and x.dim() > dim
+                and x.shape[dim] == local):
+            return topology.gather(x, dim)
+        return x
+    return T.tree_map(one, tree)
+
+
+def cut_workers(tree: Any, topology: topo_lib.Topology) -> Any:
+    """The rank's rows of a tree of whole ``(N, ...)`` worker-axis arrays
+    (the identity off the sharded backend)."""
+    rows = topology.worker_rows(topology.n)
+    return T.tree_map(lambda x: x[rows], tree)
 
 
 def run(graph: WorkerGraph, cfg: EngineConfig, solver, theta0: Tree,
@@ -846,21 +906,40 @@ def run(graph: WorkerGraph, cfg: EngineConfig, solver, theta0: Tree,
     """Run ``iters`` batch-free iterations from ``theta0`` on its device and
     return the final state plus per-iteration metrics stacked on a leading
     axis. The (N, D) uniforms come from a ``torch.Generator`` seeded with
-    ``seed``, or from ``uniforms(iteration, phase)`` when given."""
+    ``seed``, or from ``uniforms(iteration, phase)`` when given.
+
+    On a sharded topology of more than one rank ``theta0`` is the whole
+    (N, ...) tree, cut here to the rank's rows, and so is an
+    ``ExactSolver``'s problem (``take_workers``). The uniforms are drawn
+    whole, (N, D), from the same generator and cut to the block, and so
+    are injected ones: a sharded run's state equals the world-1 run's. The
+    price is a whole draw on every rank (2.15 GB a phase at the
+    xlstm-125m LM shape). The state and the metrics hold the rank's rows
+    (:func:`gather_workers` with ``dim=1`` collects the metrics)."""
     first = T.leaves(theta0)[0]
     dev = first.device
-    shape = (first.shape[0], tree_dim(theta0))
+    topo = topology if topology is not None else topo_lib.build(
+        graph, cfg.mix_backend, device=dev)
+    rows = topo.worker_rows(graph.n)
+    shape = (graph.n, tree_dim(theta0))
+    if topo.world > 1:
+        theta0 = cut_workers(theta0, topo)
+        problem = getattr(solver, "problem", None)
+        if getattr(problem, "n_workers", None) == graph.n:
+            solver = dataclasses.replace(solver,
+                                         problem=problem.take_workers(rows))
     state = init_state(theta0, cfg, solver)
-    step = make_step(graph, cfg, solver, extra_metrics, topology=topology,
-                     device=dev)
+    step = make_step(graph, cfg, solver, extra_metrics, topology=topo)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def draw_for(it: int) -> Callable[[int], torch.Tensor]:
         def draw(phase: int) -> torch.Tensor:
             if uniforms is not None:
-                return uniforms(it, phase).to(device=dev, dtype=torch.float32)
-            return torch.rand(shape, generator=gen, device=dev)
+                u = uniforms(it, phase).to(device=dev, dtype=torch.float32)
+            else:
+                u = torch.rand(shape, generator=gen, device=dev)
+            return u[rows]
         return draw
 
     history: List[Metrics] = []

@@ -297,6 +297,10 @@ def random_bipartite_graph(n: int, p: float, seed: int = 0,
     return _finalize(n, sorted(edges), head_mask)
 
 
+def pod_pair_graph() -> WorkerGraph:
+    """The 2-worker graph of pod-granular consensus: one edge H-T."""
+    return complete_bipartite_graph(1, 1)
+
 
 def membership_graph(n: int, p: float, seed: int = 0,
                      epoch: int = 0) -> WorkerGraph:

@@ -15,6 +15,11 @@ plus a generic gradient-descent solver for any differentiable f_n.
 The per-worker Gram matrices ``X_n^T X_n`` and ``X_n^T y_n`` of the linear
 problem do not depend on v, so they are computed once, at construction. The
 solve is ``torch.linalg.solve`` (the JAX package leaves it to XLA too).
+
+``take_workers(rows)`` is the problem of a row block of workers (the rank's
+rows on the sharded topology): their data and, for the linear problem,
+their Gram matrices as computed for the whole problem. Its ``n_workers``
+is the block's, so its ``global_loss`` and ``optimum`` are the block's.
 """
 from __future__ import annotations
 
@@ -31,11 +36,20 @@ def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
 class LinearRegressionProblem:
     """Per-worker least squares: x (N, s, d), y (N, s)."""
 
-    def __init__(self, x: torch.Tensor, y: torch.Tensor):
+    def __init__(self, x: torch.Tensor, y: torch.Tensor,
+                 gram: Optional[torch.Tensor] = None,
+                 xty: Optional[torch.Tensor] = None):
         self.x = x
         self.y = y
-        self.gram = torch.einsum("nsd,nse->nde", x, x)      # (N, d, d)
-        self.xty = torch.einsum("nsd,ns->nd", x, y)         # (N, d)
+        self.gram = (torch.einsum("nsd,nse->nde", x, x)    # (N, d, d)
+                     if gram is None else gram)
+        self.xty = (torch.einsum("nsd,ns->nd", x, y)       # (N, d)
+                    if xty is None else xty)
+
+    def take_workers(self, rows: slice) -> "LinearRegressionProblem":
+        """The problem of workers ``rows``: their data and Gram matrices."""
+        return LinearRegressionProblem(self.x[rows], self.y[rows],
+                                       self.gram[rows], self.xty[rows])
 
     @property
     def n_workers(self) -> int:
@@ -90,6 +104,10 @@ class LogisticRegressionProblem:
     @property
     def dim(self) -> int:
         return self.x.shape[-1]
+
+    def take_workers(self, rows: slice) -> "LogisticRegressionProblem":
+        """The problem of workers ``rows``: their data."""
+        return dataclasses.replace(self, x=self.x[rows], y=self.y[rows])
 
     def local_loss(self, theta: torch.Tensor) -> torch.Tensor:
         s = self.x.shape[1]

@@ -22,6 +22,9 @@ the fault-free path bit-identical to the synchronous engine:
   and the duals are re-initialized in ``col(M_-)`` of the new graph
   (``dynamic.reinit_duals``).
 
+The sharded backend runs at world size 1 only: churn changes N, and at more
+ranks it would move rows between them (left for later, ROADMAP.md queue A).
+
 The host loop (:class:`FleetSim`) steps one round at a time. Per-round
 rounding draws come from a ``torch.Generator`` seeded from ``(seed,
 round)`` (:func:`round_draws`), or from a ``uniforms(round, phase)`` hook
@@ -312,6 +315,11 @@ class FleetSim:
                              f"{n_workers}")
         self.topo = topo_lib.build(self.graph, engine_cfg.mix_backend,
                                    device=self.device)
+        if self.topo.world > 1:
+            raise ValueError(
+                f"the fleet runs the sharded backend at world size 1 only, "
+                f"not {self.topo.world}: churn changes N and would move "
+                f"worker rows between ranks (ROADMAP.md queue A)")
         self.churn_log: List[Dict[str, Any]] = []
         # host shadow of the staleness timers (fleet_timer of the last
         # faulted round): is any packet in flight before this round?

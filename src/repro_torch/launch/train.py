@@ -33,12 +33,34 @@ simulator (``fleet/sim.py``: straggler timeouts, bounded staleness, churn):
         --fleet-participation 0.75 --fleet-staleness 2 \
         --fleet-churn 2:1:1 --steps 4
 
+``--mix-backend sharded`` splits the worker rows over the ranks of a
+``torch.distributed`` process group (``core/topology.py``): each rank holds
+N/w workers' parameters, optimizer moments, quantizer state and batch rows,
+and each mix is one all-gather of the value rows and ``bipartite_mix`` on
+the rank's adjacency row block. Under ``torchrun`` each rank runs on
+``cuda:LOCAL_RANK`` over NCCL, or over gloo with ``--device cpu``; started
+alone, the trainer makes a group of one over a ``FileStore`` in a temporary
+directory, so the collective runs in one process too. Rank 0 alone prints
+and writes the checkpoint (theta gathered from every rank: the dense run's
+file); the returned loss history, bits and group count are the same on
+every rank. The rounding draws are made whole, (N, D), on every rank and cut
+to its rows, so a run equals the world-1 run of the same seed:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \
+        --mix-backend sharded [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --smoke --steps 2 \
+        --mix-backend sharded [--device cpu]
+
+``--fleet`` takes the sharded backend at world size 1 only (churn changes
+N); ``--campaign`` runs it at world size 1.
+
 ``--mode fsdp`` is the FSDP-Adam baseline (:func:`run_fsdp`): one model, no
 worker axis, AdamW (``optim/adamw.py``) on the token-weighted loss of the
 whole batch every step. The JAX package's ``run_fsdp`` is one ``jax.jit``
-program whose sharding comes from the device mesh, not from the function;
-on one card it is this single-device trainer. Sharding the model over
-several cards (torch FSDP or NCCL) is not ported (ROADMAP.md queue A):
+program with no device mesh; this is the same single-device trainer (the
+JAX package shards FSDP only in its mesh bundles, ``runtime/steps.py``,
+which are not ported):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --mode fsdp --batch 8 --seq 512 --lr 1e-3 --steps 5 --log-every 1
@@ -74,16 +96,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import npz as ckpt
 from repro_torch.configs import base
 from repro_torch.core import engine as E
+from repro_torch.core import topology as topo_lib
 from repro_torch.core import tree as T
 from repro_torch.core.censoring import CensorConfig
 from repro_torch.core.quantization import QuantConfig
@@ -171,9 +198,12 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
         return model_batch(cfg, data.worker_batch(r, len(members), per), dev,
                            step=r, stubs=None if stubs is None else stubs(r))
 
-    sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
-                   extra_metrics=E.consensus_metrics(loss_fn),
-                   batch_fn=batch_fn, graph0=graph, uniforms=uniforms)
+    try:
+        sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
+                       extra_metrics=E.consensus_metrics(loss_fn),
+                       batch_fn=batch_fn, graph0=graph, uniforms=uniforms)
+    except ValueError as e:      # the sharded backend at world size > 1
+        raise SystemExit(f"[train] --fleet: {e}") from e
     # the fleet traces its own rounds, faults and churn (FleetSim.run)
     t0 = time.perf_counter()
     fs, m = sim.run()
@@ -214,10 +244,17 @@ def run_admm(cfg, args, *, params=None,
     (``data.lm.model_batch``: vision embeds, audio frames); all serve
     parity tests. ``hat_dtype``
     narrows the replicas (``EngineConfig.hat_dtype``). Returns the loss
-    history, total bits, group count, per-step (N, G) bit widths and
-    seconds, the final engine state and, with a tracer active, the
-    ledger's totals and each step's host copy of the metrics."""
-    dev = resolve_device(args.device)
+    history, total bits, group count, per-step (N, G) bit widths,
+    transmitting workers and seconds, the final engine state and, with a
+    tracer active, the ledger's totals and each step's host copy of the
+    metrics.
+
+    On the sharded backend (``--mix-backend sharded``; the process group
+    from :func:`init_sharded_group`) this rank builds its own N/w workers
+    and takes their rows of every step's batch and draws; the history,
+    bits and group count come from metrics gathered over the ranks, the
+    same on each, and ``state`` holds the rank's rows."""
+    dev = rank_device(args.device)
     graph = ST.worker_graph(args.workers, args.topology)
     try:
         ecfg = E.EngineConfig(
@@ -236,18 +273,22 @@ def run_admm(cfg, args, *, params=None,
             f"[train] bad --groups spec: {e}\n"
             f"[train] buckets available for {cfg.name}: "
             f"{registry.param_bucket_names(cfg)}") from e
-    except NotImplementedError as e:
-        raise SystemExit(f"[train] {e}") from e
 
+    try:
+        topo = topo_lib.build(graph, ecfg.mix_backend, device=dev)
+    except ValueError as e:      # workers not divisible by the ranks
+        raise SystemExit(f"[train] {e}") from e
+    rows = topo.worker_rows(args.workers)
+    talk = topo.rank == 0          # rank 0 alone prints
     solver = E.InexactSolver(grad_fn=lm_grad_fn(cfg),
                              local_steps=args.local_steps, local_lr=args.lr)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         params = registry.init_params(cfg, gen, device=dev)
     # identical worker initialization: one shared init, workers diverge
-    # only through their local data
+    # only through their local data; each rank builds its own rows
     theta = T.tree_map(lambda x: x.to(dev)[None].repeat(
-        (args.workers,) + (1,) * x.dim()), params)
+        (rows.stop - rows.start,) + (1,) * x.dim()), params)
     del params
     try:
         cur_ids = E.resolve_groups(theta, ecfg.groups)
@@ -271,10 +312,13 @@ def run_admm(cfg, args, *, params=None,
 
     def build_step(cfg_):
         return E.make_step(graph, cfg_, solver,
-                           extra_metrics=E.consensus_metrics(lm_loss_fn(cfg)),
-                           device=dev)
+                           extra_metrics=E.consensus_metrics(
+                               lm_loss_fn(cfg), topology=topo),
+                           topology=topo)
 
     step = build_step(ecfg)
+    # whole draws, cut to the rank's rows (2.15 GB a phase at the
+    # xlstm-125m shape, on every rank)
     shape = (args.workers, E.tree_dim(theta))
     ugen = torch.Generator(device=dev).manual_seed(args.seed + 1000)
     # observers only: the ledger folds a host copy of the metrics the step
@@ -285,12 +329,12 @@ def run_admm(cfg, args, *, params=None,
     rounds_tid = tr.track("engine", "rounds") if tr is not None else 0
     traced = []
     total_bits = 0.0
-    history, seconds, bits_hist = [], [], []
+    history, seconds, bits_hist, tx_counts = [], [], [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
         t_step = time.perf_counter()
         if grouper is not None and grouper.should_regroup(i):
-            new_ids = grouper.regroup(state.theta, state.quant.q_hat)
+            new_ids = grouper.regroup(state.theta, state.quant.q_hat, topo)
             if new_ids != cur_ids:
                 # stable-id regroup: carry conservative (R, b, Δ) per new
                 # group and pin the spec to the explicit ids
@@ -301,20 +345,25 @@ def run_admm(cfg, args, *, params=None,
                 step = build_step(ecfg)
                 cur_ids = new_ids
                 n_groups = max(new_ids) + 1
-                print(f"[train] step {i}: regrouped to G={n_groups} "
-                      f"({new_ids})")
+                if talk:
+                    print(f"[train] step {i}: regrouped to G={n_groups} "
+                          f"({new_ids})")
         raw = data.worker_batch(i, args.workers, args.batch // args.workers)
-        batch = model_batch(cfg, raw, dev, step=i,
-                            stubs=None if stubs is None else stubs(i))
+        batch = E.cut_workers(model_batch(
+            cfg, raw, dev, step=i, stubs=None if stubs is None else stubs(i)),
+            topo)
 
         def draw(phase, i=i):
             if uniforms is not None:
-                return uniforms(i, phase).to(device=dev, dtype=torch.float32)
-            return torch.rand(shape, generator=ugen, device=dev)
+                u = uniforms(i, phase).to(device=dev, dtype=torch.float32)
+            else:
+                u = torch.rand(shape, generator=ugen, device=dev)
+            return u[rows]
 
         if tr is not None:
             tr.begin("round", "engine", rounds_tid, args={"round": i})
         state, m = step(state, draw, batch)
+        m = E.gather_workers(m, topo)
         if ledger is not None:
             host = {k: v.cpu().numpy() for k, v in m.items()}
             ledger.update(host)
@@ -326,25 +375,72 @@ def run_admm(cfg, args, *, params=None,
         mean_bits = float(m["bits_per_group"].mean())
         history.append(float(m["loss"]))
         bits_hist.append(m["bits_per_group"].cpu().numpy())
+        tx_counts.append(int(m["tx_mask"].sum()))
         seconds.append(time.perf_counter() - t_step)
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if talk and (i % args.log_every == 0 or i == args.steps - 1):
             print(f"step {i:4d}  loss={history[-1]:.4f}  "
                   f"consensus_err={float(m['consensus_err']):.3e}  "
-                  f"tx={int(m['tx_mask'].sum())}/{args.workers}  "
+                  f"tx={tx_counts[-1]}/{args.workers}  "
                   f"groups={n_groups}  b/group={mean_bits:.1f}  "
                   f"cum_bits={total_bits:.3e}  "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
                   flush=True)
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-            ckpt.save(args.ckpt_dir, i + 1, state.theta)
+            save_workers(args.ckpt_dir, i + 1, state.theta, topo)
     if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps, state.theta)
+        save_workers(args.ckpt_dir, args.steps, state.theta, topo)
     return {"final_loss": history[-1], "history": history,
             "total_bits": total_bits, "n_groups": n_groups,
-            "bits_per_group": bits_hist, "step_seconds": seconds,
-            "state": state,
+            "bits_per_group": bits_hist, "tx_counts": tx_counts,
+            "step_seconds": seconds, "state": state,
             "ledger": ledger.totals() if ledger is not None else None,
             "traced_metrics": traced if ledger is not None else None}
+
+
+def save_workers(ckpt_dir, step: int, theta, topo) -> None:
+    """Checkpoint the worker-stacked parameters: on the sharded backend
+    gathered from every rank (a collective: every rank calls this) and
+    written by rank 0 alone."""
+    theta = E.gather_workers(theta, topo)
+    if topo.rank == 0:
+        ckpt.save(ckpt_dir, step, theta)
+
+
+def rank_device(device) -> torch.device:
+    """This process's device: ``cuda:LOCAL_RANK`` under ``torchrun`` with a
+    process group, unless ``--device`` names one."""
+    dev = resolve_device(device)
+    if (dev.type == "cuda" and dev.index is None and dist.is_initialized()
+            and "LOCAL_RANK" in os.environ):
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    return dev
+
+
+def init_sharded_group(device) -> Optional[Callable[[], None]]:
+    """The process group of ``--mix-backend sharded``: NCCL for the card,
+    gloo for ``--device cpu``. Under ``torchrun`` (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK`` set) it joins the launcher's
+    rendezvous; started alone, it is a group of one over a ``FileStore`` in
+    a temporary directory. Returns the call that ends it, or None when the
+    caller made the group already (it stays the caller's)."""
+    if dist.is_initialized():
+        return None
+    cpu = resolve_device(device).type == "cpu"
+    backend = "gloo" if cpu else "nccl"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        return dist.destroy_process_group
+    tmp = tempfile.mkdtemp(prefix="repro_torch_group_")
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1)
+
+    def end():
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return end
 
 
 def fsdp_step(cfg, acfg: AdamWConfig):
@@ -655,21 +751,32 @@ def main(argv=None, *, params=None, uniforms=None,
                          f"--workers {args.workers}")
     cfg = (base.get_smoke_config(args.arch) if args.smoke
            else base.get_config(args.arch))
-    print(f"[train] arch={cfg.name} mode={args.mode} workers={args.workers} "
-          f"batch={args.batch} seq={args.seq} steps={args.steps}", flush=True)
     if args.mode == "fsdp" and args.fleet:
         raise SystemExit("[train] --fleet only applies to --mode admm "
                          "(the fleet simulator drives the consensus "
                          "engine, not the FSDP baseline)")
-    if args.trace:
-        obs_trace.enable(args.trace)
-    if args.mode == "admm":
-        out = run_admm(cfg, args, params=params, uniforms=uniforms,
-                       hat_dtype=hat_dtype, stubs=stubs)
-    else:
-        out = run_fsdp(cfg, args, params=params, stubs=stubs)
-    if args.trace:
-        obs_trace.save()
+    sharded = args.mode == "admm" and args.mix_backend == "sharded"
+    end_group = init_sharded_group(args.device) if sharded else None
+    try:
+        # on the sharded backend rank 0 alone prints and traces
+        talk = not sharded or dist.get_rank() == 0
+        if talk:
+            print(f"[train] arch={cfg.name} mode={args.mode} workers="
+                  f"{args.workers} batch={args.batch} seq={args.seq} "
+                  f"steps={args.steps}" + (f" ranks={dist.get_world_size()}"
+                                           if sharded else ""), flush=True)
+        if args.trace and talk:
+            obs_trace.enable(args.trace)
+        if args.mode == "admm":
+            out = run_admm(cfg, args, params=params, uniforms=uniforms,
+                           hat_dtype=hat_dtype, stubs=stubs)
+        else:
+            out = run_fsdp(cfg, args, params=params, stubs=stubs)
+        if args.trace and talk:
+            obs_trace.save()
+    finally:
+        if end_group is not None:
+            end_group()
     return out
 
 

@@ -87,7 +87,12 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk: int = MLSTM_CHUNK):
         log_f = F.logsigmoid(fc)                               # (B,L,H)
         big_f = torch.cumsum(log_f, dim=1)                     # inclusive
         a = ic - big_f
-        g = torch.maximum(m_in[:, None, :], torch.cummax(a, dim=1).values)
+        # cummax(a) as a masked max over j <= t: the same values, and a
+        # backward without atomics (torch.cummax's scatters into repeated
+        # indices, so on the card its gradient changed from run to run)
+        run_max = torch.where(causal, a[:, None, :, :],
+                              float("-inf")).amax(dim=2)
+        g = torch.maximum(m_in[:, None, :], run_max)
         m_t = big_f + g
         w = torch.exp(a[:, None, :, :] - g[:, :, None, :])     # (B,t,j,H)
         w = w * causal.to(w.dtype)

@@ -8,7 +8,7 @@ from repro_torch.core import graph as G
 
 def worker_graph(n_workers: int, topology: str = "random") -> G.WorkerGraph:
     if n_workers == 2:
-        return G.complete_bipartite_graph(1, 1)   # the pod-pair graph
+        return G.pod_pair_graph()
     if topology == "chain":
         return G.chain_graph(n_workers)
     if topology == "complete":

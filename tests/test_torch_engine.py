@@ -242,9 +242,13 @@ def test_cq_ggadmm_adapter_run(setup):
     assert np.isfinite(out["objective"]).all()
 
 
-@pytest.mark.parametrize("kw", [dict(mix_backend="sharded")])
+@pytest.mark.parametrize("kw", [dict(mix_backend="blocked")])
 def test_engine_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
+    """Every backend of the JAX package is ported (``"sharded"`` was
+    refused before); a backend neither package has is refused, as the JAX
+    ``EngineConfig`` refuses it."""
+    assert E.EngineConfig(mix_backend="sharded").mix_backend == "sharded"
+    with pytest.raises(ValueError, match="unknown mix backend"):
         E.EngineConfig(**kw)
 
 

@@ -139,11 +139,26 @@ def test_init_state_narrows_the_replicas_as_jax(tree, hat):
                                   np.asarray(jst.quant.bits_prev))
 
 
-def test_hat_dtype_names_are_checked_and_sharded_still_refused():
+def test_hat_dtype_names_are_checked_and_sharded_still_refused(quick):
+    """The replica dtype is checked by name. Narrowed replicas on the
+    sharded backend (refused before it was ported) run: at world size 1 the
+    bf16 run equals the dense backend's bf16 run bit for bit."""
     with pytest.raises(ValueError, match="hat_dtype"):
         E.EngineConfig(hat_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        E.EngineConfig(hat_dtype="bfloat16", mix_backend="sharded")
+    s = quick
+    outs = []
+    for backend in ("dense", "sharded"):
+        cfg = dataclasses.replace(ab.cq_ggadmm(rho=1.0), hat_dtype="bfloat16",
+                                  mix_backend=backend)
+        state, out = E.run(s["graph"], cfg, E.ExactSolver(s["prob"]),
+                           torch.zeros((N, D)), 10, seed=2)
+        assert state.theta_hat.dtype == torch.bfloat16
+        outs.append((state, out))
+    (s0, o0), (s1, o1) = outs
+    for k in ("tx_mask", "payload_bits", "bits_per_group"):
+        np.testing.assert_array_equal(o1[k].numpy(), o0[k].numpy())
+    np.testing.assert_array_equal(s1.theta_hat.float().numpy(),
+                                  s0.theta_hat.float().numpy())
     assert C.ConsensusConfig(hat_dtype="bfloat16").engine_config(
     ).hat_dtype == "bfloat16"
 

@@ -122,8 +122,17 @@ def test_rebuild_keeps_the_backend_for_a_new_graph():
 
 
 def test_sharded_backend_still_refused():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.build(chain_graph(4), "sharded", device="cpu")
+    """The sharded backend builds (it was refused before it was ported):
+    with no process group a world of one, mixing as the dense backend does,
+    and it rebuilds as itself; an unknown backend is still refused."""
+    topo = T.build(chain_graph(4), "sharded", device="cpu")
+    assert type(topo) is T.ShardedTopology and topo.world == 1
+    v = torch.from_numpy(values(4, seed=4))
+    torch.testing.assert_close(
+        topo.mix(v), T.build(chain_graph(4), "dense", device="cpu").mix(v),
+        rtol=0, atol=0)
+    new = topo.rebuild(chain_graph(6))
+    assert type(new) is T.ShardedTopology and new.n == 6
     with pytest.raises(ValueError):
         T.build(chain_graph(4), "ring", device="cpu")
 
