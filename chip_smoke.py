@@ -261,7 +261,24 @@ with its time printed:
    run under ``torch.distributed.run --nproc-per-node 2`` (this script's
    ``--sharded-rank`` mode), one rank a card, bits and transmissions
    equal to the world-1 run's and the loss within 1e-6; with one card a
-   line says it was not run.
+   line says it was not run;
+33. the speed campaigns ``engine-smoke`` (``bench/engine.py``: the engine
+   against the seed stepper, payload, pytree fusion, fused range, group
+   specs, the three topology backends, the mix sweep) and ``serve-smoke``
+   (``bench/serving.py``: continuous against lockstep batching, paged
+   against lockstep greedy, int8/int4 pages of 8 tokens, shared prefixes
+   under load) through ``train.main(["--campaign", ...])`` at the JAX
+   package's configs, after every child has ended: every run done, every
+   correctness claim true, every speed claim printed with its value, and
+   exactly the CPU rehearsal's launches (``CAMPAIGN_LAUNCHES``); B7 at their
+   8-token pages is in phase 14's checks;
+34. the ``kernels`` and ``roofline`` stages of campaign ``all`` on the
+   quiet card: B1 and B2 against their plain versions at (8, 512), (16,
+   4096) and (24, 16384) (the rehearsal's launches), and every kernel at
+   its full-width shapes against its bound (``bench/roofline.py``, whose
+   bytes and operations every bound of this script uses): each row launched
+   and at most 1.05 of its bound, printed with the card's name and power
+   limit.
 
 Phases 25-27 run in a child process (``--child-phases family``, output
 in ``build/chip_smoke_family.log``, printed when it ends) and phase 31 in
@@ -294,14 +311,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# HBM bandwidth and float32 rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# float32 operations of the quantizer per element: sub, add, div, floor,
-# sub, compare, add, max, min, mul, add, sub (and 2 per row for 2R/Δ)
-QUANT_OPS_PER_ELEM = 12
-
 FULL_N, FULL_D, FULL_S, FULL_ITERS = 64, 2000, 2048, 20
 PAPER_ITERS = 300
 LM_STEPS, TILED_STEPS = 3, 2
@@ -311,10 +320,6 @@ LM_FLAGS = ["--arch", "xlstm-125m", "--mode", "admm", "--workers", "4",
             "--lr", "2e-3", "--tau0", "5.0", "--xi", "0.999", "--bits", "6",
             "--omega", "0.9995", "--groups", "leaf", "--log-every", "1"]
 GROUPED_KW = dict(omega=0.9995, b0=6, b_max=16)
-# bytes per element of a grouped quantize round: three operands read once
-# and the reconstruction written once (the (N, G) side arrays, 76 entries
-# at full width, are left out)
-GROUPED_BYTES_PER_ELEM = 16
 
 
 def log(msg: str) -> None:
@@ -366,10 +371,18 @@ def device_times(fn, calls: int = 1):
     return wall_ms, acts
 
 
+def roofline():
+    """``repro_torch.bench.roofline``: the card's peaks and every kernel's
+    bytes and operations, reckoned in one place (the roofline stage of
+    campaign ``all`` reads the same functions)."""
+    from repro_torch.bench import roofline as rl
+    return rl
+
+
 def bound(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time in ms of the given bytes and float32 operations on one
+    H100 at 700 W (3.35 TB/s, 67 TF/s), and which of the two sets it."""
+    return roofline().bound(n_bytes, n_ops)
 
 
 def check_quant_parity(ops, ref, dev):
@@ -459,7 +472,7 @@ MIX_TIMES = {
 
 
 def mix_bound(m, n, d):
-    return bound(4.0 * (m * n + n * d + m * d), 2.0 * m * n * d)
+    return bound(*roofline().mix_work(m, n, d))
 
 
 def launch_floor(dev):
@@ -560,8 +573,7 @@ def time_kernels(ops, ref, dev):
              "empty_ms": time_ms(lambda: sq.empty_launch(n * d, dev)),
              "empty_device_ms": device_ms(
                  lambda: sq.empty_launch(n * d, dev), 50),
-             "bound": bound(4.0 * (4 * n * d + 2 * n),
-                            QUANT_OPS_PER_ELEM * n * d + 2 * n)}
+             "bound": bound(*roofline().quant_work(n, d))}
         log(f"time stoch_quantize ({n}, {d}), {sq.blocks(n * d)} blocks: "
             f"per call {t['ms']:.5f} ms (device only {t['device_ms']} ms), "
             f"plain {t['plain_ms']:.5f} ms, bound {t['bound'][0]:.5f} ms "
@@ -855,7 +867,7 @@ def time_grouped(ops, ref, dev):
     _, delta, _ = bit_schedule(args[3], rng_new, args[4], args[5],
                                **GROUPED_KW)
     n_el = theta.numel()
-    b = bound(GROUPED_BYTES_PER_ELEM * n_el, QUANT_OPS_PER_ELEM * n_el)
+    b = bound(*roofline().grouped_work(n_el))
     fns = {
         "stoch_quantize_grouped_fused": (
             lambda: ops.stoch_quantize_grouped_fused(*args, None, **kw),
@@ -1342,10 +1354,7 @@ def edge_bytes(graph, d):
     """(unique, gathered) bytes of one call: V's rows that a valid slot
     reads, once, or every slot's row, padded ones included; plus out
     written once and the (N, S) table and validity read once."""
-    table, valid = graph.neighbor_table
-    side = 4.0 * graph.n * d + 8.0 * table.size
-    referenced = np.unique(table[valid > 0]).size
-    return 4.0 * referenced * d + side, 4.0 * table.size * d + side
+    return roofline().edge_bytes(graph, d)
 
 
 def check_edge_parity(ops, ref, dev):
@@ -1408,7 +1417,7 @@ def time_edge(ops, ref, dev):
         reps, plain_reps = (10, 2) if big else (50, 5)
         nnz = int(valid.sum())
         unique, gathered = edge_bytes(graph, d)
-        b = bound(unique, 2.0 * nnz * d)
+        b = bound(*roofline().edge_work(graph, d))
         t = {"ms": time_ms(lambda: ops.edge_gather_mix(vals, table, valid),
                            reps, 5),
              "plain_ms": time_ms(lambda: ref.edge_gather_mix_ref(
@@ -1457,7 +1466,7 @@ def time_edge(ops, ref, dev):
             f"{t['plain_ms']:.5f} ms; {lib_txt}, tolerance {lib_tol:.3e}; "
             f"B2 on the dense adjacency {b2:.5f} ms; bound {b[0]:.5f} ms "
             f"({b[1]}; {unique / 1e9:.4f} GB unique, gathered "
-            f"{gathered / 1e9:.4f} GB = {gathered / PEAK_BYTES_PER_S * 1e3:.5f}"
+            f"{gathered / 1e9:.4f} GB = {gathered / roofline().PEAK_BYTES_PER_S * 1e3:.5f}"
             f" ms)")
         if label.startswith("lm"):
             out = t
@@ -1689,6 +1698,10 @@ PAGED_CHECKS = {
     # around the last full split's edge
     "tinyllama P=84 load": ((8, 32, 4, 64, 16, 84),
                             (0, 529, 1024, 1212, 1279, 1280, 1281, 1340)),
+    # serve-smoke's model (4x the smoke width): 8-token pages, 11-page
+    # tables, ctx on and around page edges up to the full table
+    "serve-smoke ps 8": ((4, 8, 2, 64, 8, 11), (0, 1, 7, 8)),
+    "serve-smoke ps 8 full": ((4, 8, 2, 64, 8, 11), (9, 17, 81, 88)),
 }
 # the wider head dims (B, H, KV, hd, ps, P): h2o-danube (80, G 4), zamba2
 # (112, G 1), olmoe (128, G 1), mistral-large (128, G 12 over three
@@ -1839,13 +1852,8 @@ def paged_bound(shape, ctx, kv_bits, online, pool_bytes=2):
     average, none for the online kernel), q, out, table and ctx, each read
     or written once, at the card's memory rate; against 4·H·hd float32
     operations per slot."""
-    bsz, heads, num_kv, hd, ps, pps = shape
-    slots = sum((-(-c // ps) if c else (0 if online else pps)) * ps
-                for c in ctx)
-    entry = {32: pool_bytes * hd, 8: hd + 4, 4: hd // 2 + 4}[kv_bits]
-    n_bytes = (2 * slots * num_kv * entry + 2 * 4 * bsz * heads * hd
-               + 4 * bsz * pps + 4 * bsz)
-    return bound(n_bytes, 4.0 * heads * hd * slots)
+    return bound(*roofline().paged_work(shape, ctx, kv_bits, online,
+                                        pool_bytes))
 
 
 def gathered_sdpa_ms(q, kw, shape, dev) -> float:
@@ -2272,11 +2280,6 @@ SLSTM_CHECKS = {
 }
 SLSTM_MAIN = "paged chunk (1, 64) bf16, m0 0"
 SLSTM_TOL = 1e-4         # of max|hs|: fmaf in k order against cuBLAS sums
-# float32 operations per (row, step, unit) outside the product: 4 pre adds,
-# fbias add, logsigmoid (min, abs, neg, exp, log1p, sub), m' (add, max),
-# the two exponentials (3 + 2), c' (tanh, 2 mul, add), n' (2 ops + max),
-# h' (neg, exp, add, div, mul, div)
-SLSTM_GATE_OPS = 31
 XLSTM_PREFILL = (8, 700)
 XLSTM_ALONE = (0, 2, 4, 6)    # prompts 17, 255, 700, 384: the shortest and
                               # the longest of the stream among them
@@ -2315,14 +2318,10 @@ def slstm_inputs(dev, shape, wx_dtype, state, seed):
 def slstm_bound(shape, wx_dtype):
     """Least time of one call: wx, R, fbias and the state read once, hs and
     the state written once, at the memory rate; against the product's
-    2 B S H dh 4dh and SLSTM_GATE_OPS per (row, step, unit) at the float32
-    rate."""
-    b, s, h, dh = slstm_dims(shape)
+    2 B S H dh 4dh and 31 operations per (row, step, unit) at the float32
+    rate (``roofline.slstm_work``)."""
     wx_bytes = 2 if wx_dtype == torch.bfloat16 else 4
-    n_bytes = (b * s * h * 4 * dh * wx_bytes + 4 * b * s * h * dh
-               + 4 * h * dh * 4 * dh + 4 * h * dh + 8 * 4 * b * h * dh)
-    n_ops = 2.0 * b * s * h * dh * 4 * dh + SLSTM_GATE_OPS * b * s * h * dh
-    return bound(n_bytes, n_ops)
+    return bound(*roofline().slstm_work(slstm_dims(shape), wx_bytes))
 
 
 def check_slstm_parity(ref, dev):
@@ -3079,7 +3078,7 @@ def time_narrow(ops, dev):
             "replaced route (cast, float32 kernel, cast)":
                 lambda: ops.stoch_quantize_grouped_fused(
                     args[0], qn.float(), *rest, None, **kw)[0].to(bf)},
-        bound(12.0 * n_el, QUANT_OPS_PER_ELEM * n_el))
+        bound(12.0 * n_el, roofline().QUANT_OPS_PER_ELEM * n_el))
     del args, qn, rest
     torch.cuda.empty_cache()
     return out
@@ -3802,6 +3801,18 @@ CAMPAIGN_LAUNCHES = {
     "fleet-sweep": {"stoch_quantize": 2240, "bipartite_mix": 3360},
     "lm-sweep": {"bipartite_mix": 144, "stoch_quantize_grouped_fused": 120,
                  "edge_gather_mix": 72},
+    # engine-smoke: walltime's 12 runs of 200 iterations (engine and seed,
+    # warm-up and 5 timed each), mix_backends' 3 backends x 5 rollouts of
+    # 60, the 16-leaf per-leaf loop 63 times, ... (every loop counted, none
+    # timed to a deadline); serve-smoke: 4 layers a decode tick
+    "engine-smoke": {"stoch_quantize": 7608, "bipartite_mix": 10561,
+                     "stoch_quantize_grouped": 241,
+                     "stoch_quantize_grouped_fused": 1184,
+                     "edge_gather_mix": 1261},
+    "serve-smoke": {"paged_attention_decode": 3300},
+    # the kernels stage of all: 4 calls (a warm-up and 3) of each kernel at
+    # each of 3 shapes
+    "kernels": {"stoch_quantize": 12, "bipartite_mix": 12},
 }
 CAMPAIGN_DIR = Path(__file__).resolve().parent / "build" / "campaigns"
 
@@ -3932,6 +3943,79 @@ def campaigns_on_card(ops, dev):
                         "edge_gather_mix": 72}, launches
     assert not parted, parted
     shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+
+
+def speed_campaigns(ops, dev):
+    """Phase 33: ``engine-smoke`` and ``serve-smoke`` through the
+    trainer's ``--campaign`` on the card at the JAX package's configs:
+    every run done, every correctness claim true, every speed claim printed
+    with its value (a speed claim that fails is a finding, PERF.md), and
+    exactly the CPU rehearsal's launches (``CAMPAIGN_LAUNCHES``)."""
+    import shutil
+
+    from repro_torch.bench import campaigns
+    from repro_torch.bench import engine as BE
+    from repro_torch.bench import serving as BS
+
+    speed = set(BE.SPEED_CLAIMS) | set(BS.SPEED_CLAIMS)
+    root = CAMPAIGN_DIR / "speed"
+    shutil.rmtree(root, ignore_errors=True)
+    for name in ("engine-smoke", "serve-smoke"):
+        n_runs = sum(len(st.runs) for st in campaigns.get(name).stages)
+        out, launches, wall = run_campaign(ops, name, root)
+        claims = {c["name"]: (c["ok"], c["value"])
+                  for r in campaign_records(root, name).values()
+                  for c in r["claims"]}
+        log(f"campaign {name}: {out} in {wall:.1f} s; launches {launches} "
+            f"(CPU rehearsal: {CAMPAIGN_LAUNCHES[name]})")
+        for kind, names in (("correctness", sorted(set(claims) - speed)),
+                            ("speed", sorted(set(claims) & speed))):
+            log(f"campaign {name} {kind} claims (ok, value): "
+                + "; ".join(f"{k} {claims[k]}" for k in names))
+        assert (out["executed"], out["failed"]) == (n_runs, 0), out
+        bad = {k: v for k, v in claims.items() if not v[0] and k not in speed}
+        assert claims and not bad, bad
+        assert launches == CAMPAIGN_LAUNCHES[name], launches
+    return root
+
+
+def kernels_and_roofline(ops, dev, root):
+    """Phase 34, on a quiet card after every child has ended: the
+    ``kernels`` and ``roofline`` stages of ``all`` (``--campaign all
+    --campaign-only ...``): the parity claims true and the CPU rehearsal's
+    launches; every roofline row ``ok`` (it launched, and its share of its
+    bound is at most 1.05), each printed with the card's name and power
+    limit."""
+    import shutil
+
+    out, launches, wall = run_campaign(ops, "all", root, "--campaign-only",
+                                       "kernels")
+    log(f"campaign all --campaign-only kernels: {out} in {wall:.1f} s; "
+        f"launches {launches}")
+    assert out == {"campaign": "all", "executed": 3, "skipped": 0,
+                   "failed": 0, "claim_failures": 0}, out
+    assert launches == CAMPAIGN_LAUNCHES["kernels"], launches
+    out, _, wall = run_campaign(ops, "all", root, "--campaign-only",
+                                "roofline")
+    doc = json.loads((root / "BENCH_engine.json").read_text())
+    for shape, rec in sorted(doc["kernels"].items()):
+        if shape != "claims":
+            log(f"kernels {shape}: {rec}")
+    sec = doc["roofline"]
+    rows = sec["single"] + sec["multi"]
+    for r in rows:
+        log(f"roofline {r['kernel']} {r['name']} {r['shape']}: "
+            f"{r['status']}, {r.get('ms')} ms against a bound of "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), share "
+            f"{r.get('share')}, {r['library']} {r.get('library_ms')} ms "
+            f"({r.get('card')})" + (f"; {r['error']}" if "error" in r
+                                    else ""))
+    log(f"campaign all --campaign-only roofline: {out} in {wall:.1f} s; "
+        f"{sec['multi_note']}")
+    assert out["failed"] == 0 and sec["claims"] == {
+        "roofline_no_failed_records": True}, (out, sec["claims"])
+    assert all(r["status"] == "ok" and r["share"] <= 1.05 for r in rows)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # phases run in a child process (this script with ``--child-phases
@@ -4165,6 +4249,14 @@ def main() -> int:
     t0 = time.perf_counter()
     attention_consensus(ops, dev)
     log(f"phase attention consensus training: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    speed_root = speed_campaigns(ops, dev)
+    log(f"phase engine-smoke and serve-smoke: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels_and_roofline(ops, dev, speed_root)
+    log(f"phase kernels and roofline stages: "
         f"{time.perf_counter() - t0:.1f} s")
     launches.update(
         stoch_quantize_grouped_fused=lm["stoch_quantize_grouped_fused"],

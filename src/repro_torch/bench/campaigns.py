@@ -1,9 +1,13 @@
-"""The port's campaigns: the three of ``benchmarks/campaigns.py`` that
-reproduce the paper's and the system's claims (correctness and bits, not
-speed), with the JAX package's configs spelled out exactly and ``fn``
-naming the port's modules (so the run keys differ from the JAX package's
-only through ``fn``):
+"""The port's campaigns: every campaign of ``benchmarks/campaigns.py``,
+with the JAX package's configs spelled out exactly and ``fn`` naming the
+port's modules (so the run keys differ from the JAX package's only through
+``fn``):
 
+* ``engine-smoke``  — the seven engine runs (``bench/engine.py``): the
+  engine against the seed stepper, payload, pytree fusion, fused range,
+  group specs, the topology backends and the mix sweep;
+* ``serve-smoke``   — the serving stream, agreement, long-context and
+  serve-load runs (``bench/serving.py``), chained on the stream stage;
 * ``paper-figures`` — Figs. 2-6, one run per figure
   (``bench/figures.py``);
 * ``lm-sweep``      — the quantized-vs-unquantized LM baseline pair, then
@@ -11,19 +15,63 @@ only through ``fn``):
   resumable training (``launch/train.py:campaign_lm_run``);
 * ``fleet-sweep``   — FleetSim over participation x staleness x
   {iid, dirichlet}, gated on fault-free bit identity to the synchronous
-  engine (``bench/fleet.py``).
-
-The JAX package's ``engine-smoke``, ``serve-smoke``, ``kernels``,
-``roofline`` and ``all`` time the system: they wait for the port's
-benchmark (ROADMAP.md queue A), and ``launch/train.py`` says so.
+  engine (``bench/fleet.py``);
+* ``all``           — everything above plus the ``kernels`` stage (B1 and
+  B2 against their plain versions over a shape sweep,
+  ``bench/kernels.py``) and the ``roofline`` stage (each kernel against its
+  H100 bound, ``bench/roofline.py``). ``kernels`` and ``roofline`` are
+  stages of ``all``, not campaigns: ``--campaign all --campaign-only
+  kernels`` runs one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --campaign lm-sweep \\
         [--resume] [--campaign-only lm-grid] [--device cpu]
 """
 from __future__ import annotations
 
-from repro_torch.campaign.spec import Campaign, get_campaign, \
-    register_campaign, stage, sweep
+from repro_torch.campaign.spec import Campaign, RunSpec, Stage, \
+    get_campaign, register_campaign, stage, sweep
+
+# ---------------------------------------------------------------- engine --
+_engine_runs = [
+    ("stage_walltime", {"n_workers": 16, "dim": 64, "iters": 200},
+     "walltime"),
+    ("stage_payload", {"n": 4, "iters": 40}, "payload"),
+    ("stage_pytree_fusion", {"n_leaves": 16, "n": 8, "dim": 256,
+                             "iters": 20}, "pytree_fusion"),
+    ("stage_fused_range", {"n_leaves": 16, "n": 8, "dim": 256,
+                           "iters": 30}, "fused_range"),
+    ("stage_group_specs", {"n_workers": 8, "iters": 40}, "group_specs"),
+    ("stage_mix_backends", {"n_workers": 16, "dim": 64, "iters": 60},
+     "mix_backends"),
+    ("stage_mix_sweep", {"ns": [64, 128, 256], "ps": [0.1, 0.3, 1.0],
+                         "dim": 256, "inner": 10}, "mix_sweep"),
+]
+
+ENGINE_STAGE = Stage(
+    name="engine",
+    runs=tuple(RunSpec(stage="engine", fn=f"repro_torch.bench.engine:{fn}",
+                       config=cfg, name=name)
+               for fn, cfg, name in _engine_runs))
+
+engine_smoke = register_campaign(
+    Campaign(name="engine-smoke", stages=(ENGINE_STAGE,)))
+
+# --------------------------------------------------------------- serving --
+SERVING_STAGES = (
+    stage("serving-stream", "repro_torch.bench.serving:stage_stream",
+          names=["stream"]),
+    stage("serving-agreement", "repro_torch.bench.serving:stage_agreement",
+          deps=["serving-stream"], names=["agreement"]),
+    stage("serving-long-context",
+          "repro_torch.bench.serving:stage_long_context",
+          deps=["serving-stream"], names=["long_context"]),
+    # the dep keeps serve-smoke serialized (one process, one cached model)
+    stage("serving-load", "repro_torch.bench.serving:stage_serve_load",
+          deps=["serving-stream"], names=["load"]),
+)
+
+serve_smoke = register_campaign(
+    Campaign(name="serve-smoke", stages=SERVING_STAGES))
 
 # --------------------------------------------------------------- figures --
 FIGURES = ("fig2_linreg_synth", "fig3_linreg_real", "fig4_logreg_synth",
@@ -72,7 +120,23 @@ FLEET_STAGE = stage(
 fleet_sweep = register_campaign(
     Campaign(name="fleet-sweep", stages=(FLEET_STAGE,)))
 
-PORTED = ("lm-sweep", "paper-figures", "fleet-sweep")
+# ------------------------------------------------------ kernels/roofline --
+KERNELS_STAGE = stage(
+    "kernels", "repro_torch.bench.kernels:stage_shape",
+    configs=[{"n": n, "d": d} for n, d in ((8, 512), (16, 4096),
+                                           (24, 16384))],
+    names=["8x512", "16x4096", "24x16384"])
+
+ROOFLINE_STAGE = stage(
+    "roofline", "repro_torch.bench.roofline:stage_roofline",
+    names=["roofline"])
+
+# ------------------------------------------------------------------- all --
+everything = register_campaign(
+    Campaign(name="all",
+             stages=(ENGINE_STAGE,) + SERVING_STAGES
+             + (FIGURES_STAGE, FLEET_STAGE, KERNELS_STAGE, ROOFLINE_STAGE,
+                LM_BASELINE_STAGE, LM_GRID_STAGE)))
 
 
 def get(name: str) -> Campaign:

@@ -292,27 +292,47 @@ def grouped_quantize_step(
 
 
 def grouped_quantize_step_unfused(
-    state: GroupQuantState, theta: Tree, uniforms: torch.Tensor,
-    cfg: QuantConfig,
+    state: GroupQuantState, theta: Tree,
+    uniforms: Union[torch.Tensor, Sequence[torch.Tensor]], cfg: QuantConfig,
+    group_ids: Optional[Sequence[int]] = None,
 ) -> Tuple[GroupQuantState, Tree, torch.Tensor, torch.Tensor]:
-    """A one-leaf tree at G=1 through ``ops.stoch_quantize``. A worker
-    whose range is degenerate (nothing moved) keeps its old
-    reconstruction."""
-    leaf = T.leaves(theta)[0]
-    q_leaf = T.leaves(state.q_hat)[0]
-    n = leaf.shape[0]
-    flat = leaf.reshape(n, -1).to(torch.float32)
-    q = q_leaf.reshape(n, -1).to(torch.float32)
-    dim = flat.shape[1]
-    range_new = torch.amax(torch.abs(flat - q), dim=-1, keepdim=True)  # (N,1)
+    """The per-leaf loop: one ``ops.stoch_quantize`` call per leaf, with
+    the (N, G) ranges reduced per group first. A one-leaf tree at G=1 takes
+    this path (the seed stepper's, bit for bit); for a multi-leaf tree it
+    is the dispatch baseline the fused path is timed against
+    (``bench/engine.py``). ``uniforms`` is the (N, D) draw of a one-leaf
+    tree or one draw per leaf in leaf order (each the leaf's shape or
+    ``(N, d_leaf)``), as the JAX package draws one per leaf; ``group_ids``
+    defaults to one group. A worker whose group range is degenerate
+    (nothing moved) keeps its old reconstruction there."""
+    leaves = T.leaves(theta)
+    q_leaves = T.leaves(state.q_hat)
+    draws = [uniforms] if torch.is_tensor(uniforms) else list(uniforms)
+    if len(draws) != len(leaves):
+        raise ValueError(f"{len(draws)} uniform draws for {len(leaves)} "
+                         f"leaves")
+    ids = tuple(group_ids) if group_ids is not None else (0,) * len(leaves)
+    n = leaves[0].shape[0]
+    flats = [t.reshape(n, -1).to(torch.float32) for t in leaves]
+    qs = [q.reshape(n, -1).to(torch.float32) for q in q_leaves]
+    maxabs = [torch.amax(torch.abs(f - q), dim=-1) for f, q in zip(flats, qs)]
+    cols = []
+    for g in range(state.n_groups):
+        members = [maxabs[i] for i, gi in enumerate(ids) if gi == g]
+        cols.append(members[0] if len(members) == 1
+                    else torch.amax(torch.stack(members), dim=0))
+    range_new = torch.stack(cols, dim=1)                          # (N, G)
     bits, delta, degen = quant_lib.bit_schedule(
         state.bits_prev, range_new, state.range_prev, state.initialized,
         cfg.omega, cfg.b0, cfg.b_max)
-    fresh = ops.stoch_quantize(
-        flat.contiguous(), q.contiguous(), uniforms.contiguous(),
-        delta[:, 0].contiguous(), range_new[:, 0].contiguous())
-    out = torch.where(degen, q, fresh).to(q_leaf.dtype).reshape(q_leaf.shape)
-    q_hat_new = T.unflatten(state.q_hat, [out])
+    new_leaves = []
+    for f, q, u, q_leaf, g in zip(flats, qs, draws, q_leaves, ids):
+        fresh = ops.stoch_quantize(
+            f.contiguous(), q.contiguous(), u.reshape(n, -1).contiguous(),
+            delta[:, g].contiguous(), range_new[:, g].contiguous())
+        new_leaves.append(torch.where(degen[:, g:g + 1], q, fresh)
+                          .to(q_leaf.dtype).reshape(q_leaf.shape))
+    q_hat_new = T.unflatten(state.q_hat, new_leaves)
     new_state = GroupQuantState(
         q_hat=q_hat_new,
         range_prev=torch.where(degen, state.range_prev, range_new),
@@ -320,7 +340,10 @@ def grouped_quantize_step_unfused(
         delta_prev=torch.where(degen, state.delta_prev, delta),
         initialized=torch.ones_like(state.initialized),
     )
-    payload = torch.sum(bits * float(dim), dim=-1) \
+    # sum_g b_g d_g with the d_g as host scalars: no host-to-device copy
+    # (a synchronisation) on the one-leaf hot path
+    dims = group_dims(theta, ids)
+    payload = sum(bits[:, g] * float(d) for g, d in enumerate(dims)) \
         + float(state.n_groups * cfg.b_overhead)
     return new_state, q_hat_new, bits, payload
 

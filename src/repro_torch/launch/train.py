@@ -74,10 +74,13 @@ an untraced run, and the ledger's one host copy of a round's metrics is the
 only synchronisation it adds.
 
 ``--campaign NAME`` runs a registered campaign (``bench/campaigns.py``:
-``lm-sweep``, ``paper-figures``, ``fleet-sweep``) through the resumable
-runner (``campaign/``) on the card, or on the CPU with ``--device cpu``;
-``--resume`` skips completed runs and ``--campaign-only STAGE`` runs one
-stage plus its incomplete dependencies. :func:`campaign_lm_run` is
+``engine-smoke``, ``serve-smoke``, ``paper-figures``, ``lm-sweep``,
+``fleet-sweep``, ``all``) through the resumable runner (``campaign/``) on
+the card, or on the CPU with ``--device cpu``; ``--resume`` skips completed
+runs and ``--campaign-only STAGE`` runs one stage plus its incomplete
+dependencies (``kernels`` and ``roofline`` are stages of ``all``: ``--campaign
+all --campaign-only roofline``). An unknown name raises ``KeyError``, as
+the JAX package's ``get_campaign`` does. :func:`campaign_lm_run` is
 ``lm-sweep``'s stage function: one consensus-LM run of the smoke config
 with its whole engine state checkpointed through the run context, so a
 killed sweep resumes mid-run bit for bit. Results and run state go under
@@ -124,11 +127,6 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.ledger import CommLedger
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime import steps as ST
-
-# campaigns of the JAX package that time the system: they wait for the
-# port's benchmark
-SPEED_CAMPAIGNS = ("engine-smoke", "serve-smoke", "kernels", "roofline",
-                   "all")
 
 
 def lm_grad_fn(cfg):
@@ -633,11 +631,6 @@ def run_campaign(args) -> dict:
     from repro_torch.campaign.runner import Runner
     from repro_torch.campaign.store import Record, ResultStore
 
-    if args.campaign in SPEED_CAMPAIGNS:
-        raise SystemExit(
-            f"[train] --campaign {args.campaign} times the system; it waits "
-            f"for the port's benchmark (ROADMAP.md queue A). Ported: "
-            f"{', '.join(campaigns.PORTED)}")
     campaign = campaigns.get(args.campaign)
     resolve_device(args.device)      # no card and no --device cpu: raise
     root = Path(args.campaign_dir)

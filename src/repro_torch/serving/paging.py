@@ -550,3 +550,17 @@ def cache_page_bytes(cache) -> int:
             if name in c:
                 total += c[name].numel() * c[name].element_size()
     return total
+
+
+def cache_bytes_per_token(cache) -> float:
+    """Pool bytes per cached-token slot, summed over every layer (K + V +
+    side information): the modeled bytes of attending one cached token in
+    one decode step (at context C a step reads ~C times this per
+    sequence), the quantity the serve-smoke ``long_context`` stage
+    gates."""
+    for c, _ in _block_caches(cache):
+        kv_pos = c.get("kv_pos")
+        if kv_pos is not None and kv_pos.dim() >= 2:
+            slots = kv_pos.shape[-2] * kv_pos.shape[-1]    # num_pages * ps
+            return cache_page_bytes(cache) / slots
+    raise ValueError("not a paged cache (no pool-shaped kv_pos leaf)")

@@ -397,9 +397,108 @@ def test_grouped_kernels_reject_what_they_do_not_take(cuda):
 # ------------------------------------------------ paged-attention decode --
 # (B, H, KV, hd, ps, P): the smoke model's heads, tinyllama's heads, and a
 # long table (256 pages of 16: the online kernel's own range)
+@pytest.mark.cuda
+def test_seed_stepper_on_card_equals_its_cpu_run(cuda):
+    """The frozen seed stepper (B1 and B2 on the card) against its CPU run
+    (the plain versions): ggadmm's trajectory within 1e-4 max|theta|; and
+    cq-ggadmm on the card with injected draws equal to the engine on the
+    card bit for bit, 2 B1 and 3 B2 launches an iteration."""
+    from repro_torch import interop
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import cq_ggadmm
+    from repro_torch.core import seed_reference as sr
+    from repro_torch.core.graph import random_bipartite_graph
+    from repro_torch.data import regression as R
+
+    x, y = R.partition_uniform(R.synth_linear(), 24)
+    graph = random_bipartite_graph(24, 0.35, seed=0)
+    thetas = []
+    for dev in ("cpu", cuda):
+        prob = interop.problem_from_numpy(x, y, "linear", device=dev)
+        state, _ = sr.run(graph, prob, ab.ggadmm(), 50, 30, device=dev)
+        thetas.append(state.theta.cpu().numpy())
+    err = np.abs(thetas[0] - thetas[1]).max()
+    assert err <= 1e-4 * np.abs(thetas[0]).max(), err
+
+    rng = np.random.default_rng(4)
+    draws = rng.uniform(size=(10, 2, 24, 50)).astype(np.float32)
+
+    def uniforms(it, phase):
+        return torch.from_numpy(draws[it, phase])
+
+    prob = interop.problem_from_numpy(x, y, "linear", device=cuda)
+    cfg = ab.cq_ggadmm(rho=1.0)
+    before = dict(ops.launches)
+    st_s, out_s = sr.run(graph, prob, cfg, 50, 10, uniforms=uniforms,
+                         device=cuda)
+    torch.cuda.synchronize()
+    assert ops.launches["stoch_quantize"] - before["stoch_quantize"] == 20
+    assert ops.launches["bipartite_mix"] - before["bipartite_mix"] == 30
+    st_e, out_e = cq_ggadmm.run(graph, prob, cfg, 50, 10, uniforms=uniforms,
+                                device=cuda)
+    np.testing.assert_array_equal(out_e["tx_mask"], out_s["tx_mask"])
+    np.testing.assert_array_equal(out_e["candidate_payload_bits"],
+                                  out_s["payload_bits"])
+    assert torch.equal(st_e.theta, st_s.theta)
+    assert torch.equal(st_e.quant.q_hat, st_s.quant.q_hat)
+
+
+@pytest.mark.cuda
+def test_perleaf_loop_on_card_equals_its_plain_run(cuda):
+    """The multi-leaf per-leaf loop (one B1 launch a leaf) against the same
+    step on the CPU: ranges and bit widths equal, each leaf within the
+    quantizer's tolerance."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.quantization import QuantConfig
+
+    shapes = {"a": (6, 5), "b": (6, 3, 40), "c": (6, 700), "d": (6, 1)}
+    gids, cfg = (0, 1, 0, 2), QuantConfig(b0=3, omega=0.9)
+    rng = np.random.default_rng(5)
+    tree = {k: (3.0 * rng.standard_normal(s)).astype(np.float32)
+            for k, s in shapes.items()}
+    qprev = {k: (3.0 * rng.standard_normal(s)).astype(np.float32)
+             for k, s in shapes.items()}
+    qprev["d"][2] = tree["d"][2]                 # a degenerate group
+    draws = [rng.uniform(size=s).astype(np.float32)
+             for s in shapes.values()]
+    outs = []
+    for dev in ("cpu", cuda):
+        state = E.GroupQuantState.create(
+            {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}, 3,
+            b0=3)
+        state = E.GroupQuantState(
+            q_hat={k: torch.from_numpy(v).to(dev) for k, v in qprev.items()},
+            range_prev=state.range_prev + 1.0, bits_prev=state.bits_prev,
+            delta_prev=state.delta_prev,
+            initialized=torch.ones_like(state.initialized))
+        before = ops.launches["stoch_quantize"]
+        new, q, bits, pay = E.grouped_quantize_step_unfused(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in tree.items()},
+            [torch.from_numpy(u).to(dev) for u in draws], cfg, gids)
+        torch.cuda.synchronize()
+        launched = ops.launches["stoch_quantize"] - before
+        outs.append((new, q, bits, pay, launched))
+    (cpu, cq, cbits, cpay, _), (card, gq, gbits, gpay, launched) = outs
+    assert launched == len(shapes)
+    np.testing.assert_array_equal(gbits.cpu().numpy(), cbits.numpy())
+    np.testing.assert_array_equal(gpay.cpu().numpy(), cpay.numpy())
+    np.testing.assert_array_equal(card.range_prev.cpu().numpy(),
+                                  cpu.range_prev.numpy())
+    rng_, delta = cpu.range_prev.numpy(), cpu.delta_prev.numpy()
+    for i, (k, s) in enumerate(shapes.items()):
+        g, n = gids[i], s[0]
+        flat = (lambda a: np.asarray(a, np.float32).reshape(n, -1))
+        assert_quant_close(flat(gq[k].cpu()), flat(cq[k]), flat(tree[k]),
+                           flat(qprev[k]), flat(draws[i]), delta[:, g],
+                           rng_[:, g])
+
+
 PAGED_SHAPES = {"smoke": (3, 8, 2, 32, 4, 16),
                 "tinyllama": (8, 32, 4, 64, 16, 64),
-                "tinyllama-long": (8, 32, 4, 64, 16, 256)}
+                "tinyllama-long": (8, 32, 4, 64, 16, 256),
+                # the serve-smoke campaign's model: 8-token pages, 11-page
+                # tables (17 prompt + 64 new tokens)
+                "serve-smoke-ps8": (4, 8, 2, 64, 8, 11)}
 
 
 def paged_inputs(bsz, heads, num_kv, hd, ps, pps, kv_bits, seed, *,

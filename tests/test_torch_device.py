@@ -2,6 +2,7 @@
 take the plain versions only for CPU tensors, and it imports nothing of JAX
 or of the JAX package."""
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -132,15 +133,69 @@ def test_ops_on_other_devices_raise_instead_of_falling_back():
             torch.ones((2,), dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("argv", [["--campaign", "engine-smoke"],
-                                  ["--campaign", "serve-smoke"],
-                                  ["--campaign", "all"]])
-def test_train_flags_not_ported_exit_naming_roadmap(argv):
-    """The campaigns that time the system wait for the port's benchmark;
-    lm-sweep, paper-figures and fleet-sweep run (tests/test_torch_campaign
-    .py)."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        train.main(["--smoke", "--device", "cpu"] + argv)
+# the engine stages at small configs; the fn and run names are the
+# registered campaign's
+SMALL_ENGINE = {
+    "stage_walltime": {"n_workers": 4, "dim": 4, "iters": 3},
+    "stage_payload": {"n": 2, "iters": 3},
+    "stage_pytree_fusion": {"n_leaves": 3, "n": 2, "dim": 4, "iters": 2},
+    "stage_fused_range": {"n_leaves": 3, "n": 2, "dim": 4, "iters": 2},
+    "stage_group_specs": {"n_workers": 4, "iters": 2},
+    "stage_mix_backends": {"n_workers": 4, "dim": 4, "iters": 3},
+    "stage_mix_sweep": {"ns": [16], "ps": [0.1, 1.0], "dim": 8, "inner": 1},
+}
+
+
+def _small_speed_campaigns(monkeypatch):
+    """engine-smoke at small configs, and serve-smoke on the smoke model
+    (float32 activations) with short decodes and 8 load requests."""
+    from repro_torch.bench import campaigns
+    from repro_torch.bench import serving as BS
+    from repro_torch.campaign import spec
+
+    runs = tuple(dataclasses.replace(r, config=SMALL_ENGINE[
+        r.fn.split(":")[1]]) for r in campaigns.ENGINE_STAGE.runs)
+    monkeypatch.setitem(spec.CAMPAIGNS, "engine-smoke", spec.Campaign(
+        name="engine-smoke", stages=(spec.Stage("engine", runs),)))
+    monkeypatch.setattr(BS, "config", lambda: base.get_smoke_config(
+        BS.ARCH).with_overrides(dtype="float32"))
+    monkeypatch.setattr(BS, "LONG", 8)
+    monkeypatch.setattr(BS, "DECODE_LENS", (8, 2, 2, 2) * 3)
+    monkeypatch.setattr(BS, "LOAD_REQS", 8)
+    BS._setup.cache_clear()
+    return BS._setup.cache_clear
+
+
+@pytest.mark.parametrize("argv,executed", [
+    (["--campaign", "engine-smoke"], 7),
+    (["--campaign", "serve-smoke"], 4),
+    (["--campaign", "all", "--campaign-only", "kernels"], 3)],
+    ids=["engine-smoke", "serve-smoke", "all-kernels"])
+def test_train_runs_the_speed_campaigns(argv, executed, tmp_path,
+                                        monkeypatch):
+    """The campaigns that time the system run through ``--campaign`` on
+    the CPU when asked (here engine-smoke and serve-smoke at small sizes;
+    ``tests/test_torch_bench_*.py`` hold their claims): every run done,
+    none failed."""
+    clear = _small_speed_campaigns(monkeypatch)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # small ops: one thread (see SKILL.md)
+    try:
+        out = train.main(argv + ["--device", "cpu", "--campaign-dir",
+                                 str(tmp_path)])
+    finally:
+        torch.set_num_threads(threads)
+        clear()
+    assert (out["campaign"], out["executed"], out["skipped"],
+            out["failed"]) == (argv[1], executed, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["kernels", "roofline"])
+def test_train_kernels_and_roofline_are_stages_of_all(name):
+    """``kernels`` and ``roofline`` are stages of ``all``, not campaigns:
+    ``--campaign kernels`` raises the JAX package's ``KeyError``."""
+    with pytest.raises(KeyError, match=f"unknown campaign '{name}'"):
+        train.main(["--campaign", name, "--device", "cpu"])
 
 
 def test_train_unknown_campaign_raises_as_get_campaign_does():
