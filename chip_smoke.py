@@ -278,7 +278,19 @@ with its time printed:
    its full-width shapes against its bound (``bench/roofline.py``, whose
    bytes and operations every bound of this script uses): each row launched
    and at most 1.05 of its bound, printed with the card's name and power
-   limit.
+   limit;
+35. the fleet with churn on the sharded backend, run right after phase 32:
+   xlstm-125m at full width through ``train.main(LM_FLAGS + ["--fleet",
+   ...])`` (participation 0.75, staleness 2, churn ``2:1:1``), 3 rounds,
+   once with ``--mix-backend dense`` and once with ``--mix-backend
+   sharded`` on the NCCL group of one that ``train.init_sharded_group``
+   makes: loss history, bits, transmissions and churn log equal bit for
+   bit, exactly 6 B3 and 9 B2 launches each, the sharded run's 9 mix
+   all-gathers of (4, 134,277,912) counted; s/round and peak memory of
+   both, with the card's name and power limit. With two or more cards the
+   sharded fleet under ``torch.distributed.run --nproc-per-node 2`` (phase
+   32's ``--sharded-rank`` mode), equal to the world-1 run as phase 32's
+   LM run is; with one card a line says it was not run.
 
 Phases 25-27 run in a child process (``--child-phases family``, output
 in ``build/chip_smoke_family.log``, printed when it ends) and phase 31 in
@@ -1139,21 +1151,90 @@ def sharded_topology(ops, ref, dev, full, parked, lm32):
     finally:
         end()
     torch.cuda.empty_cache()
-    sharded_two_cards(result)
+    sharded_two_cards("lm", result, LM_FLAGS + ["--steps", str(LM_STEPS),
+                                                "--mix-backend", "sharded"])
 
 
 SHARDED_RANKS = Path(__file__).resolve().parent / "build" / "sharded_ranks"
+# phase 35's fleet: phase 12's fault schedule on the dense and sharded
+# backends (phase 12 runs it on the sparse one)
+LM_FLEET_ROUNDS = 3
+FLEET_FLAGS = ["--fleet", "--fleet-participation", "0.75",
+               "--fleet-staleness", "2", "--fleet-churn", "2:1:1"]
 
 
-def sharded_two_cards(world1):
-    """The LM run of :func:`sharded_topology` under ``torch.distributed.run
-    --nproc-per-node 2``, one rank a card: bits and transmissions equal,
-    the loss within 1e-6 (the cross-rank mean); each rank's peak memory.
-    Needs two cards; with one it says so and passes nothing."""
+def sharded_fleet(ops, dev, smi):
+    """Phase 35: the fleet with churn on the sharded backend at full width
+    (xlstm-125m, 3 rounds, churn at round 2) through ``train.main``, on the
+    dense backend and on the sharded one over the NCCL group of one that
+    ``train.main`` makes (``train.init_sharded_group``): loss history,
+    bits, transmissions and churn log bit for bit, 2 B3 and 3 B2 launches
+    a round each, and the sharded run's 3 mix all-gathers a round; s/round
+    and peak memory of both. Then the sharded fleet over two ranks where
+    the host has two cards."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    flags = LM_FLAGS + FLEET_FLAGS + ["--steps", str(LM_FLEET_ROUNDS)]
+    runs = {}
+    for backend in ("dense", "sharded"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with counted_gathers() as gathers:
+            t0 = time.perf_counter()
+            out = train.main(flags + ["--mix-backend", backend])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        assert not dist.is_initialized()
+        launches = dict(ops.launches)
+        want = {k: 0 for k in ops.KERNELS}
+        want.update(stoch_quantize_grouped_fused=2 * LM_FLEET_ROUNDS,
+                    bipartite_mix=3 * LM_FLEET_ROUNDS)
+        assert launches == want, (backend, launches)
+        m = out["metrics"]
+        mixes = [g for g in gathers if g == (4, LM_DIM)]
+        assert len(mixes) == (3 * LM_FLEET_ROUNDS if backend == "sharded"
+                              else 0), (backend, gathers)
+        assert np.isfinite(out["history"]).all(), out["history"]
+        assert [ev["round"] for ev in out["churn_log"]] == [2]
+        runs[backend] = {
+            "history": out["history"], "total_bits": out["total_bits"],
+            "tx_counts": m["tx_count"].tolist(),
+            "churn_log": out["churn_log"],
+            "step_seconds": out["step_seconds"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall": wall, "gathers": len(gathers), "mixes": len(mixes),
+            "launches": launches}
+        del out, m
+    dense, sharded = runs["dense"], runs["sharded"]
+    for k in ("history", "total_bits", "tx_counts", "churn_log"):
+        assert sharded[k] == dense[k], (k, sharded[k], dense[k])
+    log(f"sharded fleet xlstm-125m, world 1 over NCCL ({smi}): loss "
+        f"{' -> '.join(f'{x:.4f}' for x in sharded['history'])}, bits "
+        f"{sharded['total_bits']:.4e}, tx {sharded['tx_counts']} and churn "
+        f"{sharded['churn_log']} equal to the dense fleet's bit for bit; "
+        f"s/round {', '.join(f'{x:.3f}' for x in sharded['step_seconds'])} "
+        f"(dense: {', '.join(f'{x:.3f}' for x in dense['step_seconds'])}; "
+        f"wall {sharded['wall']:.1f} s and {dense['wall']:.1f} s with init),"
+        f" peak device memory {sharded['peak_gb']:.2f} GB (dense "
+        f"{dense['peak_gb']:.2f}); {sharded['mixes']} mix all-gathers of "
+        f"{4 * LM_DIM * 4 / 1e9:.2f} GB, {sharded['gathers']} in all; "
+        f"launches {sharded['launches']}")
+    sharded_two_cards("fleet", sharded, flags + ["--mix-backend", "sharded"])
+
+
+def sharded_two_cards(label, world1, flags):
+    """A sharded run of ``flags`` (phase 32's LM run, phase 35's fleet)
+    under ``torch.distributed.run --nproc-per-node 2``, one rank a card:
+    bits and transmissions equal to the world-1 run ``world1``, the loss
+    within 1e-6 (the cross-rank mean); each rank's peak memory. Needs two
+    cards; with one it says so and passes nothing."""
     n = torch.cuda.device_count()
     if n < 2:
-        log(f"sharded lm 2 ranks: needs 2 cards, this host has {n}; not run "
-            f"(not counted as passed)")
+        log(f"sharded {label} 2 ranks: needs 2 cards, this host has {n}; "
+            f"not run (not counted as passed)")
         return
     SHARDED_RANKS.mkdir(parents=True, exist_ok=True)
     for old in SHARDED_RANKS.glob("rank*.json"):
@@ -1162,8 +1243,7 @@ def sharded_two_cards(world1):
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", str(Path(__file__).resolve()),
-         "--sharded-rank", str(SHARDED_RANKS)] + LM_FLAGS
-        + ["--steps", str(LM_STEPS), "--mix-backend", "sharded"],
+         "--sharded-rank", str(SHARDED_RANKS)] + flags,
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
         timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -1174,7 +1254,7 @@ def sharded_two_cards(world1):
         assert r["tx_counts"] == world1["tx_counts"], r
         np.testing.assert_allclose(r["history"], world1["history"],
                                    rtol=1e-6)
-    log(f"sharded lm 2 ranks on 2 cards: loss "
+    log(f"sharded {label} 2 ranks on 2 cards: loss "
         f"{' -> '.join(f'{x:.6f}' for x in ranks[0]['history'])}, bits and "
         f"tx equal to world 1; s/step {ranks[0]['step_seconds']}; peak "
         f"device memory per rank {[r['peak_gb'] for r in ranks]} GB; "
@@ -1184,7 +1264,8 @@ def sharded_two_cards(world1):
 def sharded_rank_main(out_dir: str, flags) -> int:
     """``--sharded-rank DIR FLAGS...``, one rank under ``torch.distributed
     .run``: the trainer with ``FLAGS`` on ``cuda:LOCAL_RANK``; rank r writes
-    its result to ``DIR/rank<r>.json``."""
+    its result to ``DIR/rank<r>.json`` (a fleet run's transmissions are its
+    per-round ``tx_count``)."""
     from repro_torch.launch import train
 
     cuda = "--device" not in flags
@@ -1192,8 +1273,9 @@ def sharded_rank_main(out_dir: str, flags) -> int:
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         torch.cuda.reset_peak_memory_stats()
     out = train.main(flags)
-    res = {k: out[k] for k in ("history", "total_bits", "tx_counts",
-                               "step_seconds")}
+    res = {k: out[k] for k in ("history", "total_bits", "step_seconds")}
+    res["tx_counts"] = (out["tx_counts"] if "tx_counts" in out else
+                        [int(x) for x in out["metrics"]["tx_count"]])
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
     Path(out_dir, f"rank{os.environ['RANK']}.json").write_text(
         json.dumps(res))
@@ -1316,11 +1398,7 @@ def twopass_vs_fused(ops, dev):
 
 # slice 4: the sparse topology (B6), time-varying graphs and the fleet
 DYN_ITERS, DYN_REFRESH, FLEET_ROUNDS, PAPER_FLEET_ROUNDS = 20, 5, 20, 60
-LM_FLEET_ROUNDS = 3
-LM_FLEET_FLAGS = LM_FLAGS + ["--mix-backend", "sparse", "--fleet",
-                             "--fleet-participation", "0.75",
-                             "--fleet-staleness", "2",
-                             "--fleet-churn", "2:1:1"]
+LM_FLEET_FLAGS = LM_FLAGS + ["--mix-backend", "sparse"] + FLEET_FLAGS
 LM_DIM = 134277912          # xlstm-125m parameters per worker
 
 
@@ -4181,6 +4259,9 @@ def main() -> int:
     sharded_topology(ops, ref, dev, full, parked, lm32)
     del full, parked
     log(f"phase sharded topology: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_fleet(ops, dev, smi)
+    log(f"phase sharded fleet: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lm_bf16_traced(ops, dev, lm32)
     log(f"phase lm full width bf16 replicas, traced: "

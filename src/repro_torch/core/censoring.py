@@ -12,7 +12,7 @@ For CQ-GGADMM the candidate is the quantized reconstruction Q̂_n^{k+1}
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -34,22 +34,30 @@ class CensorConfig:
 
 
 def threshold(cfg: CensorConfig, k: int,
-              device: torch.device = torch.device("cpu")) -> torch.Tensor:
+              device: torch.device = torch.device("cpu"),
+              xi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tau^k = tau0 * xi^k in float32, as a 0-d tensor on ``device``. A
     subnormal result is flushed to 0, as the JAX reference's XLA flushes
-    float32 subnormals, so both reach tau = 0 at the same k."""
-    xi = torch.tensor(cfg.xi, dtype=torch.float32, device=device)
+    float32 subnormals, so both reach tau = 0 at the same k. ``xi`` is
+    ``cfg.xi`` as a float32 0-d tensor on the device, made once by a
+    caller that evaluates the threshold every iteration; None copies it
+    from the host here."""
+    if xi is None:
+        xi = torch.tensor(cfg.xi, dtype=torch.float32, device=device)
     tau = cfg.tau0 * torch.pow(xi, float(k))
     return torch.where(tau < torch.finfo(torch.float32).tiny,
                        torch.zeros_like(tau), tau)
 
 
-def group_thresholds(tau: torch.Tensor, group_dims: Tuple[int, ...],
+def group_thresholds(tau: torch.Tensor,
+                     group_dims: Union[Tuple[int, ...], torch.Tensor],
                      total_dim: int) -> torch.Tensor:
     """Per-group thresholds ``tau_g = tau * sqrt(d_g / d)``: the squared
     thresholds partition the global censor budget, so group-mode censoring
-    is the paper's single test at G=1. Returns (G,)."""
-    dims = torch.tensor(group_dims, dtype=torch.float32, device=tau.device)
+    is the paper's single test at G=1. ``group_dims`` is a tuple, or the
+    (G,) float32 tensor of it on tau's device. Returns (G,)."""
+    dims = group_dims if torch.is_tensor(group_dims) else torch.tensor(
+        group_dims, dtype=torch.float32, device=tau.device)
     return tau * torch.sqrt(dims / max(float(total_dim), 1.0))
 
 
@@ -75,10 +83,13 @@ def censor_mask(last_sent: torch.Tensor, candidate: torch.Tensor,
 
 
 def compose_tx_mask(timeout_mask: torch.Tensor, censor_mask: torch.Tensor,
-                    group_censor_mask: torch.Tensor,
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    group_censor_mask: Optional[torch.Tensor],
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fold a timeout into the censoring decision: a timed-out worker is a
     censored worker, ``tx = timeout & censor`` per worker and per group
-    (float 0/1 masks, so ``&`` is a product)."""
+    (float 0/1 masks, so ``&`` is a product). A group mask of None (each
+    group takes its worker's decision) stays None."""
     tm = timeout_mask.to(censor_mask.dtype)
+    if group_censor_mask is None:
+        return censor_mask * tm, None
     return censor_mask * tm, group_censor_mask * tm[:, None]

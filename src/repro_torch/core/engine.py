@@ -110,6 +110,39 @@ def tree_where_worker(mask: torch.Tensor, a: Tree, b: Tree) -> Tree:
     return T.tree_map(sel, a, b)
 
 
+def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``; ``x`` itself, with no call into torch, where it
+    is already (the step's host time is mostly such calls)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    """An (N, ...) leaf as (N, d); a leaf that is (N, d) already is
+    returned as it is (no view op for the step to dispatch)."""
+    return x if x.dim() == 2 else x.reshape(x.shape[0], -1)
+
+
+class _Constants:
+    """The host constants a step reads, copied to the device once per
+    :func:`make_step` (per run) instead of every call: the censor decay
+    ``xi``, the schedule's ln 2 and the per-group dims tuples."""
+
+    def __init__(self, cfg: "EngineConfig", device: torch.device):
+        self.device = device
+        self.xi = torch.tensor(cfg.censor.xi, dtype=torch.float32,
+                               device=device)
+        self.ln2 = quant_lib.ln2_on(device)
+        self._dims: Dict[Tuple[int, ...], torch.Tensor] = {}
+
+    def dims(self, group_dims: Sequence[int]) -> torch.Tensor:
+        """``group_dims`` as a (G,) float32 tensor on the device."""
+        key = tuple(int(d) for d in group_dims)
+        if key not in self._dims:
+            self._dims[key] = torch.as_tensor(key, dtype=torch.float32,
+                                              device=self.device)
+        return self._dims[key]
+
+
 # ------------------------------------------------------- group resolution --
 def resolve_groups(theta: Tree, groups: GroupSpec) -> Tuple[int, ...]:
     """Leaf index -> group id, aligned with the sorted leaf order (the JAX
@@ -279,22 +312,26 @@ def init_state(theta: Tree, cfg: EngineConfig,
 def grouped_quantize_step(
     state: GroupQuantState, theta: Tree, uniforms: torch.Tensor,
     cfg: QuantConfig, group_ids: Sequence[int],
+    consts: Optional[_Constants] = None,
 ) -> Tuple[GroupQuantState, Tree, torch.Tensor, torch.Tensor]:
     """One grouped stochastic-quantization round (Eqs. 14-20, group-wise).
     One leaf: the unfused ``stoch_quantize`` path; more leaves: one fused
     call on the packed buffer. ``uniforms`` is (N, D). Returns
     ``(new_state, candidate, bits (N, G), payload (N,))`` with payload
-    = sum_g b_g d_g + G * overhead."""
+    = sum_g b_g d_g + G * overhead. ``consts`` holds the step's device
+    constants (None copies them from the host)."""
     if len(T.leaves(theta)) == 1:
-        return grouped_quantize_step_unfused(state, theta, uniforms, cfg)
+        return grouped_quantize_step_unfused(state, theta, uniforms, cfg,
+                                             consts=consts)
     return _grouped_quantize_step_packed(state, theta, uniforms, cfg,
-                                         group_ids)
+                                         group_ids, consts)
 
 
 def grouped_quantize_step_unfused(
     state: GroupQuantState, theta: Tree,
     uniforms: Union[torch.Tensor, Sequence[torch.Tensor]], cfg: QuantConfig,
     group_ids: Optional[Sequence[int]] = None,
+    consts: Optional[_Constants] = None,
 ) -> Tuple[GroupQuantState, Tree, torch.Tensor, torch.Tensor]:
     """The per-leaf loop: one ``ops.stoch_quantize`` call per leaf, with
     the (N, G) ranges reduced per group first. A one-leaf tree at G=1 takes
@@ -312,26 +349,29 @@ def grouped_quantize_step_unfused(
         raise ValueError(f"{len(draws)} uniform draws for {len(leaves)} "
                          f"leaves")
     ids = tuple(group_ids) if group_ids is not None else (0,) * len(leaves)
-    n = leaves[0].shape[0]
-    flats = [t.reshape(n, -1).to(torch.float32) for t in leaves]
-    qs = [q.reshape(n, -1).to(torch.float32) for q in q_leaves]
+    flats = [_as(_rows2d(t), torch.float32) for t in leaves]
+    qs = [_as(_rows2d(q), torch.float32) for q in q_leaves]
     maxabs = [torch.amax(torch.abs(f - q), dim=-1) for f, q in zip(flats, qs)]
     cols = []
     for g in range(state.n_groups):
         members = [maxabs[i] for i, gi in enumerate(ids) if gi == g]
         cols.append(members[0] if len(members) == 1
                     else torch.amax(torch.stack(members), dim=0))
-    range_new = torch.stack(cols, dim=1)                          # (N, G)
+    range_new = (cols[0][:, None] if len(cols) == 1
+                 else torch.stack(cols, dim=1))                   # (N, G)
     bits, delta, degen = quant_lib.bit_schedule(
         state.bits_prev, range_new, state.range_prev, state.initialized,
-        cfg.omega, cfg.b0, cfg.b_max)
+        cfg.omega, cfg.b0, cfg.b_max,
+        ln2=consts.ln2 if consts is not None else None)
     new_leaves = []
     for f, q, u, q_leaf, g in zip(flats, qs, draws, q_leaves, ids):
         fresh = ops.stoch_quantize(
-            f.contiguous(), q.contiguous(), u.reshape(n, -1).contiguous(),
+            f.contiguous(), q.contiguous(), _rows2d(u).contiguous(),
             delta[:, g].contiguous(), range_new[:, g].contiguous())
-        new_leaves.append(torch.where(degen[:, g:g + 1], q, fresh)
-                          .to(q_leaf.dtype).reshape(q_leaf.shape))
+        keep = degen if state.n_groups == 1 else degen[:, g:g + 1]
+        out = _as(torch.where(keep, q, fresh), q_leaf.dtype)
+        new_leaves.append(out if out.shape == q_leaf.shape
+                          else out.reshape(q_leaf.shape))
     q_hat_new = T.unflatten(state.q_hat, new_leaves)
     new_state = GroupQuantState(
         q_hat=q_hat_new,
@@ -342,16 +382,18 @@ def grouped_quantize_step_unfused(
     )
     # sum_g b_g d_g with the d_g as host scalars: no host-to-device copy
     # (a synchronisation) on the one-leaf hot path
-    dims = group_dims(theta, ids)
-    payload = sum(bits[:, g] * float(d) for g, d in enumerate(dims)) \
-        + float(state.n_groups * cfg.b_overhead)
+    terms = [bits[:, g] * float(d)
+             for g, d in enumerate(group_dims(theta, ids))]
+    payload = sum(terms[1:], terms[0]) + float(state.n_groups
+                                               * cfg.b_overhead)
     return new_state, q_hat_new, bits, payload
 
 
 def _finish_packed_step(state: GroupQuantState, pk: packing.Packing,
                         out: torch.Tensor, range_new: torch.Tensor,
                         bits: torch.Tensor, delta: torch.Tensor,
-                        cfg: QuantConfig):
+                        cfg: QuantConfig,
+                        consts: Optional[_Constants] = None):
     """Shared tail of the packed paths: degenerate-group state carry,
     unpack (views into ``out``), payload accounting; all (N, G)-sized."""
     degen = range_new <= _EPS
@@ -363,8 +405,8 @@ def _finish_packed_step(state: GroupQuantState, pk: packing.Packing,
         delta_prev=torch.where(degen, state.delta_prev, delta),
         initialized=torch.ones_like(state.initialized),
     )
-    dims_arr = torch.as_tensor(pk.group_dims, dtype=torch.float32,
-                               device=bits.device)
+    dims_arr = consts.dims(pk.group_dims) if consts is not None else \
+        torch.as_tensor(pk.group_dims, dtype=torch.float32, device=bits.device)
     payload = torch.sum(bits * dims_arr[None, :], dim=-1) \
         + float(pk.n_groups * cfg.b_overhead)
     return new_state, q_hat_new, bits, payload
@@ -373,6 +415,7 @@ def _finish_packed_step(state: GroupQuantState, pk: packing.Packing,
 def _grouped_quantize_step_packed(
     state: GroupQuantState, theta: Tree, uniforms: torch.Tensor,
     cfg: QuantConfig, group_ids: Sequence[int],
+    consts: Optional[_Constants] = None,
 ) -> Tuple[GroupQuantState, Tree, torch.Tensor, torch.Tensor]:
     """The whole grouped round (range reduction, Eq. (18) schedule,
     quantize, degenerate passthrough) in one ``stoch_quantize_grouped_fused``
@@ -389,7 +432,8 @@ def _grouped_quantize_step_packed(
         state.bits_prev.contiguous(), state.range_prev.contiguous(),
         state.initialized.contiguous(), None, group_runs=pk.group_runs,
         omega=cfg.omega, b0=cfg.b0, b_max=cfg.b_max)
-    return _finish_packed_step(state, pk, out, range_new, bits, delta, cfg)
+    return _finish_packed_step(state, pk, out, range_new, bits, delta, cfg,
+                               consts)
 
 
 def grouped_quantize_step_twopass(
@@ -436,12 +480,17 @@ def identity_quantize_step(
 
 # ------------------------------------------------------------ solvers --
 def _flatten_worker(tree: Tree) -> torch.Tensor:
+    if torch.is_tensor(tree) and tree.dim() == 2:
+        return tree
     xs = T.leaves(tree)
     pk = packing.make_packing(tree, (0,) * len(xs))
     return packing.pack(pk, tree, dtype=xs[0].dtype)
 
 
 def _unflatten_worker(flat: torch.Tensor, like: Tree) -> Tree:
+    if (torch.is_tensor(like) and like.dim() == 2
+            and flat.dtype == like.dtype):
+        return flat
     pk = packing.make_packing(like, (0,) * len(T.leaves(like)))
     return packing.unpack(pk, flat, like=like)
 
@@ -619,40 +668,87 @@ class AutoGrouper:
 
 
 # -------------------------------------------------------------- steps --
+# the per-worker metrics of a step, in the order the step returns them
+METRIC_KEYS = ("tx_mask", "payload_bits", "candidate_payload_bits",
+               "bits_per_group", "group_tx", "censor_mask",
+               "offered_payload_bits")
+
+
+@dataclasses.dataclass(frozen=True)
+class _PhaseWorkers:
+    """One phase's workers on the rank's rows, made once per step
+    function: the (N,) float 0/1 ``mask``, the same as an (N,) bool
+    ``flag`` and an (N, 1) bool column ``on``, and the row indices."""
+
+    mask: torch.Tensor
+    flag: torch.Tensor
+    on: torch.Tensor
+    rows: torch.Tensor
+
+    @staticmethod
+    def of(mask: torch.Tensor, rows: torch.Tensor) -> "_PhaseWorkers":
+        flag = mask > 0
+        return _PhaseWorkers(mask, flag, flag[:, None], rows)
+
+
 def _censor_masks(state: EngineState, candidate: Tree, cfg: EngineConfig,
-                  group_ids: Sequence[int], n_groups: int, k_next: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(worker_mask (N,), group_mask (N, G))``, from the packed
-    view of ``candidate - theta_hat``."""
+                  group_ids: Sequence[int], tau: Optional[torch.Tensor],
+                  consts: _Constants
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(worker_mask (N,), group_mask (N, G) or None)``, from the
+    packed view of ``candidate - theta_hat`` against the step's threshold
+    ``tau``. The group mask is None where each group takes its worker's
+    decision (global censoring, or censoring off)."""
     first = T.leaves(candidate)[0]
-    n, dev = first.shape[0], first.device
     if not cfg.censor.enabled:
-        ones = torch.ones(n, dtype=torch.float32, device=dev)
-        return ones, torch.ones((n, n_groups), dtype=torch.float32,
-                                device=dev)
-    diff = T.tree_map(lambda c, h: c.to(torch.float32) - h.to(torch.float32),
-                      candidate, state.theta_hat)
-    pk = packing.make_packing(diff, group_ids)
-    diff_p = packing.pack(pk, diff)
-    tau = censor_lib.threshold(cfg.censor, k_next, dev)
+        return torch.ones(first.shape[0], dtype=torch.float32,
+                          device=first.device), None
+    diff = T.tree_map(lambda c, h: _as(c, torch.float32)
+                      - _as(h, torch.float32), candidate, state.theta_hat)
+    xs = T.leaves(diff)
     if cfg.censor_mode == "global":
+        diff_p = _rows2d(xs[0]) if len(xs) == 1 else packing.pack(
+            packing.make_packing(diff, group_ids), diff)
         change = torch.linalg.vector_norm(diff_p, dim=-1)
-        cmask = (change >= tau).to(torch.float32)
-        return cmask, cmask[:, None].expand(n, n_groups)
+        return (change >= tau).to(torch.float32), None
+    pk = packing.make_packing(diff, group_ids)
+    diff_p = _rows2d(xs[0]) if len(xs) == 1 else packing.pack(pk, diff)
     # tau_g^2 proportional to d_g: the group thresholds partition tau^2
     change_g = torch.sqrt(packing.segment_sqnorm(pk, diff_p))
-    tau_g = censor_lib.group_thresholds(tau, pk.group_dims, pk.dim)
+    tau_g = censor_lib.group_thresholds(tau, consts.dims(pk.group_dims),
+                                        pk.dim)
     gmask = censor_lib.group_censor_mask(change_g, tau_g)
     return torch.amax(gmask, dim=-1), gmask
 
 
+def _where_rows(on: torch.Tensor, a: Tree, b: Tree,
+                group_ids: Optional[Sequence[int]] = None) -> Tree:
+    """Leaf-wise ``a`` where ``on`` else ``b``, in ``b``'s dtypes. ``on``
+    is an (N, 1) bool column, or (N, G) with leaf i reading column
+    ``group_ids[i]``; each column is shaped for a leaf's rank once."""
+    views: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def col(g: int, rank: int) -> torch.Tensor:
+        if (g, rank) not in views:
+            c = on if on.shape[1] == 1 else on[:, g:g + 1]
+            views[g, rank] = c if rank == 2 else c.reshape(
+                (on.shape[0],) + (1,) * (rank - 1))
+        return views[g, rank]
+
+    xs, ys = T.leaves(a), T.leaves(b)
+    ids = group_ids if group_ids is not None else (0,) * len(xs)
+    return T.unflatten(b, [torch.where(col(g, y.dim()), _as(x, y.dtype), y)
+                           for x, y, g in zip(xs, ys, ids)])
+
+
 def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
-                 phase_mask: torch.Tensor, rows: torch.Tensor, batch):
+                 phase: _PhaseWorkers, batch):
     """The local solve for the acting workers: an inexact (per-worker)
     solver gets their rows only; an exact one solves all and selects."""
     def is_tree(t):            # a solver without moments holds ()
         return isinstance(t, dict) or torch.is_tensor(t)
 
+    rows = phase.rows
     if getattr(solver, "per_worker", False):
         if rows.numel() == 0:       # a rank's row block without this phase
             return state.theta, state.opt_mu, state.opt_nu
@@ -670,22 +766,26 @@ def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
         return theta, state.opt_mu, state.opt_nu
     th, mu, nu = solver.solve(state.theta, v, quad, state.opt_mu,
                               state.opt_nu, batch)
-    theta = tree_where_worker(phase_mask, th, state.theta)
+    theta = _where_rows(phase.on, th, state.theta)
     if is_tree(state.opt_mu):
-        mu = tree_where_worker(phase_mask, mu, state.opt_mu)
-        nu = tree_where_worker(phase_mask, nu, state.opt_nu)
+        mu = _where_rows(phase.on, mu, state.opt_mu)
+        nu = _where_rows(phase.on, nu, state.opt_nu)
     return theta, mu, nu
 
 
-def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
-           solver, topo: topo_lib.Topology, rho_d: torch.Tensor,
-           cfg: EngineConfig, uniforms: Optional[torch.Tensor], batch,
-           participation: Optional[torch.Tensor] = None,
+def _phase(state: EngineState, phase: _PhaseWorkers, solver,
+           topo: topo_lib.Topology, rho_d: torch.Tensor, cfg: EngineConfig,
+           uniforms: Optional[torch.Tensor], batch,
+           participation: Optional[torch.Tensor],
+           tau: Optional[torch.Tensor], consts: _Constants,
            ) -> Tuple[EngineState, Metrics]:
-    """One group's primal update + quantize + censor + commit. Metrics are
-    restricted to ``phase_mask`` (zeros elsewhere); ``payload_bits`` counts
-    only bits put on the wire, ``candidate_payload_bits`` what the round
-    would have cost uncensored.
+    """One group's primal update + quantize + censor + commit.
+
+    Returns the new state and the phase's per-worker metrics *unmasked*
+    (every row as this phase computed it); the step keeps each worker's
+    row from its own phase. ``payload_bits`` counts only bits put on the
+    wire, ``candidate_payload_bits`` what the round would have cost
+    uncensored; ``group_tx`` is present only under group censoring.
 
     ``participation`` is the fleet's optional (N,) 0/1 on-time mask. A
     timed-out worker is a censored one: its primal and quantizer chain
@@ -694,16 +794,15 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
     (``censoring.compose_tx_mask``). ``censor_mask`` and
     ``offered_payload_bits`` report the censor-only decision and the bits
     offered before that composition (the staleness buffer charges them at
-    delivery). With ``participation=None`` they equal ``tx_mask`` and
+    delivery). With ``participation=None`` they are ``tx_mask`` and
     ``payload_bits``."""
     group_ids = resolve_groups(state.theta, cfg.groups)
-    n_groups = max(group_ids) + 1
     rho = cfg.rho
     neigh = topo.mix(state.theta_hat)
     if cfg.alternating:
         # GGADMM primal, Eqs. (11)/(12)/(21)/(22)
-        v = T.tree_map(lambda a, nm: a.to(torch.float32)
-                       - rho * nm.to(torch.float32), state.alpha, neigh)
+        v = T.tree_map(lambda a, nm: _as(a, torch.float32)
+                       - rho * _as(nm, torch.float32), state.alpha, neigh)
         quad = rho_d
     else:
         # Jacobian C-ADMM primal (Liu et al., 2019b): proximal self-anchor
@@ -715,17 +814,16 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
         v = T.tree_map(jac_v, state.alpha, state.theta_hat, neigh)
         quad = 2.0 * rho_d
 
-    theta, mu, nu = _solve_phase(state, solver, v, quad, phase_mask, rows,
-                                 batch)
+    theta, mu, nu = _solve_phase(state, solver, v, quad, phase, batch)
     if cfg.quantize is not None:
         quant_new, candidate, bits, payload = grouped_quantize_step(
-            state.quant, theta, uniforms, cfg.quantize, group_ids)
+            state.quant, theta, uniforms, cfg.quantize, group_ids, consts)
     else:
         quant_new, candidate, bits, payload = identity_quantize_step(
             state.quant, theta)
 
     cmask_cens, gmask_cens = _censor_masks(state, candidate, cfg, group_ids,
-                                           n_groups, state.k + 1)
+                                           tau, consts)
     if participation is not None:
         # the timeout composes after the censor test, which (like the
         # quantizer chain) does not see it
@@ -733,56 +831,62 @@ def _phase(state: EngineState, phase_mask: torch.Tensor, rows: torch.Tensor,
                                                   gmask_cens)
     else:
         cmask, gmask = cmask_cens, gmask_cens
-    censor_mask = cmask_cens * phase_mask
-    tx_mask = cmask * phase_mask
-    group_tx = gmask * phase_mask[:, None]
-    candidate_payload = payload * phase_mask
-    if cfg.censor_mode == "group" and cfg.censor.enabled:
+    if gmask is not None:
         # payload counts only the transmitted groups (+ their overhead)
-        dims = torch.as_tensor(group_dims(theta, group_ids),
-                               dtype=torch.float32, device=bits.device)
+        dims = consts.dims(group_dims(theta, group_ids))
         overhead = float(cfg.quantize.b_overhead) \
             if cfg.quantize is not None else 0.0
         per_group = bits * dims[None, :] + overhead
-        payload_tx = torch.sum(per_group * group_tx, dim=-1)
+        payload_tx = torch.sum(per_group * gmask, dim=-1)
         offered = payload_tx if participation is None else torch.sum(
-            per_group * gmask_cens * phase_mask[:, None], dim=-1)
+            per_group * gmask_cens, dim=-1)
+        commit = (gmask > 0) & phase.on
     else:
-        payload_tx = payload * tx_mask
+        payload_tx = payload * cmask
         offered = payload_tx if participation is None \
-            else payload * censor_mask
+            else payload * cmask_cens
+        commit = (cmask[:, None] > 0) & phase.on
 
     # theta_hat: each leaf commits where its group transmitted
-    hat_leaves = T.leaves(state.theta_hat)
-    new_hat = []
-    for i, (h, c) in enumerate(zip(hat_leaves, T.leaves(candidate))):
-        m = group_tx[:, group_ids[i]].reshape((h.shape[0],)
-                                              + (1,) * (h.dim() - 1))
-        new_hat.append(torch.where(m > 0, c.to(h.dtype), h))
-    theta_hat = T.unflatten(state.theta_hat, new_hat)
+    theta_hat = _where_rows(commit, candidate, state.theta_hat, group_ids)
 
     # the acting phase's replicas advance (censoring does not roll back)
-    pm = phase_mask[:, None] > 0
-    q_old = state.quant
+    on, q_old = phase.on, state.quant
     quant = GroupQuantState(
-        q_hat=tree_where_worker(phase_mask, quant_new.q_hat, q_old.q_hat),
-        range_prev=torch.where(pm, quant_new.range_prev, q_old.range_prev),
-        bits_prev=torch.where(pm, quant_new.bits_prev, q_old.bits_prev),
-        delta_prev=torch.where(pm, quant_new.delta_prev, q_old.delta_prev),
-        initialized=torch.where(pm, quant_new.initialized,
+        q_hat=_where_rows(on, quant_new.q_hat, q_old.q_hat),
+        range_prev=torch.where(on, quant_new.range_prev, q_old.range_prev),
+        bits_prev=torch.where(on, quant_new.bits_prev, q_old.bits_prev),
+        delta_prev=torch.where(on, quant_new.delta_prev, q_old.delta_prev),
+        initialized=torch.where(on, quant_new.initialized,
                                 q_old.initialized),
     )
-    new_state = dataclasses.replace(state, theta=theta, theta_hat=theta_hat,
-                                    quant=quant, opt_mu=mu, opt_nu=nu)
-    return new_state, {
-        "tx_mask": tx_mask,
-        "payload_bits": payload_tx,
-        "candidate_payload_bits": candidate_payload,
-        "bits_per_group": bits * phase_mask[:, None],
-        "group_tx": group_tx,
-        "censor_mask": censor_mask,
-        "offered_payload_bits": offered,
-    }
+    new_state = EngineState(theta=theta, theta_hat=theta_hat,
+                            alpha=state.alpha, quant=quant, opt_mu=mu,
+                            opt_nu=nu, k=state.k)
+    raw = {"tx_mask": cmask, "payload_bits": payload_tx,
+           "candidate_payload_bits": payload, "bits_per_group": bits,
+           "censor_mask": cmask_cens, "offered_payload_bits": offered}
+    if gmask is not None:
+        raw["group_tx"] = gmask
+    return new_state, raw
+
+
+def _merge_phases(raw_h: Metrics, raw_t: Metrics,
+                  head: _PhaseWorkers) -> Metrics:
+    """Each worker's metrics from its own phase: the head rows of
+    ``raw_h``, the tail rows of ``raw_t``, one ``where`` per distinct pair
+    (a metric that is another's tensor in both phases is not selected
+    twice). The phases' masks are complements, so this is the sum of the
+    two phases' masked metrics."""
+    done: Dict[Tuple[int, int], torch.Tensor] = {}
+    out = {}
+    for k, h in raw_h.items():
+        t = raw_t[k]
+        if (id(h), id(t)) not in done:
+            done[id(h), id(t)] = torch.where(
+                head.flag if h.dim() == 1 else head.on, h, t)
+        out[k] = done[id(h), id(t)]
+    return out
 
 
 def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
@@ -796,10 +900,16 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     the local solver (per-worker leading axis). Metrics carry per-worker
     ``tx_mask``, ``payload_bits``, ``candidate_payload_bits``,
     ``bits_per_group``, ``group_tx``, ``censor_mask``,
-    ``offered_payload_bits`` and ``dual_residual``
+    ``offered_payload_bits`` (each worker's from its own phase; see
+    :func:`_phase`) and ``dual_residual``
     ``||rho (D - A) theta_hat||²``, plus ``extra_metrics(state, batch)``.
     ``participation`` is the fleet's optional (N,) on-time mask (see
     :func:`_phase`); None is the synchronous path.
+
+    The phase masks and rows, the censor decay and the schedule's
+    constants are put on the device here, once; a step copies nothing
+    from the host. Under global censoring ``group_tx`` is ``tx_mask``
+    broadcast over the groups (an expanded view).
 
     On the sharded topology the state, draws, batch and metrics hold the
     rank's row block (``topology.worker_rows``); the phase masks and rows
@@ -808,13 +918,17 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     topo = topology if topology is not None else topo_lib.build(
         graph, cfg.mix_backend, device=device)
     dev = topo.degrees.device
+    consts = _Constants(cfg, dev)
     head_np = np.asarray(graph.head_mask, np.float32)[
         topo.worker_rows(graph.n)]
-    head = torch.as_tensor(head_np, device=dev)
-    tail = 1.0 - head
-    head_rows = torch.as_tensor(np.nonzero(head_np > 0)[0], device=dev)
-    tail_rows = torch.as_tensor(np.nonzero(head_np <= 0)[0], device=dev)
-    all_rows = torch.arange(head_np.shape[0], device=dev)
+    head_mask = torch.as_tensor(head_np, device=dev)
+    head = _PhaseWorkers.of(
+        head_mask, torch.as_tensor(np.nonzero(head_np > 0)[0], device=dev))
+    tail = _PhaseWorkers.of(
+        1.0 - head_mask,
+        torch.as_tensor(np.nonzero(head_np <= 0)[0], device=dev))
+    every = _PhaseWorkers.of(torch.ones_like(head_mask),
+                             torch.arange(head_np.shape[0], device=dev))
     rho_d = cfg.rho * topo.degrees
 
     def step(state: EngineState, draw: Callable[[int], torch.Tensor],
@@ -822,24 +936,35 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
         def uniforms(phase: int) -> Optional[torch.Tensor]:
             return draw(phase) if cfg.quantize is not None else None
 
+        # both phases test against tau^{k+1}
+        tau = (censor_lib.threshold(cfg.censor, state.k + 1, dev,
+                                    xi=consts.xi)
+               if cfg.censor.enabled else None)
+        args = (solver, topo, rho_d, cfg)
         if cfg.alternating:
-            state, m_h = _phase(state, head, head_rows, solver, topo, rho_d,
-                                cfg, uniforms(0), batch, participation)
-            state, m_t = _phase(state, tail, tail_rows, solver, topo, rho_d,
-                                cfg, uniforms(1), batch, participation)
-            metrics = {k: m_h[k] + m_t[k] for k in m_h}
+            state, raw_h = _phase(state, head, *args, uniforms(0), batch,
+                                  participation, tau, consts)
+            state, raw_t = _phase(state, tail, *args, uniforms(1), batch,
+                                  participation, tau, consts)
+            raw = _merge_phases(raw_h, raw_t, head)
         else:
-            state, metrics = _phase(state, torch.ones_like(head), all_rows,
-                                    solver, topo, rho_d, cfg, uniforms(0),
-                                    batch, participation)
+            state, raw = _phase(state, every, *args, uniforms(0), batch,
+                                participation, tau, consts)
+        if "group_tx" not in raw:
+            tx, bits = raw["tx_mask"], raw["bits_per_group"]
+            raw["group_tx"] = tx[:, None].expand(bits.shape)
+        metrics = {k: raw[k] for k in METRIC_KEYS}
 
         # Dual update, Eq. (23): alpha += rho * (D - A) theta_hat, through
         # the same topology (and mix kernel) as the phase mixes.
         lap = topo.laplacian(state.theta_hat)
-        alpha = T.tree_map(lambda a, lp: (a.to(torch.float32)
-                                          + cfg.rho * lp).to(a.dtype),
+        alpha = T.tree_map(lambda a, lp: _as(_as(a, torch.float32)
+                                             + cfg.rho * lp, a.dtype),
                            state.alpha, lap)
-        state = dataclasses.replace(state, alpha=alpha, k=state.k + 1)
+        state = EngineState(theta=state.theta, theta_hat=state.theta_hat,
+                            alpha=alpha, quant=state.quant,
+                            opt_mu=state.opt_mu, opt_nu=state.opt_nu,
+                            k=state.k + 1)
         metrics["dual_residual"] = (cfg.rho ** 2) * topo.dual_residual(lap)
         if extra_metrics is not None:
             metrics.update(extra_metrics(state, batch))
@@ -920,6 +1045,18 @@ def cut_workers(tree: Any, topology: topo_lib.Topology) -> Any:
     return T.tree_map(lambda x: x[rows], tree)
 
 
+def cut_solver(solver, topology: topo_lib.Topology):
+    """A solver whose problem holds every worker (an ``ExactSolver``'s),
+    cut to the rank's rows (``take_workers``); any other solver as it is.
+    The identity off the sharded backend of more than one rank."""
+    problem = getattr(solver, "problem", None)
+    if (topology.world > 1
+            and getattr(problem, "n_workers", None) == topology.n):
+        return dataclasses.replace(solver, problem=problem.take_workers(
+            topology.worker_rows(topology.n)))
+    return solver
+
+
 def run(graph: WorkerGraph, cfg: EngineConfig, solver, theta0: Tree,
         iters: int, seed: int = 0,
         extra_metrics: Optional[MetricsFn] = None,
@@ -947,10 +1084,7 @@ def run(graph: WorkerGraph, cfg: EngineConfig, solver, theta0: Tree,
     shape = (graph.n, tree_dim(theta0))
     if topo.world > 1:
         theta0 = cut_workers(theta0, topo)
-        problem = getattr(solver, "problem", None)
-        if getattr(problem, "n_workers", None) == graph.n:
-            solver = dataclasses.replace(solver,
-                                         problem=problem.take_workers(rows))
+        solver = cut_solver(solver, topo)
     state = init_state(theta0, cfg, solver)
     step = make_step(graph, cfg, solver, extra_metrics, topology=topo)
     gen = torch.Generator(device=dev)
@@ -962,7 +1096,7 @@ def run(graph: WorkerGraph, cfg: EngineConfig, solver, theta0: Tree,
                 u = uniforms(it, phase).to(device=dev, dtype=torch.float32)
             else:
                 u = torch.rand(shape, generator=gen, device=dev)
-            return u[rows]
+            return u if topo.world == 1 else u[rows]
         return draw
 
     history: List[Metrics] = []

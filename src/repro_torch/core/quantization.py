@@ -22,7 +22,7 @@ kernel (``repro_torch/kernels``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,15 +34,24 @@ _EPS = 1e-12
 _LN2 = 0.693147182
 
 
+def ln2_on(device: torch.device) -> torch.Tensor:
+    """The float32 ln 2 that :func:`_log2` divides by, as a 0-d tensor on
+    ``device``."""
+    return torch.tensor(_LN2, dtype=torch.float32, device=device)
+
+
 def _exp2(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(x * _LN2)
 
 
-def _log2(x: torch.Tensor) -> torch.Tensor:
+def _log2(x: torch.Tensor, ln2: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
     # divide by a tensor on x's device: PyTorch on CUDA turns a division by
     # a Python scalar into a multiply by its reciprocal, which rounds
     # differently from the true division the CPU and the kernels do
-    return torch.log(x) / torch.tensor(_LN2, dtype=x.dtype, device=x.device)
+    if ln2 is None:
+        ln2 = torch.tensor(_LN2, dtype=x.dtype, device=x.device)
+    return torch.log(x) / ln2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,16 +71,18 @@ class QuantConfig:
 
 def required_bits(bits_prev: torch.Tensor, range_new: torch.Tensor,
                   range_prev: torch.Tensor, omega: float,
-                  initialized: torch.Tensor, b0: int, b_max: int
-                  ) -> torch.Tensor:
+                  initialized: torch.Tensor, b0: int, b_max: int,
+                  ln2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bit-growth rule of Eq. (18), elementwise over float32 tensors.
 
     First iteration (initialized == 0) uses b0. Degenerate previous ranges
-    keep the previous width.
+    keep the previous width. ``ln2`` is :func:`ln2_on` of the tensors'
+    device, made once by a caller that runs the schedule every iteration;
+    None copies it from the host here.
     """
     levels_prev = _exp2(bits_prev) - 1.0
     ratio = range_new / torch.clamp_min(omega * range_prev, _EPS)
-    b_new = torch.ceil(_log2(1.0 + levels_prev * ratio))
+    b_new = torch.ceil(_log2(1.0 + levels_prev * ratio, ln2))
     b_new = torch.where(range_prev <= _EPS, bits_prev, b_new)
     b_new = torch.where(initialized > 0, b_new,
                         torch.full_like(b_new, float(b0)))
@@ -81,11 +92,13 @@ def required_bits(bits_prev: torch.Tensor, range_new: torch.Tensor,
 def bit_schedule(bits_prev: torch.Tensor, range_new: torch.Tensor,
                  range_prev: torch.Tensor, initialized: torch.Tensor,
                  omega: float, b0: int, b_max: int,
+                 ln2: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eq. (18) bit growth plus the step size Δ = 2R / (2^b - 1) and the
-    degenerate-range flag. Returns ``(bits, delta, degen)``."""
+    degenerate-range flag (``ln2`` as in :func:`required_bits`). Returns
+    ``(bits, delta, degen)``."""
     bits = required_bits(bits_prev, range_new, range_prev, omega,
-                         initialized, b0, b_max)
+                         initialized, b0, b_max, ln2)
     levels = _exp2(bits) - 1.0
     delta = 2.0 * range_new / torch.clamp_min(levels, 1.0)
     degen = range_new <= _EPS

@@ -64,7 +64,8 @@ def _apply_flat(fn: Callable[[torch.Tensor], torch.Tensor], a: Tree) -> Tree:
         buf = packing.pack(pk, a, dtype=xs[0].dtype)
         return packing.unpack(pk, fn(buf), like=a)
     return T.tree_map(
-        lambda x: fn(x.reshape(x.shape[0], -1)).reshape(x.shape), a)
+        lambda x: fn(x) if x.dim() == 2
+        else fn(x.reshape(x.shape[0], -1)).reshape(x.shape), a)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +113,12 @@ class Topology:
         of Eq. (23)."""
         neigh = self.mix(a)
 
+        def f32(x):
+            return x if x.dtype == torch.float32 else x.to(torch.float32)
+
         def one(x, nm):
             shape1 = (x.shape[0],) + (1,) * (x.dim() - 1)
-            return (self.degrees.reshape(shape1) * x.to(torch.float32)
-                    - nm.to(torch.float32))
+            return self.degrees.reshape(shape1) * f32(x) - f32(nm)
         return T.tree_map(one, a, neigh)
 
     def primal_residual(self, theta: torch.Tensor) -> torch.Tensor:
@@ -132,8 +135,9 @@ class Topology:
         """Squared norm of a Laplacian image, summed over the tree: with
         ``lap = laplacian(theta_hat)`` this is ``||(D - A) theta_hat||²``,
         zero exactly at consensus."""
-        parts = [torch.sum(torch.square(x.to(torch.float32)))
-                 for x in T.leaves(lap)]
+        parts = [torch.sum(torch.square(
+            x if x.dtype == torch.float32 else x.to(torch.float32)))
+            for x in T.leaves(lap)]
         return sum(parts[1:], parts[0])
 
 

@@ -35,6 +35,8 @@ def flatten_with_path(tree: Tree) -> List[Tuple[Tuple[str, ...], Any]]:
 
 
 def leaves(tree: Tree) -> List[Any]:
+    if not isinstance(tree, dict):          # a bare leaf (the flat path)
+        return [tree]
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
@@ -50,6 +52,11 @@ def paths(tree: Tree) -> Tuple[str, ...]:
 
 def unflatten(like: Tree, new_leaves) -> Tree:
     """A tree of ``like``'s structure holding ``new_leaves`` in order."""
+    if not isinstance(like, dict):          # a bare leaf (the flat path)
+        new_leaves = list(new_leaves)
+        if len(new_leaves) > 1:
+            raise ValueError("more leaves than the tree has")
+        return new_leaves[0]
     it = iter(new_leaves)
 
     def build(node):

@@ -22,8 +22,17 @@ the fault-free path bit-identical to the synchronous engine:
   and the duals are re-initialized in ``col(M_-)`` of the new graph
   (``dynamic.reinit_duals``).
 
-The sharded backend runs at world size 1 only: churn changes N, and at more
-ranks it would move rows between them (left for later, ROADMAP.md queue A).
+On the sharded backend (``core/topology.py``) each rank of the process
+group holds the rows ``[r·N/w, (r+1)·N/w)`` of every worker-axis quantity:
+the engine state, the delivery buffer, the round's draws, fault masks and
+batch, and the solver's data. Every rank keeps the whole fleet's host
+bookkeeping (the fault schedule, the members, the staleness-timer shadow and
+the round's metrics, gathered from every rank), so each rank takes the same
+step at every round and enters the same collectives. At a churn event the
+whole fleet state is gathered from every rank, remapped the same way on
+each, and cut to the rows of the rebuilt topology; a new worker count the
+world does not divide raises the topology's divisibility ``ValueError`` at
+that round on every rank. A sharded fleet's state equals the world-1 run's.
 
 The host loop (:class:`FleetSim`) steps one round at a time. Per-round
 rounding draws come from a ``torch.Generator`` seeded from ``(seed,
@@ -184,7 +193,9 @@ def _tmap(fn, tree):
 
 def remap_fleet_state(fs: FleetState, idx: np.ndarray, graph: WorkerGraph,
                       cfg: E.EngineConfig, join_init: str = "mean",
-                      dual_reinit: str = "zero") -> FleetState:
+                      dual_reinit: str = "zero", *,
+                      old: Optional[topo_lib.Topology] = None,
+                      new: Optional[topo_lib.Topology] = None) -> FleetState:
     """Carry fleet and engine state across a membership change.
 
     ``idx[i]`` is the old worker-axis row of new member i (-1 for a
@@ -193,48 +204,69 @@ def remap_fleet_state(fs: FleetState, idx: np.ndarray, graph: WorkerGraph,
     ``theta`` = the survivors' mean (``join_init="mean"``) or zeros, an
     all-zero ``theta_hat``/``q_hat`` and a fresh b0-bit uninitialized
     quantizer. The duals are re-initialized in ``col(M_-)`` of the new
-    graph (:func:`repro_torch.core.dynamic.reinit_duals`)."""
+    graph (:func:`repro_torch.core.dynamic.reinit_duals`).
+
+    ``old`` and ``new`` are the topologies before and after the change. On
+    a sharded one of more than one rank ``fs`` holds the rank's rows of
+    ``old``: each array is gathered from every rank, remapped whole (the
+    same on every rank) and cut to the rank's rows of ``new``, one array at
+    a time, so the whole fleet is held at once only for the duals. Without
+    them (or at one rank) ``fs`` is the whole fleet."""
     if join_init not in ("mean", "zeros"):
         raise ValueError(f"unknown join_init {join_init!r}")
     st = fs.engine
     idx = np.asarray(idx)
     surv = idx[idx >= 0]
+    sharded = old is not None and old.world > 1
 
-    def gather_theta(x):
+    def whole(x):
+        return old.gather(x) if sharded else x
+
+    def cut(x):
+        # a copy: a view would keep the whole fleet's rows alive
+        return x[new.worker_rows(new.n)].clone() if sharded else x
+
+    def move(x, fill):
+        return cut(_gather_rows(whole(x), idx, fill))
+
+    def move_theta(x):
+        x = whole(x)
         if join_init == "mean":
             rows = torch.as_tensor(surv, dtype=torch.int64, device=x.device)
             fill = torch.mean(x.index_select(0, rows).to(torch.float32),
                               dim=0, keepdim=True).to(x.dtype)
         else:
             fill = 0
-        return _gather_rows(x, idx, fill)
+        return cut(_gather_rows(x, idx, fill))
 
-    def gather0(x):
-        return _gather_rows(x, idx, 0)
+    def move0(x):
+        return move(x, 0)
 
     qcfg = cfg.quantize or QuantConfig()
     quant = E.GroupQuantState(
-        q_hat=T.tree_map(gather0, st.quant.q_hat),
-        range_prev=_gather_rows(st.quant.range_prev, idx, 0.0),
-        bits_prev=_gather_rows(st.quant.bits_prev, idx, float(qcfg.b0)),
-        delta_prev=_gather_rows(st.quant.delta_prev, idx, 0.0),
-        initialized=_gather_rows(st.quant.initialized, idx, 0.0),
+        q_hat=T.tree_map(move0, st.quant.q_hat),
+        range_prev=move(st.quant.range_prev, 0.0),
+        bits_prev=move(st.quant.bits_prev, float(qcfg.b0)),
+        delta_prev=move(st.quant.delta_prev, 0.0),
+        initialized=move(st.quant.initialized, 0.0),
     )
+    alpha = dyn_lib.reinit_duals(
+        T.tree_map(lambda x: _gather_rows(whole(x), idx, 0), st.alpha),
+        graph, mode=dual_reinit)
     engine = E.EngineState(
-        theta=T.tree_map(gather_theta, st.theta),
-        theta_hat=T.tree_map(gather0, st.theta_hat),
-        alpha=dyn_lib.reinit_duals(T.tree_map(gather0, st.alpha), graph,
-                                   mode=dual_reinit),
+        theta=T.tree_map(move_theta, st.theta),
+        theta_hat=T.tree_map(move0, st.theta_hat),
+        alpha=T.tree_map(cut, alpha),
         quant=quant,
-        opt_mu=_tmap(gather0, st.opt_mu),
-        opt_nu=_tmap(gather0, st.opt_nu),
+        opt_mu=_tmap(move0, st.opt_mu),
+        opt_nu=_tmap(move0, st.opt_nu),
         k=st.k,
     )
     return FleetState(
         engine=engine,
-        held_hat=T.tree_map(gather0, fs.held_hat),
-        held_payload=_gather_rows(fs.held_payload, idx, 0.0),
-        timer=_gather_rows(fs.timer, idx, 0),
+        held_hat=T.tree_map(move0, fs.held_hat),
+        held_payload=move(fs.held_payload, 0.0),
+        timer=move(fs.timer, 0),
     )
 
 
@@ -280,6 +312,16 @@ class FleetSim:
     (round, member_gids)``, ``graph0`` (the initial graph; defaults to a
     ``membership_graph`` epoch-0 draw) and ``on_churn(round, graph,
     fleet_state)``. ``uniforms(round, phase)`` replaces the seeded draws.
+
+    On the sharded backend of more than one rank ``theta0``, an exact
+    solver's problem (that of ``solver`` or of each ``solver_factory``
+    build), the draws, the fault masks and ``batch_fn``'s output are whole
+    (every member's rows) and cut here to the rank's rows (``take_workers``
+    and ``engine.cut_workers``, as ``engine.run`` cuts them); the metrics
+    fns see the rank's rows and the topology. The returned state holds the
+    rank's rows (``engine.gather_workers`` collects them); the metrics are
+    the whole fleet's on every rank, and ``on_churn`` sees the rank's
+    state.
     """
 
     def __init__(self, n_workers: int, engine_cfg: E.EngineConfig,
@@ -315,11 +357,6 @@ class FleetSim:
                              f"{n_workers}")
         self.topo = topo_lib.build(self.graph, engine_cfg.mix_backend,
                                    device=self.device)
-        if self.topo.world > 1:
-            raise ValueError(
-                f"the fleet runs the sharded backend at world size 1 only, "
-                f"not {self.topo.world}: churn changes N and would move "
-                f"worker rows between ranks (ROADMAP.md queue A)")
         self.churn_log: List[Dict[str, Any]] = []
         # host shadow of the staleness timers (fleet_timer of the last
         # faulted round): is any packet in flight before this round?
@@ -328,9 +365,17 @@ class FleetSim:
         self._rebuild_step()
 
     # ------------------------------------------------------- internals --
+    def _cut(self, tree: Tree) -> Tree:
+        """The rank's rows of a tree of whole worker-axis arrays (None, a
+        batch-free round's batch, stays None)."""
+        if tree is None or self.topo.world == 1:
+            return tree
+        return E.cut_workers(tree, self.topo)
+
     def _rebuild_step(self) -> None:
-        self.solver = (self._solver_factory(tuple(self.members), self.graph)
-                       if self._solver_factory is not None else self._solver)
+        self.solver = E.cut_solver(
+            self._solver_factory(tuple(self.members), self.graph)
+            if self._solver_factory is not None else self._solver, self.topo)
         metrics_fn = (self._extra_metrics_factory(
             tuple(self.members), self.graph, self.topo)
             if self._extra_metrics_factory is not None
@@ -358,11 +403,15 @@ class FleetSim:
                                       self.fleet_cfg.graph_p,
                                       self.fleet_cfg.graph_seed,
                                       epoch=self.epoch)
-        self.topo = self.topo.rebuild(self.graph)
-        self.members = new_members
+        # on the sharded backend a new N the world does not divide raises
+        # here, at this round on every rank, before any collective
+        topo = self.topo.rebuild(self.graph)
         fs = remap_fleet_state(fs, idx, self.graph, self.engine_cfg,
                                join_init=self.fleet_cfg.join_init,
-                               dual_reinit=self.fleet_cfg.dual_reinit)
+                               dual_reinit=self.fleet_cfg.dual_reinit,
+                               old=self.topo, new=topo)
+        self.topo = topo
+        self.members = new_members
         self._host_timer = np.where(
             idx >= 0, self._host_timer[np.clip(idx, 0, None)], 0
         ).astype(np.int32)
@@ -403,7 +452,8 @@ class FleetSim:
         arrays, ``churn_log`` a list)."""
         fcfg = self.fleet_cfg
         dim = E.tree_dim(self.theta0)
-        state = E.init_state(self.theta0, self.engine_cfg, self.solver)
+        state = E.init_state(self._cut(self.theta0), self.engine_cfg,
+                             self.solver)
         fs = init_fleet_state(state)
         del state
         records: List[Dict[str, Any]] = []
@@ -427,11 +477,15 @@ class FleetSim:
                                      "joined": len(log["joined"]),
                                      "n_members": log["n_members"]})
             rf = self.schedule.round_faults(r, self.members)
-            batch = self.batch_fn(r, tuple(self.members)) \
-                if self.batch_fn is not None else None
+            batch = self._cut(self.batch_fn(r, tuple(self.members))
+                              if self.batch_fn is not None else None)
             n = len(self.members)
             draw = round_draws(fcfg.seed, r, (n, dim), self.device,
                                self.uniforms)
+            if self.topo.world > 1:
+                # whole draws, cut to the rank's rows
+                draw = (lambda phase, whole=draw, rows=self.topo.worker_rows(
+                    n): whole(phase)[rows])
             if tr is not None:
                 tr.begin("round", "fleet", tr.track("fleet", "rounds"),
                          args={"round": r, "n_members": n})
@@ -441,7 +495,7 @@ class FleetSim:
                 state, m = self._sync_step(fs.engine, draw, batch)
                 fs = dataclasses.replace(fs, engine=state)
                 del state
-                host = _to_host(m)
+                host = _to_host(E.gather_workers(m, self.topo))
                 host["fleet_participation"] = np.ones(n, np.float32)
                 host["fleet_start"] = np.zeros(n, np.float32)
                 host["fleet_deliver"] = np.zeros(n, np.float32)
@@ -449,9 +503,11 @@ class FleetSim:
             else:
                 fs, m = self._step(
                     fs, draw, batch,
-                    torch.as_tensor(rf.drop, device=self.device),
-                    torch.as_tensor(rf.lag, device=self.device))
-                host = _to_host(m)
+                    self._cut(torch.as_tensor(rf.drop, device=self.device)),
+                    self._cut(torch.as_tensor(rf.lag, device=self.device)))
+                # every rank reads the whole fleet's timers: the next
+                # round's choice of step is the same on each
+                host = _to_host(E.gather_workers(m, self.topo))
                 self._host_timer = host["fleet_timer"].astype(np.int32)
             del m
             if tr is not None:
@@ -493,17 +549,28 @@ def run_synchronous(graph: WorkerGraph, cfg: E.EngineConfig, solver,
     """The golden arm: the plain synchronous engine on ``theta0``'s device,
     with the same per-round draws as :class:`FleetSim`
     (:func:`round_draws`), so a fault-free fleet run compares bit for
-    bit."""
+    bit. On the sharded backend of more than one rank ``theta0``, an exact
+    solver's problem, the draws and the batches are whole and cut to the
+    rank's rows, as :class:`FleetSim` cuts them; the metrics are gathered
+    from every rank and the state holds the rank's rows."""
     dev = T.leaves(theta0)[0].device
-    step = E.make_step(graph, cfg, solver, extra_metrics, device=dev)
+    topo = topo_lib.build(graph, cfg.mix_backend, device=dev)
+    rows = topo.worker_rows(graph.n)
+    if topo.world > 1:
+        theta0 = E.cut_workers(theta0, topo)
+        solver = E.cut_solver(solver, topo)
+    step = E.make_step(graph, cfg, solver, extra_metrics, topology=topo)
     state = E.init_state(theta0, cfg, solver)
     shape = (graph.n, E.tree_dim(theta0))
     records = []
     for r in range(rounds):
         batch = batch_fn(r) if batch_fn is not None else None
-        state, m = step(state, round_draws(seed, r, shape, dev, uniforms),
-                        batch)
-        records.append(_to_host(m))
+        draw = round_draws(seed, r, shape, dev, uniforms)
+        if topo.world > 1:
+            batch = E.cut_workers(batch, topo) if batch is not None else None
+            draw = (lambda phase, whole=draw: whole(phase)[rows])
+        state, m = step(state, draw, batch)
+        records.append(_to_host(E.gather_workers(m, topo)))
     metrics = stack_records(records)
     metrics["payload_bits_total"] = np.asarray(
         [float(np.sum(rec["payload_bits"])) for rec in records])

@@ -52,8 +52,11 @@ to its rows, so a run equals the world-1 run of the same seed:
         --nproc-per-node 2 -m repro_torch.launch.train --smoke --steps 2 \
         --mix-backend sharded [--device cpu]
 
-``--fleet`` takes the sharded backend at world size 1 only (churn changes
-N); ``--campaign`` runs it at world size 1.
+``--fleet --mix-backend sharded`` runs the fleet simulator on the rank's
+rows (``fleet/sim.py``): a churn event gathers the fleet state from every
+rank, remaps it and cuts the new rows, and a churn to a worker count the
+ranks do not divide raises the topology's ``ValueError`` at that round on
+every rank. ``--campaign`` runs the sharded backend at world size 1.
 
 ``--mode fsdp`` is the FSDP-Adam baseline (:func:`run_fsdp`): one model, no
 worker axis, AdamW (``optim/adamw.py``) on the token-weighted loss of the
@@ -181,7 +184,12 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
     ``(--seed, round)`` (or ``uniforms(round, phase)``), so the trajectory
     differs from :func:`run_admm`'s loop through its draws only. A round's
     stub inputs are drawn with the round as their seed (or taken from
-    ``stubs(round)``), as the JAX package keys them."""
+    ``stubs(round)``), as the JAX package keys them.
+
+    ``theta`` is the whole fleet's; on the sharded backend FleetSim cuts
+    it, the draws and the batches to the rank's rows. Rank 0 alone prints
+    and writes the checkpoint (theta gathered from every rank); the loss
+    history, bits and churn log are the whole fleet's on every rank."""
     fcfg = FleetConfig(
         rounds=args.steps,
         faults=FaultConfig(participation=args.fleet_participation,
@@ -196,33 +204,37 @@ def run_fleet(cfg, args, graph, ecfg, solver, loss_fn, theta, data, dev,
         return model_batch(cfg, data.worker_batch(r, len(members), per), dev,
                            step=r, stubs=None if stubs is None else stubs(r))
 
-    try:
-        sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
-                       extra_metrics=E.consensus_metrics(loss_fn),
-                       batch_fn=batch_fn, graph0=graph, uniforms=uniforms)
-    except ValueError as e:      # the sharded backend at world size > 1
-        raise SystemExit(f"[train] --fleet: {e}") from e
+    def metrics_factory(members, graph_, topo):
+        del members, graph_
+        return E.consensus_metrics(loss_fn, topology=topo)
+
+    sim = FleetSim(args.workers, ecfg, fcfg, theta, solver=solver,
+                   extra_metrics_factory=metrics_factory, batch_fn=batch_fn,
+                   graph0=graph, uniforms=uniforms)
+    talk = sim.topo.rank == 0          # rank 0 alone prints
     # the fleet traces its own rounds, faults and churn (FleetSim.run)
     t0 = time.perf_counter()
     fs, m = sim.run()
     history = [float(x) for x in m["loss"]]
     total_bits = float(np.sum(m["payload_bits_total"]))
-    for i in range(args.steps):
+    for i in range(args.steps if talk else 0):
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"round {i:4d}  loss={history[i]:.4f}  "
                   f"tx={int(m['tx_count'][i])}/{int(m['n_members'][i])}  "
                   f"bits={float(m['payload_bits_total'][i]):.3e}  "
                   f"({float(m['round_seconds'][i]):.2f}s)")
-    for ev in m["churn_log"]:
+    for ev in m["churn_log"] if talk else ():
         print(f"[fleet] round {ev['round']}: left={ev['left']} "
               f"joined={ev['joined']} -> {ev['n_members']} members")
-    print(f"[fleet] {args.steps} rounds, participation="
-          f"{args.fleet_participation} staleness={args.fleet_staleness}: "
-          f"final_loss={history[-1]:.4f} cum_bits={total_bits:.3e} "
-          f"({(time.perf_counter() - t0) / args.steps:.2f}s/round)",
-          flush=True)
+    if talk:
+        print(f"[fleet] {args.steps} rounds, participation="
+              f"{args.fleet_participation} staleness="
+              f"{args.fleet_staleness}: final_loss={history[-1]:.4f} "
+              f"cum_bits={total_bits:.3e} "
+              f"({(time.perf_counter() - t0) / args.steps:.2f}s/round)",
+              flush=True)
     if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps, fs.engine.theta)
+        save_workers(args.ckpt_dir, args.steps, fs.engine.theta, sim.topo)
     return {"final_loss": history[-1], "history": history,
             "total_bits": total_bits,
             "n_groups": fs.engine.quant.n_groups,
@@ -284,9 +296,11 @@ def run_admm(cfg, args, *, params=None,
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         params = registry.init_params(cfg, gen, device=dev)
     # identical worker initialization: one shared init, workers diverge
-    # only through their local data; each rank builds its own rows
+    # only through their local data; each rank builds its own rows (the
+    # fleet takes every row and cuts its own: churn moves rows)
+    n_rows = args.workers if args.fleet else rows.stop - rows.start
     theta = T.tree_map(lambda x: x.to(dev)[None].repeat(
-        (rows.stop - rows.start,) + (1,) * x.dim()), params)
+        (n_rows,) + (1,) * x.dim()), params)
     del params
     try:
         cur_ids = E.resolve_groups(theta, ecfg.groups)

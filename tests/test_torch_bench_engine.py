@@ -386,3 +386,52 @@ def test_reduced_stages_hold_every_correctness_claim(port_records):
         "matmul_ops"] == ["mm"]
     assert probe["dense"]["square_operand"]
     assert not probe["sparse"]["square_operand"]
+
+
+# ------------------------------------------- the step's dispatch count --
+def _one_iteration(step, state, uniforms, monkeypatch):
+    """The aten ops one ``step(state, draw)`` dispatches (under
+    ``bench/engine.py``'s recorder) and the tensors it builds from host
+    data (calls of ``torch.tensor``, ``torch.as_tensor`` and
+    ``torch.from_numpy``), after one warm-up step."""
+    state, _ = step(state, lambda ph: uniforms[ph])
+    made = []
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        real = getattr(torch, name)
+
+        def counting(*a, _real=real, _name=name, **kw):
+            made.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(torch, name, counting)
+    with BE._OpRecorder() as rec:
+        step(state, lambda ph: uniforms[ph])
+    monkeypatch.undo()
+    return [name for name, _ in rec.seen], made
+
+
+def test_engine_step_dispatches_at_most_105_percent_of_the_seed_ops(
+        monkeypatch):
+    """At the walltime stage's shape (cq-ggadmm, 16 workers, d 64) one
+    engine iteration dispatches at most 1.05x the aten ops of one seed
+    stepper iteration, and builds no tensor from host data: its constants
+    (the censor decay, the schedule's ln 2, the phase masks) are on the
+    device before the loop. Both loops are host-bound on the card, so the
+    dispatch count sets their time (``engine_walltime_comparable``)."""
+    graph, prob = BE._problem(16, 64, 0.4, torch.device("cpu"))
+    cfg = ab.ALL_SCHEMES["cq-ggadmm"](rho=1.0)
+    gen = torch.Generator().manual_seed(0)
+    uniforms = [torch.rand((16, 64), generator=gen) for _ in range(2)]
+    solver = E.ExactSolver(prob)
+    engine_ops, engine_made = _one_iteration(
+        E.make_step(graph, cfg, solver, device="cpu"),
+        E.init_state(torch.zeros((16, 64)), cfg, solver), uniforms,
+        monkeypatch)
+    seed_ops, _ = _one_iteration(
+        sr.make_step(graph, prob, cfg, device="cpu"),
+        sr.init_state(16, 64, cfg, "cpu"), uniforms, monkeypatch)
+    assert len(engine_ops) <= 1.05 * len(seed_ops), (len(engine_ops),
+                                                     len(seed_ops))
+    assert engine_made == [] and "lift_fresh" not in engine_ops, (
+        engine_made, engine_ops.count("lift_fresh"))
+    # the seed stepper copies its censor decay and ln 2 every phase
+    assert seed_ops.count("lift_fresh") == 4

@@ -240,13 +240,18 @@ def pod_pair_run():
             "tx_counts": out["tx_counts"]}
 
 
+FLEET = ["--fleet", "--fleet-participation", "0.75"]
+
+
 def refusals():
-    """What the sharded path refuses at more than one rank."""
-    msgs = {}
+    """What the sharded path refuses at more than one rank: a worker count
+    the ranks do not divide, at the start or after a fleet's churn (4 -> 3
+    workers at round 1); and the fleet it runs (the loss history)."""
+    msgs = {"fleet": train.main(lm_flags(False, FLEET))["history"]}
     try:
-        train.main(lm_flags(False, ["--fleet"]))
-    except SystemExit as e:
-        msgs["fleet"] = str(e)
+        train.main(lm_flags(False, FLEET + ["--fleet-churn", "1:1:0"]))
+    except ValueError as e:
+        msgs["fleet_churn"] = str(e)
     try:
         TP.build(chain_graph(9), "sharded", device="cpu")
     except ValueError as e:
@@ -413,7 +418,8 @@ def work(tmp_path_factory):
         world1 = {"linreg": {s: linreg_run(d, s) for s in SCHEMES},
                   "pytree": pytree_run(),
                   "lm": {q: lm_run(d, q) for q in (False, True)},
-                  "pod_pair": pod_pair_run()}
+                  "pod_pair": pod_pair_run(),
+                  "fleet": train.main(lm_flags(False, FLEET))["history"]}
     finally:
         thread.join()
     if "error" in spawned:
@@ -585,7 +591,11 @@ def test_pod_pair_at_two_ranks_is_the_world_one_run(ranks2, work):
 @pytest.mark.parametrize("world", [2, 4])
 def test_what_more_ranks_refuse(work, world):
     msgs = ranks(work, world)[0]["refusals"]
-    assert "world size 1 only" in msgs["fleet"] and "ROADMAP" in msgs["fleet"]
+    # the fleet runs (its loss a mean of the ranks' means), and a churn to
+    # a worker count the ranks do not divide raises
+    np.testing.assert_allclose(msgs["fleet"], work[2]["fleet"], rtol=1e-6)
+    assert f"workers (3) divisible by the process group's world size " \
+           f"({world})" in msgs["fleet_churn"]
     assert f"workers (9) divisible by the process group's world size " \
            f"({world})" in msgs["divisible"]
 
