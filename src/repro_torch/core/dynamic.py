@@ -25,6 +25,7 @@ from repro_torch.core import topology as topology_backend
 from repro_torch.core import tree as T
 from repro_torch.core.graph import WorkerGraph, random_bipartite_graph
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +36,16 @@ class DynamicTopology:
     seed: int = 0
 
     def graph_at(self, phase: int) -> WorkerGraph:
-        return random_bipartite_graph(self.n_workers, self.p,
-                                      seed=self.seed + phase)
+        """The graph of refresh phase ``phase``; traced, a
+        ``dynamic.graph_draw`` span."""
+        tr = obs_trace.span_tracer()
+        if tr is not None:
+            obs_trace.begin_step_span(tr, "dynamic.graph_draw", phase=phase)
+        graph = random_bipartite_graph(self.n_workers, self.p,
+                                       seed=self.seed + phase)
+        if tr is not None:
+            obs_trace.end_step_span(tr)
+        return graph
 
 
 # ---------------------------------------------- dual column-space helpers --

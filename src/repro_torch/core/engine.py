@@ -75,6 +75,7 @@ from repro_torch.core.censoring import CensorConfig
 from repro_torch.core.graph import WorkerGraph
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 _EPS = 1e-12
 
@@ -795,9 +796,18 @@ def _phase(state: EngineState, phase: _PhaseWorkers, solver,
     ``offered_payload_bits`` report the censor-only decision and the bits
     offered before that composition (the staleness buffer charges them at
     delivery). With ``participation=None`` they are ``tx_mask`` and
-    ``payload_bits``."""
+    ``payload_bits``.
+
+    Traced (``obs_trace.span_tracer``), the caller's ``engine.phase`` span
+    holds ``engine.mix`` (the mix and the primal ``v``), ``engine.solve``,
+    ``engine.quantize`` and ``engine.censor`` (the masks, the timeout,
+    the payload and the commits)."""
+    tr = obs_trace.span_tracer()
     group_ids = resolve_groups(state.theta, cfg.groups)
     rho = cfg.rho
+    if tr is not None:
+        obs_trace.begin_step_span(tr, "engine.mix", backend=topo.backend,
+                                  D=tree_dim(state.theta_hat))
     neigh = topo.mix(state.theta_hat)
     if cfg.alternating:
         # GGADMM primal, Eqs. (11)/(12)/(21)/(22)
@@ -813,14 +823,24 @@ def _phase(state: EngineState, phase: _PhaseWorkers, solver,
                     - rho * nm.to(torch.float32))
         v = T.tree_map(jac_v, state.alpha, state.theta_hat, neigh)
         quad = 2.0 * rho_d
-
+    if tr is not None:
+        obs_trace.end_step_span(tr)
+        obs_trace.begin_step_span(tr, "engine.solve",
+                                  rows=phase.rows.numel())
     theta, mu, nu = _solve_phase(state, solver, v, quad, phase, batch)
+    if tr is not None:
+        obs_trace.end_step_span(tr)
+        obs_trace.begin_step_span(tr, "engine.quantize",
+                                  G=state.quant.n_groups, D=tree_dim(theta))
     if cfg.quantize is not None:
         quant_new, candidate, bits, payload = grouped_quantize_step(
             state.quant, theta, uniforms, cfg.quantize, group_ids, consts)
     else:
         quant_new, candidate, bits, payload = identity_quantize_step(
             state.quant, theta)
+    if tr is not None:
+        obs_trace.end_step_span(tr)
+        obs_trace.begin_step_span(tr, "engine.censor")
 
     cmask_cens, gmask_cens = _censor_masks(state, candidate, cfg, group_ids,
                                            tau, consts)
@@ -868,6 +888,8 @@ def _phase(state: EngineState, phase: _PhaseWorkers, solver,
            "censor_mask": cmask_cens, "offered_payload_bits": offered}
     if gmask is not None:
         raw["group_tx"] = gmask
+    if tr is not None:
+        obs_trace.end_step_span(tr)
     return new_state, raw
 
 
@@ -914,7 +936,18 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     On the sharded topology the state, draws, batch and metrics hold the
     rank's row block (``topology.worker_rows``); the phase masks and rows
     are cut to it, relative to its first row, and ``rho_d`` comes from the
-    block's degrees."""
+    block's degrees.
+
+    Traced (``obs_trace.span_tracer``), building is an
+    ``engine.make_step`` span, and a step an ``engine.step`` span that
+    holds an ``engine.phase`` span a phase (``_phase``'s spans inside),
+    then ``engine.dual`` (the Laplacian, the dual update and
+    ``dual_residual``) and ``engine.diagnostics`` (``extra_metrics``). The
+    spans' args are counts the host knows: nothing is read from the
+    device for them."""
+    tr = obs_trace.span_tracer()
+    if tr is not None:
+        obs_trace.begin_step_span(tr, "engine.make_step")
     topo = topology if topology is not None else topo_lib.build(
         graph, cfg.mix_backend, device=device)
     dev = topo.degrees.device
@@ -930,26 +963,39 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     every = _PhaseWorkers.of(torch.ones_like(head_mask),
                              torch.arange(head_np.shape[0], device=dev))
     rho_d = cfg.rho * topo.degrees
+    # (name, workers, draw) of each phase: GGADMM's heads then tails, or
+    # the single Jacobian phase
+    phases = ((("head", head, 0), ("tail", tail, 1)) if cfg.alternating
+              else (("every", every, 0),))
+    if tr is not None:
+        obs_trace.end_step_span(tr)
 
     def step(state: EngineState, draw: Callable[[int], torch.Tensor],
              batch: Any = None, participation=None):
         def uniforms(phase: int) -> Optional[torch.Tensor]:
             return draw(phase) if cfg.quantize is not None else None
 
+        tr = obs_trace.span_tracer()
+        if tr is not None:
+            obs_trace.begin_step_span(tr, "engine.step", k=state.k)
+
         # both phases test against tau^{k+1}
         tau = (censor_lib.threshold(cfg.censor, state.k + 1, dev,
                                     xi=consts.xi)
                if cfg.censor.enabled else None)
         args = (solver, topo, rho_d, cfg)
-        if cfg.alternating:
-            state, raw_h = _phase(state, head, *args, uniforms(0), batch,
-                                  participation, tau, consts)
-            state, raw_t = _phase(state, tail, *args, uniforms(1), batch,
-                                  participation, tau, consts)
-            raw = _merge_phases(raw_h, raw_t, head)
-        else:
-            state, raw = _phase(state, every, *args, uniforms(0), batch,
+        raws = []
+        for name, workers, phase in phases:
+            if tr is not None:
+                obs_trace.begin_step_span(tr, "engine.phase", phase=name,
+                                          rows=workers.rows.numel())
+            state, raw = _phase(state, workers, *args, uniforms(phase), batch,
                                 participation, tau, consts)
+            if tr is not None:
+                obs_trace.end_step_span(tr)
+            raws.append(raw)
+        if cfg.alternating:
+            raw = _merge_phases(raws[0], raws[1], head)
         if "group_tx" not in raw:
             tx, bits = raw["tx_mask"], raw["bits_per_group"]
             raw["group_tx"] = tx[:, None].expand(bits.shape)
@@ -957,6 +1003,8 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
 
         # Dual update, Eq. (23): alpha += rho * (D - A) theta_hat, through
         # the same topology (and mix kernel) as the phase mixes.
+        if tr is not None:
+            obs_trace.begin_step_span(tr, "engine.dual")
         lap = topo.laplacian(state.theta_hat)
         alpha = T.tree_map(lambda a, lp: _as(_as(a, torch.float32)
                                              + cfg.rho * lp, a.dtype),
@@ -966,8 +1014,16 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
                             opt_mu=state.opt_mu, opt_nu=state.opt_nu,
                             k=state.k + 1)
         metrics["dual_residual"] = (cfg.rho ** 2) * topo.dual_residual(lap)
+        if tr is not None:
+            obs_trace.end_step_span(tr)
         if extra_metrics is not None:
+            if tr is not None:
+                obs_trace.begin_step_span(tr, "engine.diagnostics")
             metrics.update(extra_metrics(state, batch))
+            if tr is not None:
+                obs_trace.end_step_span(tr)
+        if tr is not None:
+            obs_trace.end_step_span(tr)
         return state, metrics
 
     return step

@@ -46,6 +46,7 @@ from repro_torch.core import tree as T
 from repro_torch.core.graph import WorkerGraph
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 BACKENDS = ("dense", "sparse", "sharded")
 
@@ -128,8 +129,10 @@ class Topology:
 
     def rebuild(self, graph: WorkerGraph) -> "Topology":
         """This backend rebuilt for a new graph (membership changed, or
-        the topology was redrawn), on the same device."""
-        return build(graph, self.backend, device=self.degrees.device)
+        the topology was redrawn), on the same device; traced, a
+        ``topology.rebuild`` span."""
+        return _traced_rebuild(lambda: build(graph, self.backend,
+                                             device=self.degrees.device))
 
     def dual_residual(self, lap: Tree) -> torch.Tensor:
         """Squared norm of a Laplacian image, summed over the tree: with
@@ -207,10 +210,16 @@ class ShardedTopology(DenseTopology):
         if self.group is None:
             return local
         _check_backend(self.group, local.device)
+        tr = obs_trace.span_tracer()
+        if tr is not None:
+            obs_trace.begin_step_span(tr, "topology.all_gather",
+                                      world=self.world)
         rows = local.movedim(dim, 0).contiguous()
         out = rows.new_empty((rows.shape[0] * self.world,)
                              + tuple(rows.shape[1:]))
         _all_gather(out, rows, group=self.group)
+        if tr is not None:
+            obs_trace.end_step_span(tr)
         return out.movedim(0, dim)
 
     def all_reduce(self, value: torch.Tensor,
@@ -240,8 +249,18 @@ class ShardedTopology(DenseTopology):
         return self.all_reduce(super().dual_residual(lap))
 
     def rebuild(self, graph: WorkerGraph) -> "Topology":
-        return build(graph, "sharded", device=self.degrees.device,
-                     group=self.group)
+        return _traced_rebuild(lambda: build(
+            graph, "sharded", device=self.degrees.device, group=self.group))
+
+
+def _traced_rebuild(rebuild: Callable[[], Topology]) -> Topology:
+    tr = obs_trace.span_tracer()
+    if tr is None:
+        return rebuild()
+    obs_trace.begin_step_span(tr, "topology.rebuild")
+    topo = rebuild()
+    obs_trace.end_step_span(tr)
+    return topo
 
 
 def _group_world(group) -> Tuple[Any, int, int]:

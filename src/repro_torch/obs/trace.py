@@ -1,6 +1,7 @@
-"""Chrome-trace / Perfetto event tracer (a copy of ``repro.obs.trace``,
-standard library only; ``tests/test_torch_obs.py`` holds it to the
-original).
+"""Chrome-trace / Perfetto event tracer (a copy of ``repro.obs.trace``
+with the profiler's clock and the engine's spans added, standard library
+only; ``tests/test_torch_obs.py`` holds its event lists to the
+original's).
 
 One global tracer, enabled either by ``REPRO_TRACE=<path>`` in the
 environment (checked once at import) or programmatically via
@@ -8,16 +9,35 @@ environment (checked once at import) or programmatically via
 this). When disabled, :func:`tracer` returns ``None`` and every
 instrumentation site is a single attribute load plus an ``is None``
 test — nothing is allocated, formatted, or written (and nothing is
-copied from the card or synchronised).
+copied from the card or synchronised); the engine's sites add one read of
+the profiler's flag (:func:`span_tracer`).
 
 Track layout: each subsystem ("serving", "engine", "fleet")
 is a trace *process* (pid); named tracks within it — one per serving
 request rid, one per fleet worker, one per campaign run — are *threads*
 (tid) allocated lazily by :meth:`Tracer.track`. Events follow the Chrome
 Trace Event format: ``ph`` is ``B``/``E`` (span begin/end), ``i``
-(instant), ``C`` (counter), or ``M`` (metadata); ``ts`` is microseconds
-from tracer start. The written file is ``{"traceEvents": [...]}`` and
-loads directly in Perfetto / chrome://tracing.
+(instant), ``C`` (counter), or ``M`` (metadata). The written file is
+``{"traceEvents": [...]}`` and loads directly in Perfetto /
+chrome://tracing.
+
+One clock with torch.profiler: ``ts`` is microseconds of the Unix epoch
+(kineto's ``start_ns()``) counted from ``Tracer.base_ns``, the start of
+the current 7,889,238-second interval, as a profiler export counts them;
+the written file names that base under ``baseTimeNanoseconds``, as the
+export does, so the two open on one timeline. The epoch is read once,
+beside ``perf_counter_ns``, when the tracer is built; later stamps are
+``perf_counter_ns`` plus that offset, so spans stay monotonic. A tracer
+built without a path keeps its events in memory and writes nothing.
+
+The engine's layer spans (``core/engine.py``, ``core/topology.py``,
+``core/dynamic.py``) ask :func:`span_tracer`: the enabled tracer, or,
+while a torch.profiler profile records and none is enabled, an in-memory
+tracer of that profile (:func:`last_profile` hands it back after). A
+profile's tracer starts with :data:`PROFILE_ANCHOR`, one
+``record_function`` of that name inside a tracer span of that name, so
+that a reader of the profiler's events can place the spans on their time
+base.
 
 Spans on one track must nest (validated by :func:`validate_events`);
 :meth:`Tracer.save` synthesizes ``E`` events for still-open spans in the
@@ -29,22 +49,34 @@ from __future__ import annotations
 import atexit
 import json
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 ENV_VAR = "REPRO_TRACE"
+# a profiler export's time base: libkineto's ChromeTraceBaseTime floors the
+# epoch to intervals of this many seconds
+BASE_INTERVAL_S = 7889238
+# the engine's layer spans: one track of one subsystem
+STEP_TRACK = ("engine", "step")
+PROFILE_ANCHOR = "repro.profile_anchor"
 
 _PHASES = ("B", "E", "i", "C", "M")
 
 
 class Tracer:
-    """Buffering span/instant/counter recorder for one trace file."""
+    """Buffering span/instant/counter recorder for one trace file, or in
+    memory only (``path`` None)."""
 
-    def __init__(self, path: str):
-        self.path = str(path)
-        self._t0 = time.perf_counter()
+    def __init__(self, path: Optional[str]):
+        self.path = None if path is None else str(path)
+        epoch_offset = time.time_ns() - time.perf_counter_ns()
+        now_s = (time.perf_counter_ns() + epoch_offset) // 10 ** 9
+        self.base_ns = now_s // BASE_INTERVAL_S * BASE_INTERVAL_S * 10 ** 9
+        # perf_counter_ns at base_ns
+        self._zero_ns = self.base_ns - epoch_offset
         self._lock = threading.Lock()
         self._events: List[Dict[str, Any]] = []
         self._pids: Dict[str, int] = {}
@@ -55,7 +87,7 @@ class Tracer:
 
     # -- time / identity ------------------------------------------------
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return (time.perf_counter_ns() - self._zero_ns) / 1e3
 
     def _pid(self, subsystem: str) -> int:
         pid = self._pids.get(subsystem)
@@ -142,10 +174,18 @@ class Tracer:
             )
 
     # -- output ---------------------------------------------------------
-    def save(self) -> str:
+    def events(self) -> List[Dict[str, Any]]:
+        """The events recorded so far (a copy of the list)."""
+        with self._lock:
+            return list(self._events)
+
+    def save(self) -> Optional[str]:
         """Atomically write the trace file; still-open spans get synthetic
         ``E`` events in the written copy only (live stacks are untouched,
-        so tracing can continue and a later save stays balanced)."""
+        so tracing can continue and a later save stays balanced). An
+        in-memory tracer writes nothing and returns None."""
+        if self.path is None:
+            return None
         with self._lock:
             events = list(self._events)
             ts = self._now_us()
@@ -154,7 +194,8 @@ class Tracer:
                     events.append({"name": name, "ph": "E", "ts": ts,
                                    "pid": pid, "tid": tid,
                                    "args": {"truncated": True}})
-        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": self.base_ns}
         tmp = f"{self.path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(doc, f)
@@ -170,6 +211,78 @@ _tracer: Optional[Tracer] = None
 def tracer() -> Optional[Tracer]:
     """The active tracer, or ``None`` when tracing is disabled."""
     return _tracer
+
+
+# the tracer of the running or the last torch.profiler profile
+_profile: Optional[Tracer] = None
+_profiling = False
+
+
+def _profiler_on() -> bool:
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _anchor(tr: Tracer) -> None:
+    from torch.autograd.profiler import record_function
+
+    tid = tr.track("trace", "profiler")
+    tr.begin(PROFILE_ANCHOR, "trace", tid)
+    with record_function(PROFILE_ANCHOR):
+        pass
+    tr.end("trace", tid)
+
+
+def span_tracer() -> Optional[Tracer]:
+    """The tracer of the engine's layer spans: the enabled tracer, or while
+    a torch.profiler profile records and none is enabled, the profile's
+    in-memory tracer; ``None`` otherwise. The first call inside a profile
+    stamps :data:`PROFILE_ANCHOR` into the tracer it returns."""
+    global _profile, _profiling
+    on = _profiler_on()
+    if on is not _profiling:
+        _profiling = on
+        if on:
+            _profile = _tracer if _tracer is not None else Tracer(None)
+            _anchor(_profile)
+    if _tracer is not None:
+        return _tracer
+    return _profile if on else None
+
+
+def last_profile() -> Optional[Tracer]:
+    """The tracer that recorded the engine's spans in the running or the
+    last torch.profiler profile (None before any)."""
+    return _profile
+
+
+def begin_step_span(tr: Tracer, name: str, **args: Any) -> None:
+    """Open ``name`` on the engine's step track (``STEP_TRACK``)."""
+    sub, track = STEP_TRACK
+    tr.begin(name, sub, tr.track(sub, track), args=args or None)
+
+
+def end_step_span(tr: Tracer) -> None:
+    """Close the innermost span open on the engine's step track."""
+    sub, track = STEP_TRACK
+    tr.end(sub, tr.track(sub, track))
+
+
+def closed_spans(events: List[Dict[str, Any]]
+                 ) -> List[Tuple[str, int, int, float, float, Dict]]:
+    """``(name, pid, tid, begin ts, end ts, begin args)`` of every closed
+    span of ``events``, in the order the spans close."""
+    stacks: Dict[Tuple[int, int], List[Dict[str, Any]]] = {}
+    out = []
+    for ev in events:
+        key = (ev.get("pid"), ev.get("tid"))
+        if ev["ph"] == "B":
+            stacks.setdefault(key, []).append(ev)
+        elif ev["ph"] == "E" and stacks.get(key):
+            b = stacks[key].pop()
+            out.append((b["name"], key[0], key[1], b["ts"], ev["ts"],
+                        b.get("args", {})))
+    return out
 
 
 def enabled() -> bool:

@@ -511,3 +511,305 @@ def test_jax_default_graph_is_the_port_graph():
     np.testing.assert_array_equal(
         random_bipartite_graph(N, 0.4, seed=0).adjacency,
         np.asarray(jax_graph(N, 0.4, seed=0).adjacency))
+
+
+# ------------------------------------- the engine's spans, on one clock --
+STEP_SPANS = ("engine.step", "engine.phase", "engine.mix", "engine.solve",
+              "engine.quantize", "engine.censor", "engine.dual",
+              "engine.diagnostics")
+# where each span sits: the spans that may hold it innermost
+PARENT = {"engine.phase": ("engine.step",),
+          "engine.mix": ("engine.phase",), "engine.solve": ("engine.phase",),
+          "engine.quantize": ("engine.phase",),
+          "engine.censor": ("engine.phase",), "engine.dual": ("engine.step",),
+          "engine.diagnostics": ("engine.step",),
+          "topology.all_gather": ("engine.mix", "engine.dual",
+                                  "engine.diagnostics")}
+
+
+def step_spans(events):
+    """The closed spans of the engine's step track, by name."""
+    pid_of = {e["args"]["name"]: e["pid"] for e in events
+              if e["name"] == "process_name"}
+    tid_of = {e["args"]["name"]: e["tid"] for e in events
+              if e["name"] == "thread_name"
+              and e["pid"] == pid_of.get(obs_trace.STEP_TRACK[0])}
+    track = (pid_of[obs_trace.STEP_TRACK[0]],
+             tid_of[obs_trace.STEP_TRACK[1]])
+    by_name = {}
+    for name, pid, tid, b, e, args in obs_trace.closed_spans(events):
+        if (pid, tid) == track:
+            by_name.setdefault(name, []).append((b, e, args))
+    return by_name
+
+
+def assert_nested(spans):
+    """Each span of ``PARENT`` lies inside a span of one of its parents'
+    names, and no two spans of one name overlap."""
+    for name, parents in PARENT.items():
+        for b, e, _ in spans.get(name, ()):
+            assert any(pb <= b and e <= pe for p in parents
+                       for pb, pe, _ in spans.get(p, ())), (name, b)
+    for name, got in spans.items():
+        ends = sorted((b, e) for b, e, _ in got)
+        assert all(e0 <= b1 for (_, e0), (b1, _) in zip(ends, ends[1:])), \
+            name
+
+
+def test_tracer_stamps_the_profilers_clock_and_names_it(tmp_path):
+    """A tracer span around a ``record_function`` region holds the
+    profiler's interval of it, within 50 us, on the Unix epoch that
+    kineto's ``start_ns`` reads; the file names the base of its ``ts``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tr = Tracer(str(tmp_path / "c.json"))
+    tid = tr.track("probe", "probe")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm"):       # the first call is slow
+            pass
+        tr.begin("probe", "probe", tid)
+        with record_function("probe"):
+            torch.ones(64).sum()
+        tr.end("probe", tid)
+    (probe,) = [e for e in prof.profiler.kineto_results.events()
+                if e.name() == "probe"]
+    ((_, _, _, b, e, _),) = [s for s in obs_trace.closed_spans(
+        tr.events()) if s[0] == "probe"]
+    begin_ns, end_ns = tr.base_ns + b * 1e3, tr.base_ns + e * 1e3
+    assert begin_ns - 50e3 <= probe.start_ns() < probe.end_ns() \
+        <= end_ns + 50e3
+    assert (end_ns - begin_ns) - (probe.end_ns() - probe.start_ns()) < 1e6
+    interval = obs_trace.BASE_INTERVAL_S * 10 ** 9
+    assert tr.base_ns % interval == 0
+    assert 0 <= probe.start_ns() - tr.base_ns < interval
+    with open(tr.save()) as f:
+        doc = json.load(f)
+    assert doc["baseTimeNanoseconds"] == tr.base_ns
+    assert validate_events(doc) == []
+    memory = Tracer(None)
+    memory.instant("x", "probe")
+    assert memory.save() is None and memory.path is None
+    assert [e["name"] for e in memory.events()] == ["process_name", "x"]
+
+
+def test_a_profile_records_the_engine_spans_in_memory_from_an_anchor(
+        linreg):
+    """With no tracer enabled, a torch.profiler profile gets the engine's
+    spans in an in-memory tracer that starts with the anchor; the anchor's
+    end is the profiler's, within 50 us. Outside the profile there is no
+    span tracer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, prob = linreg
+    solver = E.ExactSolver(prob)
+    step = E.make_step(g, cfg(), solver, device="cpu")
+    state = E.init_state(theta0(), cfg(), solver)
+    gen = torch.Generator().manual_seed(0)
+    assert obs_trace.span_tracer() is None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            state, _ = step(state, lambda ph: torch.rand((N, DIM),
+                                                         generator=gen))
+    assert obs_trace.span_tracer() is None and obs_trace.tracer() is None
+    tr = obs_trace.last_profile()
+    assert tr is not None and tr.path is None and tr.save() is None
+    spans = obs_trace.closed_spans(tr.events())
+    assert spans[0][0] == obs_trace.PROFILE_ANCHOR
+    names = [s[0] for s in spans]
+    assert names.count("engine.step") == 2 and names.count("engine.solve") \
+        == 4
+    (anchor,) = [e for e in prof.profiler.kineto_results.events()
+                 if e.name() == obs_trace.PROFILE_ANCHOR]
+    assert abs(tr.base_ns + spans[0][4] * 1e3 - anchor.end_ns()) < 50e3
+
+
+def traced_steps(linreg, tmp_path, traced, backend="dense"):
+    """ROUNDS engine steps (alternating, quantized, group censoring, the
+    flat diagnostics), with a file tracer or none: the final state, the
+    metrics, the dispatch counts and the trace's events."""
+    g, prob = linreg
+    solver = E.ExactSolver(prob)
+    c = cfg(mix_backend=backend)
+    if traced:
+        obs_trace.enable(str(tmp_path / "s.json"))
+    before = dispatches()
+    step = E.make_step(g, c, solver, device="cpu",
+                       extra_metrics=E.flat_metrics(g, backend,
+                                                    device="cpu"))
+    state = E.init_state(theta0(), c, solver)
+    gen = torch.Generator().manual_seed(0)
+    ms = []
+    for _ in range(ROUNDS):
+        state, m = step(state, lambda ph: torch.rand((N, DIM),
+                                                     generator=gen))
+        ms.append(m)
+    after = dispatches()
+    events = None
+    if traced:
+        with open(obs_trace.save()) as f:
+            doc = json.load(f)
+        assert validate_events(doc) == []
+        events = doc["traceEvents"]
+        obs_trace.disable(save=False)
+    return state, ms, {k: after[k] - before.get(k, 0) for k in after}, events
+
+
+def assert_same_run(a, b):
+    (state, ms, delta), (tstate, tms, tdelta) = a, b
+    assert delta == tdelta and sum(delta.values()) > 0
+    for name in ("theta", "theta_hat", "alpha"):
+        for x, y in zip(T.leaves(getattr(state, name)),
+                        T.leaves(getattr(tstate, name))):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+    for m, tm in zip(ms, tms):
+        assert m.keys() == tm.keys()
+        for k in m:
+            torch.testing.assert_close(m[k], tm[k], rtol=0, atol=0)
+
+
+def test_a_traced_engine_step_writes_the_layer_spans_of_an_unchanged_run(
+        linreg, tmp_path):
+    *plain, _ = traced_steps(linreg, tmp_path, False)
+    *traced, events = traced_steps(linreg, tmp_path, True)
+    assert_same_run(plain, traced)
+    spans = step_spans(events)
+    counts = {k: len(v) for k, v in spans.items()}
+    assert counts == {"engine.make_step": 1, "engine.step": ROUNDS,
+                      "engine.phase": 2 * ROUNDS, "engine.mix": 2 * ROUNDS,
+                      "engine.solve": 2 * ROUNDS,
+                      "engine.quantize": 2 * ROUNDS,
+                      "engine.censor": 2 * ROUNDS, "engine.dual": ROUNDS,
+                      "engine.diagnostics": ROUNDS}
+    assert_nested(spans)
+    assert [a["k"] for _, _, a in spans["engine.step"]] == list(
+        range(ROUNDS))
+    assert [a["phase"] for _, _, a in spans["engine.phase"][:2]] == [
+        "head", "tail"]
+    assert sum(a["rows"] for _, _, a in spans["engine.phase"][:2]) == N
+    assert all(a == {"backend": "dense", "D": DIM}
+               for _, _, a in spans["engine.mix"])
+    assert all(a == {"G": 2, "D": DIM}
+               for _, _, a in spans["engine.quantize"])
+
+
+def test_a_traced_dynamic_run_spans_each_redraw(tmp_path):
+    """``run_dynamic`` over two graph phases on the sparse backend: the
+    same values and dispatches traced, and the redraw's spans (the draws,
+    one rebuild, a step built a phase) beside the steps."""
+    from repro_torch.core import admm_baselines as ab
+    from repro_torch.core import dynamic
+    import dataclasses
+
+    x, y = R.partition_uniform(R.synth_linear(n=N * 30, d=DIM, seed=0), N)
+    prob = interop.problem_from_numpy(x, y, "linear", device="cpu")
+    c = dataclasses.replace(ab.cq_ggadmm(rho=1.0), mix_backend="sparse")
+    topo = dynamic.DynamicTopology(N, 0.5, refresh_every=3, seed=4)
+
+    def run(traced):
+        if traced:
+            obs_trace.enable(str(tmp_path / "d.json"))
+        before = dispatches()
+        state, out = dynamic.run_dynamic(topo, prob, c, DIM, 6, seed=2,
+                                         device="cpu")
+        after = dispatches()
+        doc = None
+        if traced:
+            with open(obs_trace.save()) as f:
+                doc = json.load(f)
+            obs_trace.disable(save=False)
+        return state, out, {k: after[k] - before.get(k, 0)
+                            for k in after}, doc
+
+    state, out, delta, _ = run(False)
+    tstate, tout, tdelta, doc = run(True)
+    assert delta == tdelta and sum(delta.values()) > 0
+    for k in out:
+        np.testing.assert_array_equal(out[k], tout[k], err_msg=k)
+    torch.testing.assert_close(state.theta, tstate.theta, rtol=0, atol=0)
+    torch.testing.assert_close(state.alpha, tstate.alpha, rtol=0, atol=0)
+    assert validate_events(doc) == []
+    spans = step_spans(doc["traceEvents"])
+    counts = {k: len(v) for k, v in spans.items()}
+    assert counts["dynamic.graph_draw"] == 3       # phase 0 twice, phase 1
+    assert counts["topology.rebuild"] == 1
+    assert counts["engine.make_step"] == 2
+    assert counts["engine.step"] == 6 and counts["engine.phase"] == 12
+    assert_nested(spans)
+    (rb, _, _), = spans["topology.rebuild"]
+    steps = sorted(b for b, _, _ in spans["engine.step"])
+    assert steps[2] < rb < steps[3]
+    assert all(a["backend"] == "sparse" for _, _, a in spans["engine.mix"])
+
+
+def test_a_traced_sharded_step_spans_the_all_gather(linreg, tmp_path):
+    """At world one over a gloo group the sharded mix all-gathers: traced,
+    one ``topology.all_gather`` inside each ``engine.mix``, and the run is
+    the untraced one's."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="file://" + str(
+        tmp_path / "store"), rank=0, world_size=1)
+    try:
+        *plain, _ = traced_steps(linreg, tmp_path, False, "sharded")
+        *traced, events = traced_steps(linreg, tmp_path, True, "sharded")
+    finally:
+        dist.destroy_process_group()
+    assert_same_run(plain, traced)
+    spans = step_spans(events)
+    assert_nested(spans)
+    # the phases' mixes, the dual's Laplacian, the diagnostics' residual
+    assert len(spans["topology.all_gather"]) == 4 * ROUNDS
+    mixes = spans["engine.mix"]
+    assert len(mixes) == 2 * ROUNDS and all(
+        sum(b <= gb and ge <= e for gb, ge, _ in spans["topology.all_gather"])
+        == 1 for b, e, _ in mixes)
+    assert all(a == {"world": 1} for _, _, a in spans["topology.all_gather"])
+
+
+def test_an_untraced_step_calls_no_tracer_method_and_reads_no_device(
+        linreg, monkeypatch):
+    """No tracer and no profile: building and running steps and a redraw
+    call no tracer method; and tracing reads nothing more from the tensors
+    than an untraced step does (no host copy, no synchronisation)."""
+    def refuse(*a, **kw):
+        raise AssertionError("a tracer method was called")
+
+    g, prob = linreg
+    reads = []
+
+    def counting(name):
+        real = getattr(torch.Tensor, name)
+
+        def read(self, *a, **kw):
+            reads.append(name)
+            return real(self, *a, **kw)
+        return read
+
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, counting(name))
+
+    def steps():
+        from repro_torch.core import dynamic
+
+        solver = E.ExactSolver(prob)
+        topo = dynamic.DynamicTopology(N, 0.4, refresh_every=2, seed=1)
+        graph = topo.graph_at(1)
+        built = E.topo_lib.build(graph, "sparse", device="cpu").rebuild(g)
+        step = E.make_step(g, cfg(), solver, topology=built,
+                           extra_metrics=E.flat_metrics(g, built))
+        state = E.init_state(theta0(), cfg(), solver)
+        gen = torch.Generator().manual_seed(0)
+        reads.clear()
+        for _ in range(2):
+            state, _ = step(state, lambda ph: torch.rand((N, DIM),
+                                                         generator=gen))
+        return list(reads)
+
+    obs_trace.enable(None)
+    traced_reads = steps()
+    obs_trace.disable(save=False)
+    for name in ("begin", "end", "track", "instant", "counter", "span",
+                 "events", "save"):
+        monkeypatch.setattr(Tracer, name, refuse)
+    assert steps() == traced_reads
