@@ -30,7 +30,10 @@ Local solvers: :class:`ExactSolver` (closed form / Newton on a flat
 problem) and :class:`InexactSolver` (K Adam or SGD steps on the augmented
 Lagrangian, for neural models). The inexact solver runs only the rows of
 the acting phase's workers: rows are independent, so this gives the values
-of the JAX package's solve-all-then-select.
+of the JAX package's solve-all-then-select. So does an exact solver over
+the linear problem, whose systems stand while the graph does: each phase
+factors its rows' systems once a step function and applies the factor
+(``ExactSolver.factors``).
 
 The stochastic-rounding uniforms are ``(N, D)`` per phase, from
 ``draw(phase)``; ``run(seed=...)`` draws them from a ``torch.Generator``,
@@ -500,7 +503,13 @@ def _unflatten_worker(flat: torch.Tensor, like: Tree) -> Tree:
 class ExactSolver:
     """A flat ``primal_solve(v, rho_d, theta_init)`` problem (closed form or
     Newton, ``core/solvers.py``) as the engine's local solver. The tree is
-    raveled per worker; for an (N, d) tensor that is the identity."""
+    raveled per worker; for an (N, d) tensor that is the identity.
+
+    A problem whose systems do not depend on theta or v (it has
+    ``factor(quad, rows)`` and ``solve_factored(factor, rows, v_rows)``,
+    the linear problem's) :attr:`factors`: the engine then factors each
+    phase's systems once a step function and applies the factor to the
+    phase's rows (:meth:`solve_rows`)."""
 
     problem: Any
 
@@ -508,11 +517,33 @@ class ExactSolver:
         del theta
         return (), ()
 
+    @property
+    def factors(self) -> bool:
+        return hasattr(self.problem, "factor")
+
     def solve(self, theta0, v, quad, mu, nu, batch=None):
         del batch
         flat = self.problem.primal_solve(
             _flatten_worker(v), quad, theta_init=_flatten_worker(theta0))
         return _unflatten_worker(flat, theta0), mu, nu
+
+    def solve_rows(self, factor, rows: torch.Tensor, v: Tree,
+                   theta: Tree) -> Tree:
+        """``theta`` with workers ``rows`` set to their solve for ``v``
+        from ``factor`` (the problem's ``factor(quad, rows)``); the other
+        rows as they are."""
+        flat = self.problem.solve_factored(
+            factor, rows, _flatten_worker(v).index_select(0, rows))
+        if not (torch.is_tensor(theta) and theta.dim() == 2):
+            return T.put_rows(theta, rows, _unflatten_worker(
+                flat, T.take_rows(theta, rows)))
+        # in the layout a solve of every row leaves theta in (that of
+        # torch.linalg.solve's batch of vectors: the worker axis innermost),
+        # so that the reductions over theta (the primal residual) round as
+        # they do there
+        out = torch.empty_strided(theta.shape, (1, theta.shape[0]),
+                                  dtype=theta.dtype, device=theta.device)
+        return out.copy_(theta).index_copy_(0, rows, _as(flat, theta.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -742,18 +773,49 @@ def _where_rows(on: torch.Tensor, a: Tree, b: Tree,
                            for x, y, g in zip(xs, ys, ids)])
 
 
+class _FactorSlot:
+    """A phase's factor of its workers' systems (``ExactSolver.factors``),
+    made on the phase's first solve and kept while the step function
+    stands; freed with it."""
+
+    __slots__ = ("factor",)
+
+    def __init__(self):
+        self.factor = None
+
+
 def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
-                 phase: _PhaseWorkers, batch):
+                 phase: _PhaseWorkers, batch,
+                 slot: Optional[_FactorSlot] = None):
     """The local solve for the acting workers: an inexact (per-worker)
-    solver gets their rows only; an exact one solves all and selects."""
+    solver gets their rows only; an exact solver that factors (``slot``
+    given) applies the phase's factor to their rows, factoring on the
+    first call (traced: ``solve.factor`` then ``solve.apply`` spans); any
+    other exact solver solves all and selects."""
     def is_tree(t):            # a solver without moments holds ()
         return isinstance(t, dict) or torch.is_tensor(t)
 
     rows = phase.rows
-    if getattr(solver, "per_worker", False):
-        if rows.numel() == 0:       # a rank's row block without this phase
-            return state.theta, state.opt_mu, state.opt_nu
-
+    per_worker = getattr(solver, "per_worker", False)
+    if (slot is not None or per_worker) and rows.numel() == 0:
+        # a rank's row block without this phase
+        return state.theta, state.opt_mu, state.opt_nu
+    if slot is not None:
+        tr = obs_trace.span_tracer()
+        if slot.factor is None:
+            if tr is not None:
+                obs_trace.begin_step_span(tr, "solve.factor",
+                                          rows=rows.numel())
+            slot.factor = solver.problem.factor(quad, rows)
+            if tr is not None:
+                obs_trace.end_step_span(tr)
+        if tr is not None:
+            obs_trace.begin_step_span(tr, "solve.apply")
+        theta = solver.solve_rows(slot.factor, rows, v, state.theta)
+        if tr is not None:
+            obs_trace.end_step_span(tr)
+        return theta, state.opt_mu, state.opt_nu
+    if per_worker:
         def sub(t):
             return T.take_rows(t, rows) if is_tree(t) else t
 
@@ -775,12 +837,15 @@ def _solve_phase(state: EngineState, solver, v: Tree, quad: torch.Tensor,
 
 
 def _phase(state: EngineState, phase: _PhaseWorkers, solver,
-           topo: topo_lib.Topology, rho_d: torch.Tensor, cfg: EngineConfig,
-           uniforms: Optional[torch.Tensor], batch,
+           topo: topo_lib.Topology, rho_d: torch.Tensor, quad: torch.Tensor,
+           cfg: EngineConfig, uniforms: Optional[torch.Tensor], batch,
            participation: Optional[torch.Tensor],
            tau: Optional[torch.Tensor], consts: _Constants,
+           slot: Optional[_FactorSlot] = None,
            ) -> Tuple[EngineState, Metrics]:
-    """One group's primal update + quantize + censor + commit.
+    """One group's primal update + quantize + censor + commit. ``quad`` is
+    the primal's quadratic weight (``rho_d``, or ``2 rho_d`` for the
+    Jacobian phase), ``slot`` the phase's factor (``_solve_phase``).
 
     Returns the new state and the phase's per-worker metrics *unmasked*
     (every row as this phase computed it); the step keeps each worker's
@@ -813,7 +878,6 @@ def _phase(state: EngineState, phase: _PhaseWorkers, solver,
         # GGADMM primal, Eqs. (11)/(12)/(21)/(22)
         v = T.tree_map(lambda a, nm: _as(a, torch.float32)
                        - rho * _as(nm, torch.float32), state.alpha, neigh)
-        quad = rho_d
     else:
         # Jacobian C-ADMM primal (Liu et al., 2019b): proximal self-anchor
         def jac_v(a, th, nm):
@@ -822,12 +886,12 @@ def _phase(state: EngineState, phase: _PhaseWorkers, solver,
                     - rho_d.reshape(shape1) * th.to(torch.float32)
                     - rho * nm.to(torch.float32))
         v = T.tree_map(jac_v, state.alpha, state.theta_hat, neigh)
-        quad = 2.0 * rho_d
     if tr is not None:
         obs_trace.end_step_span(tr)
         obs_trace.begin_step_span(tr, "engine.solve",
                                   rows=phase.rows.numel())
-    theta, mu, nu = _solve_phase(state, solver, v, quad, phase, batch)
+    theta, mu, nu = _solve_phase(state, solver, v, quad, phase, batch,
+                                 slot)
     if tr is not None:
         obs_trace.end_step_span(tr)
         obs_trace.begin_step_span(tr, "engine.quantize",
@@ -928,10 +992,17 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     ``participation`` is the fleet's optional (N,) on-time mask (see
     :func:`_phase`); None is the synchronous path.
 
-    The phase masks and rows, the censor decay and the schedule's
-    constants are put on the device here, once; a step copies nothing
-    from the host. Under global censoring ``group_tx`` is ``tx_mask``
-    broadcast over the groups (an expanded view).
+    The phase masks and rows, the primal's quadratic weight, the censor
+    decay and the schedule's constants are put on the device here, once; a
+    step copies nothing from the host. Where the solver factors
+    (``ExactSolver.factors``: the linear problem), each phase factors its
+    workers' systems on its first solve and applies that factor to its
+    rows from then on: the systems depend only on the graph's degrees, so
+    the factor stands as long as the step function. It is made on the
+    first solve, not here, so a caller that replaces its step function
+    (a redraw) frees the old factors before the new ones are made. Under
+    global censoring ``group_tx`` is ``tx_mask`` broadcast over the groups
+    (an expanded view).
 
     On the sharded topology the state, draws, batch and metrics hold the
     rank's row block (``topology.worker_rows``); the phase masks and rows
@@ -940,7 +1011,9 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
 
     Traced (``obs_trace.span_tracer``), building is an
     ``engine.make_step`` span, and a step an ``engine.step`` span that
-    holds an ``engine.phase`` span a phase (``_phase``'s spans inside),
+    holds an ``engine.phase`` span a phase (``_phase``'s spans inside;
+    ``engine.solve`` holds ``solve.factor`` on a phase's first solve and
+    ``solve.apply`` on each, where the solver factors),
     then ``engine.dual`` (the Laplacian, the dual update and
     ``dual_residual``) and ``engine.diagnostics`` (``extra_metrics``). The
     spans' args are counts the host knows: nothing is read from the
@@ -963,10 +1036,17 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
     every = _PhaseWorkers.of(torch.ones_like(head_mask),
                              torch.arange(head_np.shape[0], device=dev))
     rho_d = cfg.rho * topo.degrees
-    # (name, workers, draw) of each phase: GGADMM's heads then tails, or
-    # the single Jacobian phase
-    phases = ((("head", head, 0), ("tail", tail, 1)) if cfg.alternating
-              else (("every", every, 0),))
+    # the primal's quadratic weight: GGADMM's rho d_n, or the Jacobian
+    # phase's 2 rho d_n (with its proximal self-anchor)
+    quad = rho_d if cfg.alternating else 2.0 * rho_d
+
+    def slot() -> Optional[_FactorSlot]:
+        return _FactorSlot() if getattr(solver, "factors", False) else None
+
+    # (name, workers, draw, factor slot) of each phase: GGADMM's heads then
+    # tails, or the single Jacobian phase
+    phases = ((("head", head, 0, slot()), ("tail", tail, 1, slot()))
+              if cfg.alternating else (("every", every, 0, slot()),))
     if tr is not None:
         obs_trace.end_step_span(tr)
 
@@ -983,14 +1063,14 @@ def make_step(graph: WorkerGraph, cfg: EngineConfig, solver,
         tau = (censor_lib.threshold(cfg.censor, state.k + 1, dev,
                                     xi=consts.xi)
                if cfg.censor.enabled else None)
-        args = (solver, topo, rho_d, cfg)
+        args = (solver, topo, rho_d, quad, cfg)
         raws = []
-        for name, workers, phase in phases:
+        for name, workers, phase, factor in phases:
             if tr is not None:
                 obs_trace.begin_step_span(tr, "engine.phase", phase=name,
                                           rows=workers.rows.numel())
             state, raw = _phase(state, workers, *args, uniforms(phase), batch,
-                                participation, tau, consts)
+                                participation, tau, consts, factor)
             if tr is not None:
                 obs_trace.end_step_span(tr)
             raws.append(raw)

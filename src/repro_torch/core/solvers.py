@@ -14,7 +14,9 @@ plus a generic gradient-descent solver for any differentiable f_n.
 
 The per-worker Gram matrices ``X_n^T X_n`` and ``X_n^T y_n`` of the linear
 problem do not depend on v, so they are computed once, at construction. The
-solve is ``torch.linalg.solve`` (the JAX package leaves it to XLA too).
+solve is ``torch.linalg.solve`` (the JAX package leaves it to XLA too); the
+engine factors a phase's systems once a graph instead (``factor``, then
+``solve_factored`` each phase), since they depend only on rho d_n.
 
 ``take_workers(rows)`` is the problem of a row block of workers (the rank's
 rows on the sharded topology): their data and, for the linear problem,
@@ -83,6 +85,41 @@ class LinearRegressionProblem:
         del theta_init
         lhs = self.gram + rho_d[:, None, None] * _eye(self.dim, self.gram)
         return torch.linalg.solve(lhs, self.xty - v)
+
+    def factor(self, quad: torch.Tensor, rows: torch.Tensor):
+        """The LU factor (``torch.linalg.lu_factor``) of the systems
+        ``X_n^T X_n + quad_n I`` of workers ``rows``, the factor
+        :meth:`primal_solve`'s ``torch.linalg.solve`` makes of them, with
+        the row permutation its pivots stand for (``torch.lu_unpack``),
+        made here once and not at every solve. ``quad`` is (N,); the
+        systems do not depend on ``v``."""
+        lhs = (self.gram.index_select(0, rows)
+               + quad.index_select(0, rows)[:, None, None]
+               * _eye(self.dim, self.gram))
+        lu, pivots = torch.linalg.lu_factor(lhs)
+        del lhs
+        # P[perm[j], j] = 1, so (P^T b)_j = b[perm[j]]. P is a dense (d, d)
+        # matrix a system: made for half the systems at a time, it fits in
+        # what ``lhs`` freed (made whole, it raised the peak past it)
+        half = -(-lu.shape[0] // 2)
+        perm = torch.cat([
+            torch.lu_unpack(lu[i:i + half], pivots[i:i + half],
+                            unpack_data=False)[0].argmax(-2)
+            for i in range(0, lu.shape[0], half)])
+        return lu, perm
+
+    def solve_factored(self, factor, rows: torch.Tensor,
+                       v_rows: torch.Tensor) -> torch.Tensor:
+        """Solves the systems of workers ``rows`` from their ``factor``
+        (:meth:`factor`) for ``v_rows`` (R, d), by ``torch.linalg.lu_solve``'s
+        steps with the permutation made once: the right-hand side
+        permuted, then the unit lower and the upper triangular solves.
+        :meth:`primal_solve`'s rows, bit for bit on the CPU."""
+        lu, perm = factor
+        rhs = (self.xty.index_select(0, rows) - v_rows).gather(1, perm)
+        lower = torch.linalg.solve_triangular(lu, rhs[..., None], upper=False,
+                                              unitriangular=True)
+        return torch.linalg.solve_triangular(lu, lower, upper=True)[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -523,6 +523,7 @@ PARENT = {"engine.phase": ("engine.step",),
           "engine.quantize": ("engine.phase",),
           "engine.censor": ("engine.phase",), "engine.dual": ("engine.step",),
           "engine.diagnostics": ("engine.step",),
+          "solve.factor": ("engine.solve",), "solve.apply": ("engine.solve",),
           "topology.all_gather": ("engine.mix", "engine.dual",
                                   "engine.diagnostics")}
 
@@ -679,8 +680,11 @@ def test_a_traced_engine_step_writes_the_layer_spans_of_an_unchanged_run(
                       "engine.solve": 2 * ROUNDS,
                       "engine.quantize": 2 * ROUNDS,
                       "engine.censor": 2 * ROUNDS, "engine.dual": ROUNDS,
-                      "engine.diagnostics": ROUNDS}
+                      "engine.diagnostics": ROUNDS,
+                      # the linear problem's systems: factored once a phase
+                      "solve.factor": 2, "solve.apply": 2 * ROUNDS}
     assert_nested(spans)
+    assert sum(a["rows"] for _, _, a in spans["solve.factor"]) == N
     assert [a["k"] for _, _, a in spans["engine.step"]] == list(
         range(ROUNDS))
     assert [a["phase"] for _, _, a in spans["engine.phase"][:2]] == [
