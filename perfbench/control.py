@@ -8,9 +8,10 @@ The control is the reference put in the program's place at the precision
 below the configuration's: for the convex cells float32 with every
 product's operands rounded to TF32 (``reference.convex.CONTROL``), for the
 LM cells 8-bit floating activations in place of bfloat16
-(``reference.xlstm.fp8``). It runs the cell's set-up iterations or steps
-from the same start, on the same data, graphs and draws, and is judged as
-the program is. ``--program`` adds the program's own readings (a run with a
+(``reference.xlstm.fp8``). It runs from the program's start, on the same
+data, graphs and draws: the convex cells' set-up iterations, the LM cell's
+steps up to the last the program's run judges (the set-up's and the window
+step drawn from the seed); it is judged as the program is. ``--program`` adds the program's own readings (a run with a
 window of one second), ``--faults`` the program's with each fault of the
 driver's ``FAULTS`` planted. One JSON line per reading.
 
@@ -55,13 +56,49 @@ def control_readings(workload: str, seed: int, device, overrides=None):
 
 
 def _lm_control(cfg, mix, seed, device):
-    """The reference in 8-bit activations against the float32 reference,
-    over the set-up's steps."""
-    params = inputs.lm_params(lm.model_of(cfg), seed, device)
-    control = lm.reference_run(cfg, mix, seed, params, device, xlstm.fp8)
-    reference = lm.reference_run(cfg, mix, seed, params, device,
-                                 lambda t: t)
-    return lm_ref.compare(control, reference)
+    """The reference in 8-bit activations in the program's place, over the
+    cell's judged steps (the set-up's and the window's drawn from the
+    seed), its gradient function recorded and its steps judged as the
+    program's are."""
+    import torch
+
+    n = cfg["workers"]
+    model, s = lm.model_of(cfg), lm_ref.Settings.of(cfg)
+    params = inputs.lm_params(model, seed, device)
+    setup = mix["setup_steps"]
+    judged = set(range(setup)) | {setup + i
+                                  for i in lm.sampled_steps(mix, seed)}
+    recorder = lm_ref.Recorder(cfg["local_steps"])
+    graph = lm.reference_graph(cfg)
+    trainer = lm_ref.Trainer(params, n, graph, model, s, xlstm.fp8,
+                             recorder)
+    gen = inputs.draw_generator(seed, device)
+    width = sum(x.numel() for x in params.values())
+    records = []
+    for i in range(max(judged) + 1):
+        tokens, labels = (torch.as_tensor(x, device=device)
+                          for x in lm.rows_of(cfg, mix, seed, i))
+        draws = gen.get_state()
+        recorder.on = i in judged
+        if recorder.on:
+            before = lm_ref.state_before(
+                records, i, lm_ref.initial_state(params, n, len(params),
+                                                 s.b0), trainer.snapshot)
+        loss = trainer.step(tokens, labels,
+                            torch.rand((n, width), generator=gen,
+                                       device=device),
+                            torch.rand((n, width), generator=gen,
+                                       device=device))
+        if recorder.on:
+            records.append({"step": i, "before": before,
+                            "after": trainer.snapshot(),
+                            "calls": recorder.take(), "draws": draws,
+                            "loss": loss})
+        recorder.on = False
+    del trainer
+    return lm_ref.judge_steps(
+        records, lambda rec: lm.step_inputs(cfg, mix, seed, rec, device),
+        graph, model, s, device)[0]
 
 
 def _convex_control(cfg, mix, seed, device):

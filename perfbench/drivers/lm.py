@@ -11,15 +11,21 @@ repeated over the workers. The benchmark makes the model's weights
 stochastic-rounding uniforms from the seed.
 
 Set-up builds the program's model from the configuration, checks that its
-parameters are the reference's layout, and runs ``setup_steps`` steps
-through the window's own loop and feed, keeping each step's reported loss,
-the leaf norms of the optimizer's moments after the first step and of each
-leaf's change after the last. The window runs whole steps until ``seconds``
-have passed and ends at a device synchronisation; every worker acts in
-every step, so a step consumes ``batch x seq`` tokens. After the window the
-program's state is freed and the float32 reference trains the same
-``setup_steps`` steps from the same weights, rows and uniforms
-(``reference/lm_consensus.py``).
+parameters are the reference's layout and that its state starts where
+the reference's does, and runs ``setup_steps`` steps through the window's
+own loop and feed. The window runs whole steps until ``seconds`` have
+passed and ends at a device synchronisation; every worker acts in every
+step, so a step consumes ``batch x seq`` tokens.
+
+Every set-up step, and ``window_checks`` window steps among the first
+``check_span`` drawn from the seed, are judged: their states before and
+after, and what the solve's gradient function was handed and gave back
+(``reference/lm_consensus.Recorder``), are copied to host memory, so that
+the peak device memory stays the program's. The copies of a window step are
+the harness's work, not the program's: their seconds are left out of the
+window's time. After the window the program's state is freed and the
+float32 reference judges each kept step stage by stage
+(``reference/lm_consensus.check_step``).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import sys
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from perfbench import inputs
@@ -39,6 +46,7 @@ from perfbench.reference import xlstm
 
 MODEL_KEYS = ("d_model", "lstm_heads", "vocab_size", "num_layers")
 FAULTS = ("unchanged", "half_batch", "no_exchange", "altered")
+SAMPLE_STREAM = 3
 
 
 def model_of(cfg: dict) -> dict:
@@ -79,7 +87,9 @@ def program_model(cfg: dict):
     return mcfg
 
 
-def _rows(cfg, mix, seed, step, fault):
+def rows_of(cfg, mix, seed, step, fault=None):
+    """A step's (N, B, S) tokens and labels; with a planted fault, the
+    rows the faulty program is fed."""
     n, per, seq = cfg["workers"], cfg["batch"] // cfg["workers"], cfg["seq"]
     tokens, labels = inputs.lm_tokens(mix, cfg["vocab_size"], seed, step, n,
                                       per, seq)
@@ -89,6 +99,13 @@ def _rows(cfg, mix, seed, step, fault):
         labels = labels.copy()
         labels[0] = (labels[0] + 1) % cfg["vocab_size"]
     return tokens, labels
+
+
+def sampled_steps(mix: dict, seed: int) -> set:
+    """The window steps judged, drawn from the seed."""
+    rng = np.random.default_rng(inputs.stream_seed(seed, SAMPLE_STREAM))
+    return set(int(i) for i in rng.choice(
+        mix["check_span"], size=mix["window_checks"], replace=False))
 
 
 def run(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
@@ -105,6 +122,16 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
 
     cuda = torch.device(device).type == "cuda"
     n = cfg["workers"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def flat(tree):
+        return dict(T.flatten_with_path(tree))
+
+    recorder = ref.Recorder(cfg["local_steps"])
+    t_built = time.perf_counter()
     with planted(fault):
         mcfg = program_model(cfg)
         params = inputs.lm_params(model_of(cfg), seed, device)
@@ -119,9 +146,9 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
             groups=cfg["groups"], censor_mode="global",
             mix_backend=mix["mix_backend"])
         topo = topo_lib.build(graph, ecfg.mix_backend, device=device)
-        solver = E.InexactSolver(grad_fn=train.lm_grad_fn(mcfg),
-                                 local_steps=cfg["local_steps"],
-                                 local_lr=cfg["lr"])
+        solver = E.InexactSolver(
+            grad_fn=recorder.wrap(train.lm_grad_fn(mcfg), flat),
+            local_steps=cfg["local_steps"], local_lr=cfg["lr"])
         state = E.init_state(theta, ecfg, solver)
         del theta
         step = E.make_step(graph, ecfg, solver,
@@ -134,69 +161,109 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
         def draw(phase: int) -> torch.Tensor:
             return torch.rand((n, width), generator=gen, device=device)
 
+        def view(st) -> dict:
+            q = st.quant
+            return {"theta": flat(st.theta), "theta_hat": flat(st.theta_hat),
+                    "alpha": flat(st.alpha), "q_hat": flat(q.q_hat),
+                    "mu": flat(st.opt_mu), "nu": flat(st.opt_nu),
+                    "range": q.range_prev, "bits": q.bits_prev,
+                    "delta": q.delta_prev, "init": q.initialized, "k": st.k}
+
+        n_groups = state.quant.n_groups
+        start_errors = ref.state_errors(view(state), ref.initial_state(
+            params, n, n_groups, cfg["bits"]))
+        params = ref.to_host(params)
         counter = {"steps": 0}
 
         def advance():
             nonlocal state
             i = counter["steps"]
-            tokens, labels = _rows(cfg, mix, seed, i, fault)
+            tokens, labels = rows_of(cfg, mix, seed, i, fault)
             batch = model_batch(mcfg, {"tokens": tokens, "labels": labels},
                                 device, step=i)
             counter["steps"] += 1
-            if fault == "unchanged":
-                draw(0), draw(1)
-                return state, {"loss": torch.tensor(float("nan"))}
-            state, m = step(state, draw, batch)
-            return state, m
+            new, m = step(state, draw, batch)
+            if fault != "unchanged":
+                state = new
+            return m
 
-        def flat(tree):
-            return dict(T.flatten_with_path(tree))
+        records = []
 
-        losses = []
-        mu_norms = None
-        for i in range(mix["setup_steps"]):
-            _, m = advance()
-            losses.append(float(m["loss"]))
-            if i == 0:
-                mu_norms = ref.leaf_norms(flat(state.opt_mu)) if isinstance(
-                    state.opt_mu, dict) else {}
-        change = ref.leaf_norms({p: x - params[p][None] for p, x in
-                                 flat(state.theta).items()})
-        if cuda:
-            torch.cuda.synchronize()
+        def judged() -> float:
+            """One step, kept for the judge; the seconds spent copying."""
+            sync()
+            t0 = time.perf_counter()
+            i = counter["steps"]
+            before = ref.state_before(
+                records, i, ref.initial_state(params, n, n_groups,
+                                              cfg["bits"]),
+                lambda: ref.snapshot(view(state)))
+            draws = gen.get_state()
+            copying = time.perf_counter() - t0
+            recorder.on = True
+            m = advance()
+            loss = float(m["loss"])
+            recorder.on = False
+            t1 = time.perf_counter()
+            records.append({"step": i, "before": before,
+                            "after": ref.snapshot(view(state)),
+                            "calls": recorder.take(), "draws": draws,
+                            "loss": loss})
+            copying += time.perf_counter() - t1 + recorder.seconds
+            recorder.seconds = 0.0
+            return copying
+
+        built = time.perf_counter()
+        for _ in range(mix["setup_steps"]):
+            judged()
+        sync()
         setup_end = time.perf_counter()
 
+        sampled = sampled_steps(mix, seed)
         summary = None
-        steps = 0
+        steps, copying = 0, 0.0
         t0 = time.perf_counter()
+        ends = []
         while True:
             if trace and steps == mix["trace_after"]:
                 summary = trace_lib.traced(advance, mix["trace_steps"],
                                            lambda: ops.launches)
                 steps += mix["trace_steps"]
+            elif steps in sampled:
+                copying += judged()
+                steps += 1
             else:
                 advance()
                 steps += 1
-            if (time.perf_counter() - t0 >= seconds
+            ends.append(time.perf_counter() - t0 - copying)
+            if (ends[-1] >= seconds
+                    and steps >= mix["check_span"]
                     and (not trace or summary is not None)):
                 break
-        if cuda:
-            torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
+        sync()
+        window_s = time.perf_counter() - t0 - copying
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         del state, step, solver, topo
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    program = {"losses": losses, "mu_norms": mu_norms, "change_norms": change}
-    reference = reference_run(cfg, mix, seed, params, device, lambda t: t)
-    readings = ref.compare(program, reference)
-    print(f"[perfbench] step losses: program {losses}, reference "
-          f"{reference['losses']}", file=sys.stderr)
+    print(f"[perfbench] set-up: built in {built - t_built:.3f} s, "
+          f"{mix['setup_steps']} judged steps in {setup_end - built:.3f} s; "
+          f"window {window_s:.3f} s of steps ending at {ends} s, "
+          f"{copying:.3f} s copying judged steps to host", file=sys.stderr)
+    t_judge = time.perf_counter()
+    readings, each = ref.judge_steps(
+        records, lambda rec: step_inputs(cfg, mix, seed, rec, device),
+        reference_graph(cfg), model_of(cfg), ref.Settings.of(cfg), device,
+        start_errors)
+    for rec, r in zip(records, each):
+        print(f"[perfbench] step {rec['step']}: {r}", file=sys.stderr)
+    print(f"[perfbench] judged {len(records)} steps in "
+          f"{time.perf_counter() - t_judge:.1f} s", file=sys.stderr)
     tokens = steps * cfg["batch"] * cfg["seq"]
     return {"iterations": steps, "done": tokens, "window_s": window_s,
             "setup_end": setup_end, "peak_bytes": peak, "readings": readings,
-            "per_iteration": [readings], "attempted": steps,
+            "per_iteration": each, "attempted": steps,
             "summary": summary,
             "work": {"workers": n, "width": width, "model": model_of(cfg),
                      "seq": cfg["seq"],
@@ -204,19 +271,17 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
                      "local_steps": cfg["local_steps"]}}
 
 
-def reference_run(cfg: dict, mix: dict, seed: int, params, device,
-                  act: xlstm.Act) -> dict:
-    """The reference (or, with another ``act``, the control) over the
-    set-up's steps, from the same weights, rows and uniforms."""
+def step_inputs(cfg, mix, seed, rec, device):
+    """A judged step's rows (as the benchmark made them, whatever the
+    program was fed) and its two uniform draws, drawn again from the
+    generator's state before the step (``rec["draws"]``)."""
+    tokens, labels = rows_of(cfg, mix, seed, rec["step"])
+    gen = torch.Generator(device=device)
+    gen.set_state(rec["draws"])
     n = cfg["workers"]
-    batches = []
-    for i in range(mix["setup_steps"]):
-        tokens, labels = _rows(cfg, mix, seed, i, None)
-        batches.append((torch.as_tensor(tokens, device=device),
-                        torch.as_tensor(labels, device=device)))
-    gen = inputs.draw_generator(seed, device)
-    width = sum(x.numel() for x in params.values())
-    return ref.run(params, n, reference_graph(cfg), model_of(cfg),
-                   ref.Settings.of(cfg), batches,
-                   lambda: torch.rand((n, width), generator=gen,
-                                      device=device), act)
+    width = sum(int(np.prod(s)) for s in
+                xlstm.layout(model_of(cfg)).values())
+    u0 = torch.rand((n, width), generator=gen, device=device)
+    u1 = torch.rand((n, width), generator=gen, device=device)
+    return (torch.as_tensor(tokens, device=device),
+            torch.as_tensor(labels, device=device), u0, u1)

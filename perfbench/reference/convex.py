@@ -234,9 +234,9 @@ def check_step(before: dict, after: dict, u0: torch.Tensor, u1: torch.Tensor,
         theta = after["theta"][rows].to(f64)
         out["solve_rel_err"] = max(out["solve_rel_err"],
                                    _rel(theta, theta_ref))
-        out["quant_errors"] += _quant_errors(before, after, rows, theta,
-                                             u[rows].to(f64), s)
-        out["censor_errors"] += _censor_errors(before, after, rows, tau)
+        out["quant_errors"] += quant_errors(before, after, rows, theta,
+                                            u[rows].to(f64), s)
+        out["censor_errors"] += censor_errors(before, after, rows, tau)
     deg = torch.as_tensor(graph.degrees, device=dev).to(f64)
     own, neigh = deg[:, None] * hat1, mix(graph.adjacency, hat1, REFERENCE)
     alpha_ref = alpha0 + s.rho * (own - neigh)
@@ -250,7 +250,7 @@ def check_step(before: dict, after: dict, u0: torch.Tensor, u1: torch.Tensor,
     return out
 
 
-def _quant_errors(before, after, rows, theta, u, s: Scheme) -> int:
+def quant_errors(before, after, rows, theta, u, s: Scheme) -> int:
     """Wrong outcomes of the program's quantization of its own ``theta``:
     ranges, bit widths, steps, and levels away from a rounding tie."""
     f64 = torch.float64
@@ -298,7 +298,7 @@ def _quant_errors(before, after, rows, theta, u, s: Scheme) -> int:
     return errors
 
 
-def _censor_errors(before, after, rows, tau: float) -> int:
+def censor_errors(before, after, rows, tau: float) -> int:
     """Wrong transmit decisions, and committed replicas that are neither
     the new reconstruction nor the old replica."""
     q1 = after["q_hat"][rows]

@@ -1,5 +1,6 @@
 """Plain CQ-GGADMM consensus training of a language model (the paper's
-Algorithm 2 with an inexact local solve), and the training comparison.
+Algorithm 2 with an inexact local solve), and the stage-by-stage judge of
+the program's steps.
 
 Written from the paper's equations in plain PyTorch over the per-worker
 parameters of ``reference/xlstm.py`` (a dict by path, leading worker axis
@@ -21,20 +22,35 @@ The stochastic-rounding uniforms of a phase are one (N, P) draw, P the
 parameter count, whose columns are the leaves in the order of their paths,
 each flattened row-major. The loss a step reports is the workers' mean
 loss after the step on the step's rows.
+
+:func:`check_step` judges one step of the program from its state before
+and after it and from what its local solve's gradient function was handed
+and gave back (a :class:`Recorder` keeps them). Each stage is recomputed
+from the program's own inputs to that stage, so that a step is judged by
+itself: bfloat16 activations and stochastic rounding make two correct
+trajectories part after the first step, and a comparison of trajectories
+reads that drift, not a fault.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Sequence
+import sys
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from perfbench.reference import convex
 from perfbench.reference import xlstm
 
 Path = xlstm.Path
+Leaves = Dict[Path, torch.Tensor]
 _EPS = 1e-12
+# the state a judge reads: per-worker trees by path, (N, G) quantizer sides
+TREES = ("theta", "theta_hat", "alpha", "q_hat", "mu", "nu")
+SIDES = ("range", "bits", "delta", "init")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,16 +73,138 @@ class Settings:
                         cfg["omega"], cfg["b_max"], cfg["local_steps"],
                         cfg["lr"])
 
+    def scheme(self) -> convex.Scheme:
+        return convex.Scheme(self.rho, self.tau0, self.xi, self.b0,
+                             self.omega, self.b_max)
+
 
 def _per_row(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-class Trainer:
-    """The whole consensus state, and its steps."""
+def loss_grads(th: Leaves, tokens: torch.Tensor, labels: torch.Tensor,
+               model: dict, act: xlstm.Act) -> Leaves:
+    """Each worker's gradient of its own mean loss on its rows."""
+    leaves = {p: x.detach().requires_grad_(True) for p, x in th.items()}
+    with torch.enable_grad():
+        total = xlstm.losses(leaves, tokens, labels, model, act).sum()
+        grads = torch.autograd.grad(total, list(leaves.values()))
+    return dict(zip(leaves, grads))
 
-    def __init__(self, params0: Dict[Path, torch.Tensor], n: int, graph,
-                 model: dict, s: Settings, act: xlstm.Act):
+
+def adam_step(th: Leaves, mu: Leaves, nu: Leaves, g: Leaves, v: Leaves,
+              quad: torch.Tensor, i: int, s: Settings
+              ) -> Tuple[Leaves, Leaves, Leaves]:
+    """Local step ``i`` of the solve: Adam on the gradient ``g`` of the
+    loss plus the augmented terms ``v + quad theta``."""
+    b1c, b2c = 1.0 - s.b1 ** (i + 1), 1.0 - s.b2 ** (i + 1)
+    out_th, out_mu, out_nu = {}, {}, {}
+    for p in th:
+        aug = g[p].float() + v[p] + _per_row(quad, th[p]) * th[p]
+        out_mu[p] = s.b1 * mu[p] + (1 - s.b1) * aug
+        out_nu[p] = s.b2 * nu[p] + (1 - s.b2) * aug.square()
+        out_th[p] = th[p] - s.lr * (out_mu[p] / b1c) / (
+            torch.sqrt(out_nu[p] / b2c) + s.eps)
+    return out_th, out_mu, out_nu
+
+
+def to_host(flat: Leaves) -> Leaves:
+    return {p: x.detach().to("cpu", copy=True) for p, x in flat.items()}
+
+
+class Recorder:
+    """While ``on``, keeps each call of a local solve's gradient function
+    in host memory: the parameters it was handed (after a solve's first
+    call, which gets the state's) and the gradient it gave back."""
+
+    def __init__(self, local_steps: int):
+        self.local_steps = local_steps
+        self.on = False
+        self.calls: List[Tuple[Optional[Leaves], Leaves]] = []
+        self.seconds = 0.0            # spent copying
+
+    def wrap(self, grad_fn: Callable, flatten: Callable[..., Leaves]
+             ) -> Callable:
+        def recorded(theta, batch):
+            g = grad_fn(theta, batch)
+            if self.on:
+                _sync(next(iter(flatten(g).values())))
+                t0 = time.perf_counter()
+                th = (None if len(self.calls) % self.local_steps == 0
+                      else to_host(flatten(theta)))
+                self.calls.append((th, to_host(flatten(g))))
+                self.seconds += time.perf_counter() - t0
+            return g
+        return recorded
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+def snapshot(state: dict) -> dict:
+    """A state as the judge reads it (``TREES`` by path, ``SIDES``, ``k``),
+    copied to host memory."""
+    out = {name: to_host(state[name]) for name in TREES}
+    out.update({name: state[name].detach().to("cpu", torch.float64,
+                                              copy=True)
+                for name in SIDES})
+    out["k"] = int(state["k"])
+    return out
+
+
+def initial_state(params0: Leaves, n: int, n_groups: int, b0: int) -> dict:
+    """The state before the first step, as views of ``params0``: every
+    worker at the shared model, the rest 0, b0 bits."""
+    zero = torch.zeros((), device=next(iter(params0.values())).device)
+    out = {"theta": {p: x[None].expand((n,) + x.shape)
+                     for p, x in params0.items()}}
+    for name in TREES[1:]:
+        out[name] = {p: zero.expand((n,) + x.shape)
+                     for p, x in params0.items()}
+    side = torch.zeros((n, n_groups), dtype=torch.float64,
+                       device=zero.device)
+    out.update(range=side, bits=side + b0, delta=side, init=side, k=0)
+    return out
+
+
+def state_before(records: Sequence[dict], step: int, start: dict,
+                 snap: Callable[[], dict]) -> dict:
+    """The state before ``step`` for its record: the last record's state
+    after it where that was the step before, ``start`` before the first
+    step, else a fresh ``snap()``."""
+    if records and records[-1]["step"] == step - 1:
+        return records[-1]["after"]
+    return start if step == 0 else snap()
+
+
+def state_errors(state: dict, want: dict) -> int:
+    """Entries of a state (as :func:`snapshot` lays it out, on any device)
+    that differ from ``want``."""
+    errors = int(state["k"] != want["k"])
+    for name in TREES:
+        for p, x in want[name].items():
+            errors += int((state[name][p] != x.to(state[name][p].device))
+                          .sum())
+    for name in SIDES:
+        errors += int((state[name].to(torch.float64)
+                       != want[name].to(state[name].device)).sum())
+    return errors
+
+
+class Trainer:
+    """The whole consensus state and its steps: the control runs this in
+    the program's place, with its gradient function recorded as the
+    program's is."""
+
+    def __init__(self, params0: Leaves, n: int, graph, model: dict,
+                 s: Settings, act: xlstm.Act,
+                 recorder: Optional[Recorder] = None):
         self.s, self.model, self.act, self.graph = s, model, act, graph
         dev = next(iter(params0.values())).device
         self.adj = torch.as_tensor(graph.adjacency, device=dev)
@@ -89,29 +227,31 @@ class Trainer:
         sizes = [int(np.prod(x.shape)) for x in params0.values()]
         self.offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
 
+        def grad_fn(th, batch):
+            return loss_grads(th, *batch, model, act)
+        self.grad_fn = (recorder.wrap(grad_fn, dict) if recorder is not None
+                        else grad_fn)
+
+    def snapshot(self) -> dict:
+        return snapshot({"theta": self.theta, "theta_hat": self.hat,
+                         "alpha": self.alpha, "q_hat": self.q,
+                         "mu": self.mu, "nu": self.nu, "range": self.r_prev,
+                         "bits": self.bits, "delta": self.delta,
+                         "init": self.init, "k": self.k})
+
     def _mix(self, tree):
         return {p: torch.einsum("nm,m...->n...", self.adj, x)
                 for p, x in tree.items()}
 
     def _solve(self, rows, v, tokens, labels):
-        s, quad = self.s, self.s.rho * self.deg[rows]
+        quad = self.s.rho * self.deg[rows]
         th = {p: x[rows] for p, x in self.theta.items()}
         mu = {p: x[rows] for p, x in self.mu.items()}
         nu = {p: x[rows] for p, x in self.nu.items()}
-        for i in range(s.local_steps):
-            leaves = {p: x.detach().requires_grad_(True)
-                      for p, x in th.items()}
-            with torch.enable_grad():
-                total = xlstm.losses(leaves, tokens[rows], labels[rows],
-                                     self.model, self.act).sum()
-                grads = torch.autograd.grad(total, list(leaves.values()))
-            b1c, b2c = 1.0 - s.b1 ** (i + 1), 1.0 - s.b2 ** (i + 1)
-            for p, g in zip(th, grads):
-                g = g + v[p][rows] + _per_row(quad, g) * th[p]
-                mu[p] = s.b1 * mu[p] + (1 - s.b1) * g
-                nu[p] = s.b2 * nu[p] + (1 - s.b2) * g.square()
-                th[p] = th[p] - s.lr * (mu[p] / b1c) / (
-                    torch.sqrt(nu[p] / b2c) + s.eps)
+        vr = {p: x[rows] for p, x in v.items()}
+        for i in range(self.s.local_steps):
+            g = self.grad_fn(th, (tokens[rows], labels[rows]))
+            th, mu, nu = adam_step(th, mu, nu, g, vr, quad, i, self.s)
         for p in th:
             self.theta[p][rows] = th[p].detach()
             self.mu[p][rows] = mu[p]
@@ -183,48 +323,235 @@ class Trainer:
                                       self.act).mean())
 
 
-def leaf_norms(tree: Dict[Path, torch.Tensor]) -> Dict[Path, float]:
-    return {p: float(torch.linalg.vector_norm(x.float())) for p, x in
-            tree.items()}
+# ------------------------------------------------------------ the judge --
+def _take(x: torch.Tensor, rows: torch.Tensor, dev) -> torch.Tensor:
+    return x[rows.to(x.device)].to(dev, torch.float32)
 
 
-def run(params0, n: int, graph, model: dict, s: Settings,
-        batches: Sequence, draws: Callable[[], torch.Tensor],
-        act: xlstm.Act) -> dict:
-    """The reference's (or the control's) first ``len(batches)`` steps:
-    each step's loss, the moments' leaf norms after the first step and the
-    leaves' change norms after the last."""
-    tr = Trainer(params0, n, graph, model, s, act)
-    losses: List[float] = []
-    mu_norms = None
-    for i, (tokens, labels) in enumerate(batches):
-        losses.append(tr.step(tokens, labels, draws(), draws()))
-        if i == 0:
-            mu_norms = leaf_norms(tr.mu)
-    change = leaf_norms({p: tr.theta[p] - params0[p][None]
-                         for p in tr.paths})
-    return {"losses": losses, "mu_norms": mu_norms, "change_norms": change}
+def worst_rel(got: Leaves, want: Leaves, base: Optional[Leaves] = None
+              ) -> Tuple[float, int, Path]:
+    """The worst (worker, leaf) of ||got - want|| against the larger of
+    ||base|| (``want`` by default) on that leaf and on the worker's median
+    leaf (some leaves' gradients are all but zero): the ratio, the row and
+    the leaf's path."""
+    base = want if base is None else base
+    num, den = [], []
+    for p in want:
+        diff = got[p].double() - want[p].double()
+        num.append(torch.linalg.vector_norm(diff.flatten(1), dim=1))
+        den.append(torch.linalg.vector_norm(base[p].double().flatten(1),
+                                            dim=1))
+    num, den = torch.stack(num, dim=1), torch.stack(den, dim=1)
+    floor = torch.maximum(den, den.median(dim=1, keepdim=True).values)
+    ratio = torch.where(num == 0, torch.zeros_like(num),
+                        num / torch.clamp_min(floor, 1e-300))
+    at = int(ratio.argmax())
+    worst = float(ratio.flatten()[at])
+    return ((worst if math.isfinite(worst) else math.inf),
+            at // len(want), list(want)[at % len(want)])
 
 
-def compare(program: dict, reference: dict) -> Dict[str, float]:
-    """The training readings: ``loss_gap``, the worst step's relative gap
-    of the reported loss; ``grad_gap`` and ``change_gap``, the worst leaf's
-    gap between the program's and the reference's norms of the first
-    step's moments and of the change over the steps, each against the
-    larger of that leaf's reference norm and the median leaf's. Leaves
-    whose reference moment is under a thousandth of the median leaf's move
-    by round-off alone and are left out of the change."""
-    out = {"loss_gap": max(abs(a - b) / abs(b) for a, b in
-                           zip(program["losses"], reference["losses"]))}
-    ref_mu = reference["mu_norms"]
-    med_mu = float(np.median(list(ref_mu.values())))
-    moving = [p for p in ref_mu if ref_mu[p] >= 1e-3 * med_mu]
-    for key, name, paths in (("mu_norms", "grad_gap", list(ref_mu)),
-                             ("change_norms", "change_gap", moving)):
-        want = reference[key]
-        med = float(np.median([want[p] for p in paths]))
-        out[name] = max(abs(program[key][p] - want[p]) / max(want[p], med)
-                        for p in paths)
+def whole_rel(got: Leaves, want: Leaves) -> Tuple[float, int, None]:
+    """The worst worker's ||got - want|| over ||want||, all leaves one
+    vector: the ratio and the row."""
+    num = sum(torch.linalg.vector_norm(
+        (got[p].double() - want[p].double()).flatten(1), dim=1).square()
+        for p in want)
+    den = sum(torch.linalg.vector_norm(want[p].double().flatten(1),
+                                       dim=1).square() for p in want)
+    ratio = torch.sqrt(num / torch.clamp_min(den, 1e-300))
+    at = int(ratio.argmax())
+    worst = float(ratio[at])
+    return (worst if math.isfinite(worst) else math.inf), at, None
+
+
+def check_step(before: dict, after: dict, calls: Sequence, loss: float,
+               tokens: torch.Tensor, labels: torch.Tensor, u0: torch.Tensor,
+               u1: torch.Tensor, graph, model: dict, s: Settings,
+               dev) -> Dict[str, float]:
+    """Judge one step ``before -> after`` of the program (states as
+    :func:`snapshot` keeps them; ``calls`` its gradient function's, as the
+    :class:`Recorder` keeps them, heads' then tails'; ``loss`` the loss it
+    reported) against the float32 reference, stage by stage, a phase's
+    workers at a time. Returns
+
+    * ``grad_rel_err``: each gradient the program's optimizer got against
+      the reference's at the parameters the program handed over, on the
+      worker's rows, all leaves one vector (:func:`whole_rel`; the worst
+      leaf, :func:`worst_rel`, is printed beside it as ``grad_leaf``: in
+      bfloat16 the mLSTM input gate's gradient alone is the noisiest);
+    * ``update_rel_err``: the parameters each local step hands on, and the
+      moments and parameters after the solve, against Adam worked out from
+      the program's own gradients and the ``v`` of the program's duals and
+      replicas (the parameters as the step's change);
+    * ``quant_errors`` and ``censor_errors``: wrong outcomes of each
+      group's quantization of the program's parameters and of the transmit
+      decisions (``reference/convex.py``'s counts, group by group);
+    * ``dual_rel_err``: the duals against Eq. 23 on the program's
+      replicas, relative to the norms of the terms the update sums;
+    * ``loss_gap``: the reported loss against the reference's at the
+      program's parameters after the step, relative."""
+    f64 = torch.float64
+    k_steps = s.local_steps
+    scheme = s.scheme()
+    paths = list(after["theta"])
+    head = torch.as_tensor(graph.head_mask)
+    adj = torch.as_tensor(graph.adjacency, device=dev).to(f64)
+    deg = torch.as_tensor(graph.degrees, device=dev).to(f64)
+    tau = scheme.tau(before["k"] + 1)
+    recorded = len(calls) == 2 * k_steps
+    out = {"grad_rel_err": 0.0 if recorded else math.inf,
+           "update_rel_err": 0.0 if recorded else math.inf,
+           "quant_errors": 0,
+           "censor_errors": int(after["k"] != before["k"] + 1)}
+    where: Dict[str, tuple] = {}
+
+    def note(name: str, reading: Tuple[float, int, Path], rows, phase):
+        if name not in where or reading[0] > where[name][0]:
+            where[name] = (reading[0], phase, int(rows[reading[1]]),
+                           reading[2])
+
+    def keep(name: str, reading: Tuple[float, int, Path], rows, phase):
+        out[name] = max(out[name], reading[0])
+        note(name, reading, rows, phase)
+
+    sizes = [int(np.prod(after["theta"][p].shape[1:])) for p in paths]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    loss_sum = 0.0
+    for phase, (mask, u, hat_src) in enumerate(((head, u0, before),
+                                                (~head, u1, after))):
+        rows = torch.nonzero(mask)[:, 0]
+        rd = rows.to(dev)
+        tok, lab = tokens[rd], labels[rd]
+        quad = (s.rho * deg[rd]).float()
+        th = {p: _take(before["theta"][p], rows, dev) for p in paths}
+        theta = {p: _take(after["theta"][p], rows, dev) for p in paths}
+        if recorded:
+            v = {p: (_take(before["alpha"][p], rows, dev).to(f64)
+                     - s.rho * torch.einsum(
+                         "rm,m...->r...", adj[rd],
+                         hat_src["theta_hat"][p].to(dev, f64))).float()
+                 for p in paths}
+            mu = {p: _take(before["mu"][p], rows, dev) for p in paths}
+            nu = {p: _take(before["nu"][p], rows, dev) for p in paths}
+            start = th
+            for i in range(k_steps):
+                given, g = calls[phase * k_steps + i]
+                if given is not None:
+                    given = {p: given[p].to(dev) for p in paths}
+                    keep("update_rel_err", _step_err(given, th, start), rows,
+                         phase)
+                    th = given
+                g = {p: g[p].to(dev) for p in paths}
+                want = loss_grads(th, tok, lab, model, lambda t: t)
+                keep("grad_rel_err", whole_rel(g, want), rows, phase)
+                note("grad_leaf", worst_rel(g, want), rows, phase)
+                del want
+                start = th
+                th, mu, nu = adam_step(th, mu, nu, g, v, quad, i, s)
+            keep("update_rel_err", _step_err(theta, th, start), rows, phase)
+            for name, want in (("mu", mu), ("nu", nu)):
+                keep("update_rel_err", worst_rel(
+                    {p: _take(after[name][p], rows, dev) for p in paths},
+                    want), rows, phase)
+            del v, mu, nu, start
+        for g, p in enumerate(paths):
+            out["quant_errors"] += _group_quant_errors(
+                before, after, rows, g, p, theta[p].to(f64),
+                u[rd, offsets[g]:offsets[g + 1]].to(f64), scheme, dev)
+        out["censor_errors"] += _censor_errors(before, after, rows, paths,
+                                               tau, dev)
+        with torch.no_grad():
+            loss_sum += float(xlstm.losses(theta, tok, lab, model,
+                                           lambda t: t).sum())
+        del theta, th
+    out["dual_rel_err"] = _dual_rel_err(before, after, adj, deg, s.rho,
+                                        paths, dev)
+    loss_ref = loss_sum / head.numel()
+    out["loss_gap"] = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"[perfbench] worst (reading, phase, worker, leaf): {where}; "
+          f"loss {loss!r}, reference {loss_ref!r}", file=sys.stderr)
     if not all(math.isfinite(v) for v in out.values()):
-        out = {k: math.inf for k in out}
+        out = {k: (v if math.isfinite(v) else math.inf)
+               for k, v in out.items()}
     return out
+
+
+def _step_err(got: Leaves, want: Leaves, start: Leaves
+              ) -> Tuple[float, int, Path]:
+    """Parameters after a local step against the expected ones, as the
+    step's change from ``start``."""
+    return worst_rel(got, want, {p: want[p] - start[p] for p in want})
+
+
+def _group_quant_errors(before, after, rows, g: int, p: Path, theta, u,
+                        scheme: convex.Scheme, dev) -> int:
+    """``convex.quant_errors`` on group ``g`` (the leaf ``p``) of the
+    phase's workers."""
+    r = len(rows)
+
+    def side(state, names):
+        return {k: state[k][rows, g].to(dev) for k in names}
+    b = dict(side(before, ("range", "bits", "init")),
+             q_hat=_take(before["q_hat"][p], rows, dev).reshape(r, -1))
+    a = dict(side(after, ("range", "bits", "delta")),
+             q_hat=_take(after["q_hat"][p], rows, dev).reshape(r, -1))
+    return convex.quant_errors(b, a, torch.arange(r, device=dev),
+                               theta.reshape(r, -1), u, scheme)
+
+
+def _censor_errors(before, after, rows, paths, tau: float, dev) -> int:
+    """``convex.censor_errors`` on the phase's workers, all leaves one
+    vector (global censoring)."""
+    def packed(state, name):
+        return torch.cat([_take(state[name][p], rows, dev).flatten(1)
+                          for p in paths], dim=1)
+    return convex.censor_errors(
+        {"theta_hat": packed(before, "theta_hat")},
+        {"q_hat": packed(after, "q_hat"),
+         "theta_hat": packed(after, "theta_hat")},
+        torch.arange(len(rows), device=dev), tau)
+
+
+def _dual_rel_err(before, after, adj, deg, rho: float, paths, dev) -> float:
+    """The duals after the step against alpha + rho (D - A) theta_hat,
+    relative to the norms of the terms the update sums (near consensus
+    D theta_hat and A theta_hat cancel)."""
+    f64 = torch.float64
+    sq = {"diff": 0.0, "alpha": 0.0, "own": 0.0, "neigh": 0.0}
+    for p in paths:
+        a0 = before["alpha"][p].to(dev, f64)
+        hat = after["theta_hat"][p].to(dev, f64)
+        own = _per_row(deg, hat) * hat
+        neigh = torch.einsum("nm,m...->n...", adj, hat)
+        want = a0 + rho * (own - neigh)
+        got = after["alpha"][p].to(dev, f64)
+        for key, x in (("diff", got - want), ("alpha", a0), ("own", own),
+                       ("neigh", neigh)):
+            sq[key] += float(x.square().sum())
+        del a0, hat, own, neigh, want, got
+    scale = math.sqrt(sq["alpha"]) + rho * (math.sqrt(sq["own"])
+                                            + math.sqrt(sq["neigh"]))
+    diff = math.sqrt(sq["diff"])
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+
+
+def judge_steps(records: Sequence[dict], inputs_of: Callable,
+                graph, model: dict, s: Settings, dev,
+                start_errors: int = 0):
+    """Every recorded step judged. Each record holds ``step``, ``before``,
+    ``after``, ``calls`` and ``loss``; ``inputs_of(record)`` gives that
+    step's (tokens, labels, u0, u1) on ``dev``. ``start_errors`` (the
+    program's state before its first step against
+    :func:`initial_state`) count as quantizer errors of the first record.
+    Returns the worst readings and each step's."""
+    readings = []
+    for rec in records:
+        tokens, labels, u0, u1 = inputs_of(rec)
+        readings.append(check_step(rec["before"], rec["after"],
+                                   rec["calls"], rec["loss"], tokens, labels,
+                                   u0, u1, graph, model, s, dev))
+        del tokens, labels, u0, u1
+    if readings:
+        readings[0]["quant_errors"] += start_errors
+    return convex.max_readings(readings), readings

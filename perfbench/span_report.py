@@ -10,11 +10,10 @@ device ms of the events launched inside it and the device idle ms while the
 host is inside it, each a traced iteration; ``idle_by_span``, every idle
 gap of the stretch charged to the innermost span open at its middle
 (``spans.idle_by_span``); and the checks of the spans against the
-profiler: the device time launched inside ``engine.solve`` against
-``solve_ms.convex`` (the kernels under ``aten::linalg_solve``), the device
-time launched inside all ``engine.*`` spans against the busy time, the
-gaps' sum against the stretch's idle time; and the longest gaps, each
-with its span, iteration and graph phase. The device intervals the idle
+profiler: the device time launched inside ``engine.solve`` and inside all
+``engine.*`` spans against the busy time, the gaps' sum against the
+stretch's idle time; and the longest gaps, each with its span, iteration
+and graph phase. The device intervals the idle
 needs are taken from the events ``trace.summarize`` is handed, which the
 summary does not keep.
 """
@@ -67,11 +66,9 @@ def checks(summary, device, got) -> dict:
                     if engine else None)
     gaps = spans_lib.union(device)
     gap_s = sum(b - a for (_, a), (b, _) in zip(gaps, gaps[1:]))
-    solve = summary.device_s_under("aten::linalg_solve")
     in_solve = (spans_lib.device_s_inside(summary, got["engine.solve"])
                 if "engine.solve" in got else None)
     return {"device_s_in_engine_solve": in_solve,
-            "device_s_under_linalg_solve": solve,
             "device_s_in_engine_spans": under_engine,
             "busy_s": summary.busy_s, "window_s": summary.window_s,
             "gaps_s": gap_s}

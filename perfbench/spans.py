@@ -87,7 +87,7 @@ def host_s(intervals: np.ndarray) -> float:
 def launched_inside(launched_at: np.ndarray,
                     intervals: np.ndarray) -> np.ndarray:
     """Which device events were launched inside one of the intervals
-    (ends included, as ``TraceSummary.device_s_under`` counts)."""
+    (ends included)."""
     inside = np.zeros(launched_at.shape, bool)
     known = ~np.isnan(launched_at)
     t = launched_at[known]

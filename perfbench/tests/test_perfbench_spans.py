@@ -113,6 +113,18 @@ def test_the_span_reduction(monkeypatch):
         [spans.NO_SPAN, pytest.approx(390e-6)]]
 
 
+def test_the_lm_solve_reader(monkeypatch):
+    """``solve_host_ms.lm``: host ms inside the ``engine.solve`` spans a
+    traced step; nothing without the spans."""
+    run, got = synthetic_run()
+    read = bench.reader("solve_host_ms.lm")
+    monkeypatch.setattr(spans, "program_spans", lambda r: got)
+    # the solves [100, 200] and [600, 700] us over 2 steps
+    assert read(run) == pytest.approx(0.1)
+    monkeypatch.setattr(spans, "program_spans", lambda r: None)
+    assert read(run) is None
+
+
 def test_the_anchor_leaves_the_existing_breakdown_as_it_was():
     """The anchor is one more host event before the stretch's first device
     event: the profiler's breakdown and the existing readers read the
@@ -124,7 +136,7 @@ def test_the_anchor_leaves_the_existing_breakdown_as_it_was():
                                    {}, 1e-3, 2)
     assert anchored.breakdown == plain.breakdown
     assert anchored.busy_s == plain.busy_s
-    for name in ("solve_ms.convex", "idle_pct.convex", "step_mfu.convex"):
+    for name in ("idle_pct.convex", "step_mfu.convex"):
         read = bench.reader(name)
         work = {"n": 8, "d": 32}
         assert read(SimpleNamespace(summary=anchored, work=work)) == read(
@@ -135,10 +147,13 @@ def test_the_anchor_leaves_the_existing_breakdown_as_it_was():
 def test_a_traced_cpu_rehearsal_places_each_span_around_its_ops(
         cell, monkeypatch):
     """The traced path of the cell on the CPU (the profiler's CPU events
-    only; the device synchronisations made no-ops): every
-    ``aten::linalg_solve`` lies inside an ``engine.solve`` span, within
-    50 us, and the cell's new readers read (device time 0: no device
-    events)."""
+    only; the device synchronisations made no-ops): each ``engine.solve``
+    span holds one ``solve.apply`` and, on a phase's first solve of a graph
+    (twice in the dynamic cell's stretch, which holds a redraw; never in
+    the dense cell's, factored in set-up), one ``solve.factor``; every
+    ``aten::linalg_lu_factor_ex`` lies inside a ``solve.factor`` span,
+    within 50 us; and the cell's new readers read (device time 0: no
+    device events)."""
     from repro_torch.obs import trace as obs_trace
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -150,10 +165,17 @@ def test_a_traced_cpu_rehearsal_places_each_span_around_its_ops(
     run = SimpleNamespace(summary=out["summary"])
     got = spans.program_spans(run)
     solves = got["engine.solve"]
-    aten = out["summary"].host_ops["aten::linalg_solve"]
-    assert len(aten) == len(solves) == 2 * out["summary"].iterations
-    for lo, hi in aten:
-        assert any(b - 50e-6 <= lo and hi <= e + 50e-6 for b, e in solves)
+    factors = got.get("solve.factor", np.zeros((0, 2)))
+    assert len(got["solve.apply"]) == len(solves) == 2 * out[
+        "summary"].iterations
+    assert len(factors) == (2 if "dynamic" in cell else 0)
+    for lo, hi in np.concatenate([got["solve.apply"], factors]):
+        assert sum(b <= lo and hi <= e for b, e in solves) == 1
+    lu = out["summary"].host_ops.get("aten::linalg_lu_factor_ex",
+                                     np.zeros((0, 2)))
+    assert len(lu) == len(factors)
+    for lo, hi in lu:
+        assert any(b - 50e-6 <= lo and hi <= e + 50e-6 for b, e in factors)
     _, layer = bench.cell_metrics(bench.load_spec(), cell)
     mine = [m["name"] for m in layer if m["name"] in NEW]
     assert len(mine) == (6 if "dynamic" in cell else 5)

@@ -5,10 +5,10 @@ The profiler's raw events are read (``kineto_results``), not its event
 tree: building the tree of one convex iteration, ~13,500 device events of
 the batched LU, took 79 s on the card. From the device events: the busy
 time (the union of their intervals), each kernel's recorded instances and
-summed time, the device time of the kernels a host op launched (a kernel's
-launching op is the host op whose correlation id it carries; it counts
-under every op whose interval holds that launch), and the longest idle
-gaps, each named by the innermost host event running at its middle. The
+summed time, the start of the host op that launched each (the host op whose
+correlation id it carries; ``spans.py`` lays the program's spans over these
+launches), and the longest idle gaps, each named by the innermost host
+event running at its middle. The
 program's launch counters (``ops.launches``) over the same stretch are set
 beside the profiler's instance counts; a kernel the profiler recorded fewer
 times than it was launched is reported on standard error, and its time per
@@ -62,19 +62,6 @@ class TraceSummary:
         if not hits:
             return None
         return sum(c for c, _ in hits), sum(t for _, t in hits)
-
-    def device_s_under(self, op: str) -> Optional[float]:
-        """Device seconds of the kernels launched inside host op ``op``;
-        None where the op or the kernels' launches were not recorded."""
-        spans = self.host_ops.get(op)
-        known = ~np.isnan(self.launched_at)
-        if spans is None or not known.any():
-            return None
-        t = self.launched_at[known]
-        inside = np.zeros(t.shape, bool)
-        for lo, hi in spans:
-            inside |= (t >= lo) & (t <= hi)
-        return float(self.durations[known][inside].sum())
 
 
 def union_length(intervals: Sequence[Tuple[float, float]]) -> float:
