@@ -79,26 +79,11 @@ def grouped_work(n_el: int) -> Tuple[float, float]:
             float(QUANT_OPS_PER_ELEM * n_el))
 
 
-def xlstm_token_flops(model: dict, seq: int) -> float:
-    """Forward matrix-product operations of one token of the xLSTM model
-    (``reference/xlstm.py``) at sequence length ``seq``: 2 per weight of
-    every projection (the mLSTM's up, q, k, v, gates and down; the sLSTM's
-    input and recurrent weights and its MLP; the tied unembedding), and the
-    mLSTM's q.k and weighted sum over the t <= seq positions before the
-    token (on average (seq + 1) / 2)."""
-    d, h = model["d_model"], model["lstm_heads"]
-    di, ff, dhs = 2 * d, int(4 * d / 3), d // h
-    units = model["num_layers"] // 2
-    mlstm = d * 2 * di + 3 * di * di + 2 * di * h + di * d
-    slstm = d * 4 * d + h * dhs * 4 * dhs + 3 * d * ff
-    weights = units * (mlstm + slstm) + d * model["vocab_size"]
-    causal = units * 2 * 2 * di * (seq + 1) / 2.0
-    return 2.0 * weights + causal
-
-
-def lm_step_flops(model: dict, seq: int, tokens: int,
+def lm_step_flops(token_flops: float, tokens: int,
                   local_steps: int) -> float:
     """The model operations a consensus step requires: forward and
     backward (twice the forward) of every acting worker's ``tokens`` in
-    each of its ``local_steps``; the loss the step reports is left out."""
-    return 3.0 * xlstm_token_flops(model, seq) * tokens * local_steps
+    each of its ``local_steps``, at ``token_flops`` forward operations a
+    token (the ``token_flops`` of the configuration's reference model); the
+    loss the step reports is left out."""
+    return 3.0 * token_flops * tokens * local_steps

@@ -7,13 +7,15 @@ control's and the planted faults', on several seeds in one process.
 The control is the reference put in the program's place at the precision
 below the configuration's: for the convex cells float32 with every
 product's operands rounded to TF32 (``reference.convex.CONTROL``), for the
-LM cells 8-bit floating activations in place of bfloat16
-(``reference.xlstm.fp8``). It runs from the program's start, on the same
-data, graphs and draws: the convex cells' set-up iterations, the LM cell's
-steps up to the last the program's run judges (the set-up's and the window
-step drawn from the seed); it is judged as the program is. ``--program`` adds the program's own readings (a run with a
-window of one second), ``--faults`` the program's with each fault of the
-driver's ``FAULTS`` planted. One JSON line per reading.
+LM cells 8-bit floating activations in place of bfloat16 (the ``fp8`` of
+the configuration's reference model). It runs from the program's start, on
+the same data, graphs, draws and (in a fleet cell) faults: the convex
+cells' set-up iterations, an LM cell's steps up to the last the program's
+run judges (the set-up's and the window step drawn from the seed); it is
+judged as the program is. ``--program`` adds the program's own readings (a
+run with a window of one second), ``--faults`` the program's with each
+fault the cell's comparison is shown to catch planted (the driver's
+``FAULTS``; an LM cell's ``lm.faults_of``). One JSON line per reading.
 
 Benchmark runs never run this; it sets and re-checks the limits in the
 configuration's ``limits``.
@@ -34,7 +36,6 @@ from perfbench.drivers import convex as driver  # noqa: E402
 from perfbench.drivers import lm  # noqa: E402
 from perfbench.reference import convex as ref  # noqa: E402
 from perfbench.reference import lm_consensus as lm_ref  # noqa: E402
-from perfbench.reference import xlstm  # noqa: E402
 
 
 def _cell(workload: str, overrides=None):
@@ -63,42 +64,58 @@ def _lm_control(cfg, mix, seed, device):
     import torch
 
     n = cfg["workers"]
-    model, s = lm.model_of(cfg), lm_ref.Settings.of(cfg)
-    params = inputs.lm_params(model, seed, device)
+    arch, s = lm.arch_of(cfg), lm_ref.Settings.of(cfg)
+    faults = lm.fleet_faults(mix)
+    params = inputs.lm_params(arch, lm.model_of(cfg), seed, device)
     setup = mix["setup_steps"]
     judged = set(range(setup)) | {setup + i
                                   for i in lm.sampled_steps(mix, seed)}
     recorder = lm_ref.Recorder(cfg["local_steps"])
     graph = lm.reference_graph(cfg)
-    trainer = lm_ref.Trainer(params, n, graph, model, s, xlstm.fp8,
-                             recorder)
+    trainer = lm_ref.Trainer(params, n, graph, lm.losses_of(cfg), s,
+                             arch.fp8, recorder,
+                             None if faults is None else (seed, faults))
     gen = inputs.draw_generator(seed, device)
     width = sum(x.numel() for x in params.values())
-    records = []
+    records, rounds = [], []
+
+    def start():
+        out = lm_ref.initial_state(params, n, len(params), s.b0)
+        if faults is not None:
+            out["buffer"] = lm_ref.empty_buffer(n)
+        return out
+
+    def snap():
+        out = trainer.snapshot()
+        if faults is not None:
+            out["buffer"] = trainer.buffer()
+        return out
+
     for i in range(max(judged) + 1):
         tokens, labels = (torch.as_tensor(x, device=device)
                           for x in lm.rows_of(cfg, mix, seed, i))
         draws = gen.get_state()
         recorder.on = i in judged
         if recorder.on:
-            before = lm_ref.state_before(
-                records, i, lm_ref.initial_state(params, n, len(params),
-                                                 s.b0), trainer.snapshot)
+            before = lm_ref.state_before(records, i, start(), snap)
         loss = trainer.step(tokens, labels,
                             torch.rand((n, width), generator=gen,
                                        device=device),
                             torch.rand((n, width), generator=gen,
                                        device=device))
+        if faults is not None:
+            rounds.append(trainer.reported)
         if recorder.on:
-            records.append({"step": i, "before": before,
-                            "after": trainer.snapshot(),
+            records.append({"step": i, "before": before, "after": snap(),
                             "calls": recorder.take(), "draws": draws,
                             "loss": loss})
         recorder.on = False
     del trainer
+    if faults is not None:
+        lm.attach_fleet(records, rounds, seed, faults, n)
     return lm_ref.judge_steps(
         records, lambda rec: lm.step_inputs(cfg, mix, seed, rec, device),
-        graph, model, s, device)[0]
+        graph, lm.losses_of(cfg), s, device)[0]
 
 
 def _convex_control(cfg, mix, seed, device):
@@ -149,8 +166,9 @@ def main(argv=None) -> int:
     if args.program:
         runs.append(("program", None))
     if args.faults:
-        faults = (lm if _cell(args.workload)[1]["driver"] == "lm"
-                  else driver).FAULTS
+        mix = _cell(args.workload)[1]
+        faults = (lm.faults_of(mix) if mix["driver"] == "lm"
+                  else driver.FAULTS)
         runs += [(f"fault:{f}", f) for f in faults]
     for seed in args.seeds:
         for label, fault in runs:

@@ -53,13 +53,13 @@ def draw_generator(seed: int, device) -> torch.Generator:
 PARAM_STREAM = 4
 
 
-def lm_params(model: dict, seed: int, device) -> dict:
-    """One model's parameters by path (``reference/xlstm.layout``): every
-    normal leaf from one ``torch.randn`` over their total count, scaled
-    leaf by leaf (``reference/xlstm.init_scales``), the constants filled."""
-    from perfbench.reference import xlstm
-
-    shapes, how = xlstm.layout(model), xlstm.init_scales(model)
+def lm_params(arch, model: dict, seed: int, device) -> dict:
+    """One model's parameters by path, as the reference model ``arch``
+    (a module of ``perfbench/reference/``) lays them out and draws them
+    (``arch.layout``, ``arch.init_scales``): every normal leaf from one
+    ``torch.randn`` over their total count, scaled leaf by leaf, the
+    constants filled."""
+    shapes, how = arch.layout(model), arch.init_scales(model)
     normal = [p for p in shapes if how[p][0] == "normal"]
     total = sum(math.prod(shapes[p]) for p in normal)
     gen = torch.Generator(device=device)

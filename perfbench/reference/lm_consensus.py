@@ -3,8 +3,10 @@ Algorithm 2 with an inexact local solve), and the stage-by-stage judge of
 the program's steps.
 
 Written from the paper's equations in plain PyTorch over the per-worker
-parameters of ``reference/xlstm.py`` (a dict by path, leading worker axis
-N); it imports nothing of the program. Per step, heads then tails:
+parameters of the configuration's reference model (a module of
+``reference/``, named by the configuration's ``reference``: a dict by
+path, leading worker axis N, and its ``losses``); it imports nothing of
+the program. Per step, heads then tails:
 
   v_n      = alpha_n - rho sum_{m in N_n} theta_hat_m
   theta_n  <- K Adam steps (b1 0.9, b2 0.95, eps 1e-8, the moments kept
@@ -18,6 +20,10 @@ N); it imports nothing of the program. Per step, heads then tails:
   transmit iff ||Qhat - theta_hat|| (all leaves) >= tau0 xi^{k+1}
   alpha   += rho (D - A) theta_hat
 
+Under a fleet's faults (``reference/fleet.py``) a worker transmits only
+where it also acts; after the dual update a delivery lands a parked
+reconstruction in ``theta_hat``.
+
 The stochastic-rounding uniforms of a phase are one (N, P) draw, P the
 parameter count, whose columns are the leaves in the order of their paths,
 each flattened row-major. The loss a step reports is the workers' mean
@@ -30,6 +36,10 @@ from the program's own inputs to that stage, so that a step is judged by
 itself: bfloat16 activations and stochastic rounding make two correct
 trajectories part after the first step, and a comparison of trajectories
 reads that drift, not a fault.
+
+A model enters as ``losses(params, tokens, labels, act)``: each worker's
+loss (W,), every term the program's loss adds, with the activations
+rounded by ``act``.
 """
 from __future__ import annotations
 
@@ -43,14 +53,21 @@ import numpy as np
 import torch
 
 from perfbench.reference import convex
-from perfbench.reference import xlstm
+from perfbench.reference import fleet as fleet_ref
 
-Path = xlstm.Path
+Path = Tuple[str, ...]
 Leaves = Dict[Path, torch.Tensor]
+Act = Callable[[torch.Tensor], torch.Tensor]
+LossFn = Callable[[Leaves, torch.Tensor, torch.Tensor, Act], torch.Tensor]
 _EPS = 1e-12
 # the state a judge reads: per-worker trees by path, (N, G) quantizer sides
 TREES = ("theta", "theta_hat", "alpha", "q_hat", "mu", "nu")
 SIDES = ("range", "bits", "delta", "init")
+# bits a transmission carries besides its levels: a group's range and
+# width (the program's ``b_overhead``)
+OVERHEAD_BITS = 64
+# the offered payload is summed in float32 over the groups: a few ulp
+BITS_TOL = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +100,11 @@ def _per_row(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def loss_grads(th: Leaves, tokens: torch.Tensor, labels: torch.Tensor,
-               model: dict, act: xlstm.Act) -> Leaves:
-    """Each worker's gradient of its own mean loss on its rows."""
+               losses: LossFn, act: Act) -> Leaves:
+    """Each worker's gradient of its own loss on its rows."""
     leaves = {p: x.detach().requires_grad_(True) for p, x in th.items()}
     with torch.enable_grad():
-        total = xlstm.losses(leaves, tokens, labels, model, act).sum()
+        total = losses(leaves, tokens, labels, act).sum()
         grads = torch.autograd.grad(total, list(leaves.values()))
     return dict(zip(leaves, grads))
 
@@ -197,15 +214,39 @@ def state_errors(state: dict, want: dict) -> int:
     return errors
 
 
+def buffer_snapshot(held: Leaves, bits: torch.Tensor,
+                    timer: torch.Tensor) -> dict:
+    """A fleet's delivery buffer as the judge reads it, copied to host
+    memory: the parked reconstruction of each worker with a packet in
+    flight (``timer > 0``; the other rows hold nothing), the parked bits
+    and the timers."""
+    timer = timer.detach().to("cpu", torch.int64).numpy()
+    return {"held": {int(n): {p: x[int(n)].detach().to("cpu", copy=True)
+                              for p, x in held.items()}
+                     for n in np.nonzero(timer > 0)[0]},
+            "bits": bits.detach().to("cpu", torch.float64).numpy(),
+            "timer": timer}
+
+
+def empty_buffer(n: int) -> dict:
+    """The delivery buffer before the first round."""
+    return {"held": {}, "bits": np.zeros(n), "timer": np.zeros(n, np.int64)}
+
+
 class Trainer:
     """The whole consensus state and its steps: the control runs this in
     the program's place, with its gradient function recorded as the
-    program's is."""
+    program's is. With ``faults`` (a seed and a
+    ``reference.fleet.Faults``) each step is a fleet round: the round's
+    draw decides who acts, a late packet is parked and delivered, and
+    ``reported`` holds the round's masks and bits as the program reports
+    them."""
 
-    def __init__(self, params0: Leaves, n: int, graph, model: dict,
-                 s: Settings, act: xlstm.Act,
-                 recorder: Optional[Recorder] = None):
-        self.s, self.model, self.act, self.graph = s, model, act, graph
+    def __init__(self, params0: Leaves, n: int, graph, losses: LossFn,
+                 s: Settings, act: Act,
+                 recorder: Optional[Recorder] = None,
+                 faults: Optional[Tuple[int, fleet_ref.Faults]] = None):
+        self.s, self.losses, self.act, self.graph = s, losses, act, graph
         dev = next(iter(params0.values())).device
         self.adj = torch.as_tensor(graph.adjacency, device=dev)
         self.deg = torch.as_tensor(graph.degrees, device=dev)
@@ -224,11 +265,16 @@ class Trainer:
         self.init = side.clone()
         self.k = 0
         self.paths = list(params0)
-        sizes = [int(np.prod(x.shape)) for x in params0.values()]
-        self.offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        self.sizes = [int(np.prod(x.shape)) for x in params0.values()]
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)]).tolist()
+        self.faults = faults
+        self.timer = np.zeros(n, np.int64)
+        self.held: Dict[int, Leaves] = {}
+        self.held_bits = np.zeros(n)
+        self.reported: Optional[Dict[str, np.ndarray]] = None
 
         def grad_fn(th, batch):
-            return loss_grads(th, *batch, model, act)
+            return loss_grads(th, *batch, losses, act)
         self.grad_fn = (recorder.wrap(grad_fn, dict) if recorder is not None
                         else grad_fn)
 
@@ -238,6 +284,10 @@ class Trainer:
                          "mu": self.mu, "nu": self.nu, "range": self.r_prev,
                          "bits": self.bits, "delta": self.delta,
                          "init": self.init, "k": self.k})
+
+    def buffer(self) -> dict:
+        return {"held": {n: to_host(x) for n, x in self.held.items()},
+                "bits": self.held_bits.copy(), "timer": self.timer.copy()}
 
     def _mix(self, tree):
         return {p: torch.einsum("nm,m...->n...", self.adj, x)
@@ -296,8 +346,17 @@ class Trainer:
         """One step on the (N, B, S) rows with the two phases' (N, P)
         uniforms; returns the reported loss."""
         s = self.s
-        head = torch.as_tensor(self.graph.head_mask, device=self.adj.device)
+        dev = self.adj.device
+        head = torch.as_tensor(self.graph.head_mask, device=dev)
+        n = head.numel()
         tau = s.tau0 * s.xi ** (self.k + 1)
+        acts = torch.ones(n, dtype=torch.bool, device=dev)
+        if self.faults is not None:
+            drop, lag = self.faults[1].draw(self.faults[0], self.k, range(n))
+            acts = torch.as_tensor(fleet_ref.advance(
+                self.timer, drop, lag, np.zeros(n, bool))
+                ["fleet_participation"], device=dev)
+        censor = torch.zeros(n, dtype=torch.bool, device=dev)
         for mask, u in ((head, u0), (~head, u1)):
             rows = torch.nonzero(mask)[:, 0]
             neigh = self._mix(self.hat)
@@ -307,7 +366,8 @@ class Trainer:
             change = torch.sqrt(sum(
                 (q_new[p] - self.hat[p][rows]).reshape(len(rows), -1)
                 .square().sum(dim=1) for p in self.paths))
-            tx = change >= tau
+            censor[rows] = change >= tau
+            tx = censor[rows] & acts[rows]
             for p in self.paths:
                 keep = _per_row(tx, q_new[p])
                 self.hat[p][rows] = torch.where(keep, q_new[p],
@@ -317,10 +377,36 @@ class Trainer:
         for p in self.paths:
             self.alpha[p] = self.alpha[p] + s.rho * (
                 _per_row(self.deg, self.hat[p]) * self.hat[p] - neigh[p])
+        if self.faults is not None:
+            self._deliver(drop, lag, censor.cpu().numpy())
         self.k += 1
         with torch.no_grad():
-            return float(xlstm.losses(self.theta, tokens, labels, self.model,
-                                      self.act).mean())
+            return float(self.losses(self.theta, tokens, labels,
+                                     self.act).mean())
+
+    def _deliver(self, drop, lag, censor) -> None:
+        """The fleet's buffer after the round's dual update: deliveries
+        land, packets that passed their censor test are parked."""
+        want = fleet_ref.advance(self.timer, drop, lag, censor)
+        offered = np.where(censor, self.bits.cpu().numpy() @ np.asarray(
+            self.sizes, np.float64) + OVERHEAD_BITS * len(self.paths), 0.0)
+        deliver, parked = want["fleet_deliver"], want["fleet_start"]
+        acted = censor & want["fleet_participation"]
+        self.reported = {
+            "fleet_participation": want["fleet_participation"],
+            "fleet_start": parked, "fleet_deliver": deliver,
+            "fleet_timer": want["fleet_timer"], "tx_mask": acted | deliver,
+            "payload_bits": (np.where(acted, offered, 0.0)
+                             + np.where(deliver, self.held_bits, 0.0)),
+            "censor_mask": censor, "offered_payload_bits": offered}
+        for n in np.nonzero(deliver)[0]:
+            for p, x in self.held.pop(int(n)).items():
+                self.hat[p][n] = x
+        for n in np.nonzero(parked)[0]:
+            self.held[int(n)] = {p: self.q[p][n].clone() for p in self.paths}
+        self.held_bits = np.where(parked, offered,
+                                  np.where(deliver, 0.0, self.held_bits))
+        self.timer = want["fleet_timer"]
 
 
 # ------------------------------------------------------------ the judge --
@@ -367,8 +453,8 @@ def whole_rel(got: Leaves, want: Leaves) -> Tuple[float, int, None]:
 
 def check_step(before: dict, after: dict, calls: Sequence, loss: float,
                tokens: torch.Tensor, labels: torch.Tensor, u0: torch.Tensor,
-               u1: torch.Tensor, graph, model: dict, s: Settings,
-               dev) -> Dict[str, float]:
+               u1: torch.Tensor, graph, losses: LossFn, s: Settings,
+               dev, fleet: Optional[dict] = None) -> Dict[str, float]:
     """Judge one step ``before -> after`` of the program (states as
     :func:`snapshot` keeps them; ``calls`` its gradient function's, as the
     :class:`Recorder` keeps them, heads' then tails'; ``loss`` the loss it
@@ -390,7 +476,22 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
     * ``dual_rel_err``: the duals against Eq. 23 on the program's
       replicas, relative to the norms of the terms the update sums;
     * ``loss_gap``: the reported loss against the reference's at the
-      program's parameters after the step, relative."""
+      program's parameters after the step, relative.
+
+    A fleet round (``fleet``: the delivery buffer ``before`` and ``after``
+    it, as :func:`buffer_snapshot` keeps them, the round's ``reported``
+    masks and bits, the masks the reference's draw and buffer ``want``,
+    ``reference/fleet.check_rounds``, and the wrong entries of the rounds
+    it answers for, ``round_errors``) is judged under those masks: the
+    phases mix, and the dual takes, the replicas before this round's
+    deliveries; a worker that does not act and changed its replica, and
+    a reported censor decision that is wrong away from a tie, are censor
+    errors; and ``fleet_errors`` counts a parked packet that is not the
+    worker's new reconstruction or its offered bits, a packet in flight
+    that changed, a delivery that did not land the parked packet or keeps
+    its bits, and offered bits that are not the worker's payload (its
+    groups' widths times their sizes, plus each group's range and width),
+    besides ``round_errors``."""
     f64 = torch.float64
     k_steps = s.local_steps
     scheme = s.scheme()
@@ -399,6 +500,11 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
     adj = torch.as_tensor(graph.adjacency, device=dev).to(f64)
     deg = torch.as_tensor(graph.degrees, device=dev).to(f64)
     tau = scheme.tau(before["k"] + 1)
+    acts, hat_mid = None, after["theta_hat"]
+    if fleet is not None:
+        acts = torch.as_tensor(fleet["want"]["fleet_participation"])
+        hat_mid = _before_deliveries(before["theta_hat"], after["theta_hat"],
+                                     fleet["want"]["fleet_deliver"])
     recorded = len(calls) == 2 * k_steps
     out = {"grad_rel_err": 0.0 if recorded else math.inf,
            "update_rel_err": 0.0 if recorded else math.inf,
@@ -418,8 +524,9 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
     sizes = [int(np.prod(after["theta"][p].shape[1:])) for p in paths]
     offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
     loss_sum = 0.0
-    for phase, (mask, u, hat_src) in enumerate(((head, u0, before),
-                                                (~head, u1, after))):
+    for phase, (mask, u, hat_src) in enumerate(((head, u0,
+                                                 before["theta_hat"]),
+                                                (~head, u1, hat_mid))):
         rows = torch.nonzero(mask)[:, 0]
         rd = rows.to(dev)
         tok, lab = tokens[rd], labels[rd]
@@ -430,7 +537,7 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
             v = {p: (_take(before["alpha"][p], rows, dev).to(f64)
                      - s.rho * torch.einsum(
                          "rm,m...->r...", adj[rd],
-                         hat_src["theta_hat"][p].to(dev, f64))).float()
+                         hat_src[p].to(dev, f64))).float()
                  for p in paths}
             mu = {p: _take(before["mu"][p], rows, dev) for p in paths}
             nu = {p: _take(before["nu"][p], rows, dev) for p in paths}
@@ -443,7 +550,7 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
                          phase)
                     th = given
                 g = {p: g[p].to(dev) for p in paths}
-                want = loss_grads(th, tok, lab, model, lambda t: t)
+                want = loss_grads(th, tok, lab, losses, lambda t: t)
                 keep("grad_rel_err", whole_rel(g, want), rows, phase)
                 note("grad_leaf", worst_rel(g, want), rows, phase)
                 del want
@@ -459,16 +566,20 @@ def check_step(before: dict, after: dict, calls: Sequence, loss: float,
             out["quant_errors"] += _group_quant_errors(
                 before, after, rows, g, p, theta[p].to(f64),
                 u[rd, offsets[g]:offsets[g + 1]].to(f64), scheme, dev)
-        out["censor_errors"] += _censor_errors(before, after, rows, paths,
-                                               tau, dev)
+        out["censor_errors"] += _censor_errors(
+            before["theta_hat"], hat_mid, after["q_hat"], rows, paths, tau,
+            dev, None if acts is None else acts[rows],
+            None if fleet is None else fleet["reported"]["censor_mask"])
         with torch.no_grad():
-            loss_sum += float(xlstm.losses(theta, tok, lab, model,
-                                           lambda t: t).sum())
+            loss_sum += float(losses(theta, tok, lab, lambda t: t).sum())
         del theta, th
-    out["dual_rel_err"] = _dual_rel_err(before, after, adj, deg, s.rho,
-                                        paths, dev)
+    out["dual_rel_err"] = _dual_rel_err(before, after, hat_mid, adj, deg,
+                                        s.rho, paths, dev)
     loss_ref = loss_sum / head.numel()
     out["loss_gap"] = abs(loss - loss_ref) / abs(loss_ref)
+    if fleet is not None:
+        out["fleet_errors"] = (_buffer_errors(after, fleet, sizes)
+                               + fleet.get("round_errors", 0))
     print(f"[perfbench] worst (reading, phase, worker, leaf): {where}; "
           f"loss {loss!r}, reference {loss_ref!r}", file=sys.stderr)
     if not all(math.isfinite(v) for v in out.values()):
@@ -500,28 +611,93 @@ def _group_quant_errors(before, after, rows, g: int, p: Path, theta, u,
                                theta.reshape(r, -1), u, scheme)
 
 
-def _censor_errors(before, after, rows, paths, tau: float, dev) -> int:
-    """``convex.censor_errors`` on the phase's workers, all leaves one
-    vector (global censoring)."""
-    def packed(state, name):
-        return torch.cat([_take(state[name][p], rows, dev).flatten(1)
+def _censor_errors(hat0: Leaves, hat1: Leaves, q1: Leaves, rows, paths,
+                   tau: float, dev, acts: Optional[torch.Tensor] = None,
+                   reported: Optional[np.ndarray] = None) -> int:
+    """``convex.censor_errors`` on the phase's workers that act (all of
+    them without ``acts``), all leaves one vector (global censoring), from
+    the replicas before the phase (``hat0``) and after it (``hat1``) and
+    the new reconstructions ``q1``; a worker that does not act and changed
+    its replica, and a ``reported`` censor decision (the program's, by
+    worker) that is wrong away from a tie, count too."""
+    def packed(tree):
+        return torch.cat([_take(tree[p], rows, dev).flatten(1)
                           for p in paths], dim=1)
-    return convex.censor_errors(
-        {"theta_hat": packed(before, "theta_hat")},
-        {"q_hat": packed(after, "q_hat"),
-         "theta_hat": packed(after, "theta_hat")},
-        torch.arange(len(rows), device=dev), tau)
+    h0, h1, q = packed(hat0), packed(hat1), packed(q1)
+    on = (torch.ones(len(rows), dtype=torch.bool) if acts is None
+          else acts.to(torch.bool))
+    errors = convex.censor_errors({"theta_hat": h0},
+                                  {"q_hat": q, "theta_hat": h1},
+                                  torch.nonzero(on)[:, 0].to(dev), tau)
+    errors += int((~torch.all(h1 == h0, dim=1).cpu() & ~on).sum())
+    if reported is not None:
+        change = torch.linalg.vector_norm(q.to(torch.float64)
+                                          - h0.to(torch.float64), dim=1)
+        tie = (change - tau).abs() <= convex.CENSOR_TIE * tau
+        said = torch.as_tensor(np.asarray(reported)[rows.cpu().numpy()] > 0,
+                               device=change.device)
+        errors += int(((said != (change >= tau)) & ~tie).sum())
+    return errors
 
 
-def _dual_rel_err(before, after, adj, deg, rho: float, paths, dev) -> float:
-    """The duals after the step against alpha + rho (D - A) theta_hat,
-    relative to the norms of the terms the update sums (near consensus
-    D theta_hat and A theta_hat cancel)."""
+def _before_deliveries(hat0: Leaves, hat1: Leaves, deliver) -> Leaves:
+    """The replicas after a fleet round's phases and before its
+    deliveries: ``hat1`` with each delivering worker's row as it was before
+    the round (a worker with a packet in flight does not act)."""
+    rows = np.nonzero(np.asarray(deliver))[0]
+    if not rows.size:
+        return hat1
+    out = {}
+    for p, x in hat1.items():
+        out[p] = x.clone()
+        out[p][rows] = hat0[p][rows].to(x.device, x.dtype)
+    return out
+
+
+def _buffer_errors(after: dict, fleet: dict, sizes: Sequence[int]) -> int:
+    """Wrong entries of a fleet round's delivery buffer and deliveries
+    (:func:`check_step`'s ``fleet_errors``)."""
+    b0, b1, got, want = (fleet["before"], fleet["after"], fleet["reported"],
+                         fleet["want"])
+    offered = np.asarray(got["offered_payload_bits"], np.float64)
+    said = np.asarray(got["censor_mask"]) > 0
+    payload = (after["bits"].numpy() @ np.asarray(sizes, np.float64)
+               + OVERHEAD_BITS * len(sizes))
+    errors = int(np.sum(np.abs(offered - np.where(said, payload, 0.0))
+                        > BITS_TOL * payload))
+
+    def equal(a: Optional[Leaves], b: Optional[Leaves]) -> bool:
+        return a is not None and b is not None and all(
+            torch.equal(a[p], b[p].to(a[p].device, a[p].dtype)) for p in b)
+
+    def row(tree: Leaves, n: int) -> Leaves:
+        return {p: x[n] for p, x in tree.items()}
+
+    for n in range(len(offered)):
+        held0, held1 = b0["held"].get(n), b1["held"].get(n)
+        if want["fleet_start"][n]:
+            errors += int(not equal(held1, row(after["q_hat"], n)))
+            errors += int(b1["bits"][n] != offered[n])
+        elif want["in_flight"][n] and not want["fleet_deliver"][n]:
+            errors += int(not equal(held1, held0))
+            errors += int(b1["bits"][n] != b0["bits"][n])
+        if want["fleet_deliver"][n]:
+            errors += int(not equal(row(after["theta_hat"], n), held0))
+            errors += int(b1["bits"][n] != 0.0)
+    return errors
+
+
+def _dual_rel_err(before, after, hats: Leaves, adj, deg, rho: float, paths,
+                  dev) -> float:
+    """The duals after the step against alpha + rho (D - A) theta_hat, the
+    replicas ``hats`` the update took, relative to the norms of the terms
+    the update sums (near consensus D theta_hat and A theta_hat
+    cancel)."""
     f64 = torch.float64
     sq = {"diff": 0.0, "alpha": 0.0, "own": 0.0, "neigh": 0.0}
     for p in paths:
         a0 = before["alpha"][p].to(dev, f64)
-        hat = after["theta_hat"][p].to(dev, f64)
+        hat = hats[p].to(dev, f64)
         own = _per_row(deg, hat) * hat
         neigh = torch.einsum("nm,m...->n...", adj, hat)
         want = a0 + rho * (own - neigh)
@@ -537,20 +713,22 @@ def _dual_rel_err(before, after, adj, deg, rho: float, paths, dev) -> float:
 
 
 def judge_steps(records: Sequence[dict], inputs_of: Callable,
-                graph, model: dict, s: Settings, dev,
+                graph, losses: LossFn, s: Settings, dev,
                 start_errors: int = 0):
     """Every recorded step judged. Each record holds ``step``, ``before``,
-    ``after``, ``calls`` and ``loss``; ``inputs_of(record)`` gives that
-    step's (tokens, labels, u0, u1) on ``dev``. ``start_errors`` (the
-    program's state before its first step against
-    :func:`initial_state`) count as quantizer errors of the first record.
-    Returns the worst readings and each step's."""
+    ``after``, ``calls`` and ``loss``, and in a fleet round ``fleet``
+    (:func:`check_step`'s); ``inputs_of(record)`` gives that step's
+    (tokens, labels, u0, u1) on ``dev``. ``start_errors`` (the program's
+    state before its first step against :func:`initial_state`) count as
+    quantizer errors of the first record. Returns the worst readings and
+    each step's."""
     readings = []
     for rec in records:
         tokens, labels, u0, u1 = inputs_of(rec)
         readings.append(check_step(rec["before"], rec["after"],
                                    rec["calls"], rec["loss"], tokens, labels,
-                                   u0, u1, graph, model, s, dev))
+                                   u0, u1, graph, losses, s, dev,
+                                   rec.get("fleet")))
         del tokens, labels, u0, u1
     if readings:
         readings[0]["quant_errors"] += start_errors

@@ -28,6 +28,11 @@ of width int(4 D / 3); a tied embedding and a final RMSNorm.
 projection's operands, weights included, and output, the norms' outputs,
 the residual stream, the cells' outputs, the logits); the identity for the
 float32 reference, a lower precision for the control.
+
+A configuration names this module as its ``reference``; the LM harness
+reads the model through the names every reference model exports:
+``MODEL_KEYS``, ``layout``, ``init_scales``, ``losses``, ``Act``, ``fp8``
+and ``token_flops``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ import torch.nn.functional as F
 Path = Tuple[str, ...]
 Act = Callable[[torch.Tensor], torch.Tensor]
 EPS = 1e-6
+# the configuration's keys that size the model, handed to the program's
+# ``ModelConfig.with_overrides`` and to every function here
+MODEL_KEYS = ("d_model", "lstm_heads", "vocab_size", "num_layers")
 
 
 def dims(c: dict) -> dict:
@@ -215,3 +223,19 @@ def fp8(x: torch.Tensor) -> torch.Tensor:
     scale = amax / 448.0
     q = (x.detach() / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
     return x + (q - x.detach())
+
+
+def token_flops(c: dict, seq: int) -> float:
+    """Forward matrix-product operations of one token at sequence length
+    ``seq``: 2 per weight of every projection (the mLSTM's up, q, k, v,
+    gates and down; the sLSTM's input and recurrent weights and its MLP;
+    the tied unembedding), and the mLSTM's q.k and weighted sum over the
+    t <= seq positions before the token (on average (seq + 1) / 2)."""
+    d, h = c["d_model"], c["lstm_heads"]
+    di, ff, dhs = 2 * d, int(4 * d / 3), d // h
+    units = c["num_layers"] // 2
+    mlstm = d * 2 * di + 3 * di * di + 2 * di * h + di * d
+    slstm = d * 4 * d + h * dhs * 4 * dhs + 3 * d * ff
+    weights = units * (mlstm + slstm) + d * c["vocab_size"]
+    causal = units * 2 * 2 * di * (seq + 1) / 2.0
+    return 2.0 * weights + causal

@@ -111,7 +111,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     mix = load_json(HERE / "traffic" / f"{wl['traffic']}.json")
     driver = importlib.import_module(f"perfbench.drivers.{mix['driver']}")
     out = driver.run(cfg, mix, seed, seconds, trace, device, fault)
-    limits = cfg["limits"]
+    # a mix may add limits of its own (a fleet's) to the configuration's
+    limits = dict(cfg["limits"], **mix.get("limits", {}))
     checks = [(k, float(out["readings"][k]), float(limits[k]))
               for k in limits]
     correct = all(v <= lim for _, v, lim in checks)

@@ -1,7 +1,9 @@
 """CPU tests of the benchmark harness: discovery by name, the result line's
 keys, the import rules, the trace reduction, a tiny rehearsal of each
 cell's loop, the comparison failing the control and each planted fault,
-and the LM judge reading each step from its own inputs.
+the LM judge reading each step from its own inputs, a second model through
+the LM harness by new files only, and the fleet's draw, masks and dark
+share.
 
     PYTHONPATH=src python -m pytest -q perfbench/tests
 
@@ -42,7 +44,8 @@ TINY = {"epsilon-linreg": {"workers": 8, "rows_per_worker": 40,
                        "seq": 16, "batch": 8, "dtype": "float32"}}
 SEED = 2 ** 31 + 12345
 CELLS = ("epsilon-linreg.dense", "epsilon-linreg.dynamic-sparse",
-         "xlstm-125m.consensus")
+         "xlstm-125m.consensus", "xlstm-125m.fleet-faults")
+FLEET = "xlstm-125m.fleet-faults"
 CPU = torch.device("cpu")
 
 
@@ -71,8 +74,10 @@ def _driver(cell):
 def _limits(cell):
     spec = bench.load_spec()
     wl = bench.find(spec["workloads"], cell)
-    return bench.load_json(ROOT / bench.find(spec["configs"],
-                                             wl["config"])["file"])["limits"]
+    mix = bench.load_json(bench.HERE / "traffic" / f"{wl['traffic']}.json")
+    return dict(bench.load_json(ROOT / bench.find(
+        spec["configs"], wl["config"])["file"])["limits"],
+        **mix.get("limits", {}))
 
 
 def test_cells_configs_mixes_and_metrics_are_found_by_name():
@@ -137,6 +142,21 @@ def test_a_planted_fault_is_judged_not_correct(cell, fault):
     assert result["failed"] > 0
 
 
+@pytest.mark.parametrize("fault", ("deliver_now", "no_timeout"))
+def test_a_planted_fleet_fault_is_judged_not_correct(fault):
+    from perfbench.drivers import lm
+
+    assert fault in _driver(FLEET).FLEET_FAULTS
+    result, _, checks = bench.run_cell(FLEET, SEED, 0.1, False, CPU,
+                                       time.perf_counter(), _tiny(FLEET),
+                                       fault=fault)
+    assert not result["correct"], checks
+    assert result["failed"] > 0
+    assert dict((k, v) for k, v, _ in checks)["fleet_errors"] > 0
+    assert lm.faults_of(bench.load_json(
+        bench.HERE / "traffic" / "consensus.json")) == lm.FAULTS
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_a_limit(cell):
     readings = control.control_readings(cell, SEED, CPU, _tiny(cell))
@@ -187,21 +207,26 @@ def test_a_judged_step_after_an_undetected_drift_reads_correct(monkeypatch):
         out["readings"]
 
 
-def test_a_traced_lm_rehearsal_reads_its_host_metrics(monkeypatch):
-    """The LM cell's traced path on the CPU (the device synchronisations
+@pytest.mark.parametrize("cell", CELLS[2:])
+def test_a_traced_lm_rehearsal_reads_its_host_metrics(monkeypatch, cell):
+    """The LM cells' traced path on the CPU (the device synchronisations
     made no-ops) is correct and reads the metrics a CPU trace holds: the
-    step's share of the peak and the local solve's host time; the device
-    readers find no device events and read nothing."""
+    step's share of the peak, the local solve's host time and a fleet's
+    dark share, which equals the judge's own count from its draw; the
+    device readers find no device events and read nothing."""
     from repro_torch.obs import trace as obs_trace
 
-    cell = CELLS[2]
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     obs_trace.disable(save=False)
     result, out, checks = bench.run_cell(cell, SEED, 0.1, True, CPU,
                                          time.perf_counter(), _tiny(cell))
     assert result["correct"], checks
     got = result["metrics"]
-    assert set(got) == {"step_mfu.lm", "solve_host_ms.lm"}, got
+    want = {"step_mfu.lm", "solve_host_ms.lm"}
+    if cell == FLEET:
+        want.add("fleet_dark_share.lm")
+        assert got["fleet_dark_share.lm"]["value"] == out["dark_share"]
+    assert set(got) == want, got
     assert all(v["value"] > 0 for v in got.values())
 
 
